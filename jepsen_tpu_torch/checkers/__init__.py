@@ -1,0 +1,10 @@
+"""Checkers — upstream: ``jepsen/src/jepsen/checker.clj`` plus Knossos.
+
+- :mod:`.facade` — the composable ``Checker`` API and the ``auto`` chain.
+- :mod:`.reach` — the dense-reachability search (host prep, routing,
+  torch walks, witness).
+- :mod:`.reach_lane` — the single-history walk as one CUDA kernel, with
+  its plain PyTorch version.
+- :mod:`.wgl_ref` — the Python Wing-Gong-Lowe oracle.
+- :mod:`.events` — host-side slot/event-stream preprocessing.
+"""

@@ -1,0 +1,212 @@
+"""The composable ``Checker`` API — upstream ``jepsen/src/jepsen/checker.clj``:
+``linearizable`` delegating to the search engines (as the upstream
+delegates to Knossos via ``knossos.competition/analysis``), and
+``check_safe``.
+
+API shape: ``checker.check(test, history, opts) -> dict`` with at least a
+``"valid"`` key (``True`` / ``False`` / ``"unknown"``), the model carried
+by the checker (or the test map).
+"""
+from __future__ import annotations
+
+import logging
+import traceback as _traceback
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+from jepsen_tpu_torch import device as _device
+from jepsen_tpu_torch import history as h
+from jepsen_tpu_torch import obs
+from jepsen_tpu_torch.models import Model
+from jepsen_tpu_torch.op import Op
+
+
+class Checker:
+    """Base checker (upstream ``jepsen.checker/Checker`` protocol)."""
+
+    name = "checker"
+
+    def check(self, test: Optional[Mapping], history: Sequence[Op],
+              opts: Optional[Mapping] = None) -> Dict[str, Any]:
+        raise NotImplementedError
+
+
+def check_safe(checker: Checker, test: Optional[Mapping],
+               history: Sequence[Op],
+               opts: Optional[Mapping] = None) -> Dict[str, Any]:
+    """Run a checker, turning exceptions into ``{"valid": "unknown"}``
+    (upstream ``jepsen.checker/check-safe``) — never silently: the
+    traceback is logged, returned under ``"traceback"``, and recorded in
+    the ``obs`` ledger."""
+    try:
+        return checker.check(test, history, opts)
+    except Exception as e:                              # noqa: BLE001
+        name = getattr(checker, "name", type(checker).__name__)
+        tb = _traceback.format_exc()
+        logging.getLogger("jepsen.checker").warning(
+            "checker %s crashed (returning unknown): %s", name, e,
+            exc_info=e)
+        obs.checker_swallowed(name, type(e).__name__, ops=len(history))
+        return {"valid": "unknown",
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": tb}
+
+
+def _model_from(model: Optional[Model], test: Optional[Mapping]) -> Model:
+    if model is not None:
+        return model
+    if test is not None and test.get("model") is not None:
+        return test["model"]
+    raise ValueError("no model given (checker or test['model'])")
+
+
+@dataclass
+class Linearizable(Checker):
+    """Linearizability via the search engines (upstream
+    ``jepsen.checker/linearizable``).
+
+    ``algorithm``:
+
+    - ``"auto"`` (default): the dense-reachability engine on the card,
+      then the stages of the reference's chain as they are ported, then
+      the Python oracle (:func:`auto_check_packed`).
+    - ``"reach"`` — the dense engine alone
+      (:mod:`jepsen_tpu_torch.checkers.reach`).
+    - ``"wgl-cpu"`` — the Python oracle
+      (:mod:`jepsen_tpu_torch.checkers.wgl_ref`).
+
+    ``device`` (or ``opts["device"]``) names where the dense engine runs:
+    the card by default; ``"cpu"`` runs the plain PyTorch versions.
+    """
+    model: Optional[Model] = None
+    algorithm: str = "auto"
+    opts: Dict[str, Any] = field(default_factory=dict)
+    device: Optional[str] = None
+    name = "linearizable"
+
+    def check(self, test, history, opts=None):
+        from jepsen_tpu_torch.checkers import reach, wgl_ref
+
+        model = _model_from(self.model, test)
+        kw = dict(self.opts)
+        if self.device is not None:
+            kw.setdefault("device", self.device)
+        if opts:
+            kw.update({k: v for k, v in opts.items() if k != "model"})
+        algorithm = kw.pop("algorithm", self.algorithm)
+        if algorithm == "reach":
+            return reach.check(model, history, **_engine_kw(kw, _REACH_KW))
+        if algorithm == "wgl-cpu":
+            return wgl_ref.check(model, history, **_engine_kw(kw, _WGL_KW))
+        if algorithm == "auto":
+            from jepsen_tpu_torch import models as _models
+            with obs.span("facade.pack", ops=len(history)):
+                packed = h.pack(history)
+            if isinstance(model, _models.MultiRegister):
+                # the reference first splits single-key multi-register
+                # histories per key (P-compositionality)
+                obs.decision("decompose", "skipped", cause="not-ported",
+                             ops=packed.n)
+            return auto_check_packed(model, packed, kw)
+        raise NotImplementedError(f"algorithm {algorithm!r} not ported")
+
+
+def linearizable(model: Optional[Model] = None,
+                 algorithm: str = "auto", **opts: Any) -> Linearizable:
+    return Linearizable(model=model, algorithm=algorithm, opts=opts)
+
+
+def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
+    """The ``auto`` chain at the packed level, first conclusive verdict
+    wins: dense engine on ``kw["device"]`` (default: the card) → C++ WGL
+    → sparse frontier → restricted product / transactional screen
+    (multi-register models) → Python oracle. Stages not ported yet are
+    recorded as ``obs.decision(stage, "skipped", cause="not-ported")``.
+
+    A ``time_limit`` in ``kw`` budgets the chain as a whole. Every stage
+    transition lands in the engine-decision ledger: exactly one
+    ``"selected"`` record per call and one ``"fallback"`` record per
+    abandoned stage."""
+    import time as _time
+
+    from jepsen_tpu_torch import models as _models
+    from jepsen_tpu_torch.checkers import reach, wgl_ref
+    from jepsen_tpu_torch.checkers.events import ConcurrencyOverflow
+    from jepsen_tpu_torch.models.memo import StateExplosion
+
+    dev = _device.resolve(kw.get("device"))
+    geom = {"ops": packed.n, "ok-ops": packed.n_ok}
+    t_stage = _time.monotonic()
+
+    def _selected(res: Dict[str, Any], default_stage: str
+                  ) -> Dict[str, Any]:
+        obs.engine_selected(res.get("engine", default_stage), **geom,
+                            valid=res.get("valid"),
+                            elapsed_s=round(_time.monotonic() - t_stage,
+                                            6))
+        return res
+
+    def _fellback(stage: str, cause: str) -> None:
+        nonlocal t_stage
+        obs.engine_fallback(stage, cause, **geom,
+                            elapsed_s=round(_time.monotonic() - t_stage,
+                                            6))
+        t_stage = _time.monotonic()
+
+    def _skipped(stage: str) -> None:
+        obs.count(f"engine.skipped.{stage}.not-ported")
+        obs.decision(stage, "skipped", cause="not-ported", **geom)
+
+    tl = kw.get("time_limit")
+    deadline = _time.monotonic() + tl if tl else None
+
+    def _spent() -> bool:
+        return deadline is not None and _time.monotonic() >= deadline
+
+    def _budgeted(ekw: Dict[str, Any]) -> Dict[str, Any]:
+        if deadline is not None:
+            ekw["time_limit"] = max(1e-3, deadline - _time.monotonic())
+        return ekw
+
+    ekw = _engine_kw(kw, _REACH_KW)
+    ekw["device"] = dev
+    if deadline is not None:
+        # the dense stage honours the chain budget through its abort hook
+        user_abort = ekw.get("should_abort")
+        ekw["should_abort"] = ((lambda: user_abort() or _spent())
+                               if user_abort is not None else _spent)
+    try:
+        with obs.span("facade.reach", **geom):
+            res = reach.check_packed(model, packed, **ekw)
+        if res.get("valid") in (True, False):
+            return _selected(res, "reach")
+        _fellback("reach", f"unknown:{res.get('cause', '?')}")
+    except (reach.DenseOverflow, StateExplosion,
+            ConcurrencyOverflow) as e:
+        _fellback("reach", type(e).__name__)
+    if not _spent():
+        _skipped("wgl-native")
+        _skipped("frontier")
+    if isinstance(model, _models.MultiRegister):
+        _skipped("restricted-product")
+        _skipped("transactional-screen")
+    if _spent():
+        obs.decision("auto-chain", "timeout", **geom)
+        return {"valid": "unknown", "cause": "timeout",
+                "engine": "auto-chain"}
+    with obs.span("facade.wgl-cpu", **geom):
+        res = wgl_ref.check_packed(model, packed,
+                                   **_budgeted(_engine_kw(kw, _WGL_KW)))
+    res["engine"] = "wgl-cpu-fallback"
+    return _selected(res, "wgl-cpu-fallback")
+
+
+# keyword subsets understood by each engine; user opts are filtered so one
+# checker config can carry opts for every algorithm it may route to.
+_REACH_KW = ("max_states", "max_slots", "max_dense", "should_abort",
+             "device")
+_WGL_KW = ("time_limit", "max_configs", "strategy", "should_abort")
+
+
+def _engine_kw(kw: Mapping, allowed: Sequence[str]) -> Dict[str, Any]:
+    return {k: v for k, v in kw.items() if k in allowed}
