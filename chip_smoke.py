@@ -2,13 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc``, holds each
-kernel bit for bit against its plain PyTorch version on the card, then
-drives the main path — ``Linearizable(cas_register()).check`` on a
-100,000-op history, valid and corrupted, and on a 1,000,000-op history —
-and checks the verdicts. Exits non-zero, with no result line, when there
-is no CUDA device or any phase fails. The last two lines are one JSON
-object of per-kernel numbers and ``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
+``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``), holds each kernel
+bit for bit against its plain PyTorch version on the card at the shapes
+the main path gives it, then drives the main path through the user's
+entry points and checks the results:
+
+- ``Linearizable(cas_register()).check`` on a 100,000-op history
+  (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
+  one against the CPU run and against K1), and on a 1,000,000-op one;
+- the same on a 30,000-op history, below chunk-lockstep's floor (K1);
+- ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
+  50 ops (one K3 launch), against the CPU run.
+
+Exits non-zero, with no result line, when there is no CUDA device or any
+phase fails. The last three lines are one JSON object of per-kernel
+numbers, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -26,6 +36,12 @@ HBM_RATE = 3.35e12       # H100 SXM device-memory bytes/s
 # lanes per SM, one operation each per clock: 132 x 64 x 1.98e9
 INT32_PEAK = 132 * 64 * 1.98e9
 
+# the independent suite's defaults (suites/register.py independent_test
+# at 2,000 keys): 50 ops a key, 4 processes a key; every 100th key from
+# key 7 on is corrupted
+N_KEYS, OPS_PER_KEY, KEY_PROCS = 2_000, 50, 4
+BAD_KEYS = tuple(range(7, N_KEYS, 100))
+
 
 def log(*a):
     print(*a, flush=True)
@@ -38,23 +54,25 @@ def smi() -> str:
         check=True).stdout.strip()
 
 
-def lane_operands(kind, n_ops, processes, seed, corrupt=False):
-    """The reference-shaped numpy operands of one history's returns walk."""
-    from jepsen_tpu_torch import fixtures, history
+def history_operands(h, model):
+    """The reference-shaped numpy operands of one history's returns
+    walk: ``(P, returns view, M)``."""
+    from jepsen_tpu_torch import history
     from jepsen_tpu_torch.checkers import events as ev
     from jepsen_tpu_torch.checkers import reach
 
+    memo, stream, _T, S_pad, M = reach._prep(
+        model, history.pack(h), max_states=100_000, max_slots=20,
+        max_dense=1 << 22)
+    return reach._build_P(memo, S_pad), ev.returns_view(stream), M
+
+
+def gen(kind, n_ops, processes, seed, corrupt=False):
+    from jepsen_tpu_torch import fixtures
+
     h = fixtures.gen_history(kind, n_ops=n_ops, processes=processes,
                              seed=seed)
-    if corrupt:
-        h = fixtures.corrupt(h, seed=seed)
-    memo, stream, _T, S_pad, M = reach._prep(
-        fixtures.model_for(kind), history.pack(h), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
-    rs = ev.returns_view(stream)
-    R0 = np.zeros((S_pad, M), bool)
-    R0[0, 0] = True
-    return reach._build_P(memo, S_pad), rs, R0
+    return fixtures.corrupt(h, seed=seed) if corrupt else h
 
 
 def event_ms(fn, n: int) -> float:
@@ -71,62 +89,95 @@ def event_ms(fn, n: int) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def lane_work(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
-              R0_sm: np.ndarray, n_pass: int):
+def plain_ms(fn):
+    """One run of a plain version on the card: ``(result, ms)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def words(sets: np.ndarray) -> np.ndarray:
+    """0/1 sets ``[H, M, S]`` as state words ``[H, M]``."""
+    S = sets.shape[-1]
+    return ((sets > 0.5).astype(np.int64) << np.arange(S)).sum(-1)
+
+
+def walk_work(P: np.ndarray, ret_rh: np.ndarray, ops_rhw: np.ndarray,
+              v0: np.ndarray, n_pass: int, lens=None):
     """The 32-bit operations these inputs need in the bit form of the
-    walk, by replaying it on the host with numpy: a mask's states are one
-    word; firing pending slot j into mask m (bit j set) ORs the partner
-    set's P rows, one per set bit, and ORs the image in; a projection
-    moves M words. Returns ``(operations, final bool[S, M])``; the final
-    set is a third, independent check of the kernel."""
+    walk, by replaying H walks in lockstep on the host with numpy, each
+    as the kernels run it: a mask's states are one word; per return,
+    ``min(c, n_pass)`` Jacobi passes, firing pending slot j into mask m
+    (bit j set) ORs the partner set's P rows, one per set bit, and ORs
+    the image in; a projection moves M words. ``ret_rh`` [R, H],
+    ``ops_rhw`` [R, H, W], ``v0`` words [H, M]. With ``lens`` (the keyed
+    walk) walk h stops after the first of its ``lens[h]`` returns that
+    empties it. Returns ``(operations, final words [H, M], dead [H])``;
+    the final sets are an independent check of the kernel."""
     O1, S, _ = P.shape
-    W = slot_ops.shape[1]
+    R, H, W = ops_rhw.shape
     M = 1 << W
     Pw = ((P > 0.5).astype(np.int64) << np.arange(S)).sum(2)   # [O1, S]
-    v = ((R0_sm.T.astype(np.int64)) << np.arange(S)).sum(1)    # [M]
+    v = v0.astype(np.int64).copy()
     masks = np.arange(M)
-    hi = np.stack([masks[(masks >> j) & 1 == 1] for j in range(W)])
+    his = [masks[(masks >> j) & 1 == 1] for j in range(W)]
     bits_of = np.arange(S)
+    live = np.ones(H, bool)
+    dead = np.full(H, -1, np.int64)
     ops = 0
-    for r in range(ret_slot.shape[0]):
-        pj = np.nonzero(slot_ops[r] >= 0)[0]
-        if len(pj):
-            sel = hi[pj]                                    # [c, M/2]
-            rows = Pw[slot_ops[r, pj]][:, None, :]          # [c, 1, S]
-            for _ in range(min(len(pj), n_pass)):
-                partner = v[sel ^ (1 << pj)[:, None]]
-                bits = (partner[..., None] >> bits_of) & 1  # [c, M/2, S]
+    for r in range(R):
+        o = ops_rhw[r]
+        pend = o >= 0
+        passes = np.minimum(pend.sum(1), n_pass) * live
+        for p in range(int(passes.max(initial=0))):
+            acc = v.copy()
+            for j in range(W):
+                on = np.nonzero((passes > p) & pend[:, j])[0]
+                if not len(on):
+                    continue
+                hi = his[j]
+                partner = v[on][:, hi ^ (1 << j)]               # [n, M/2]
+                bits = (partner[..., None] >> bits_of) & 1      # [n, M/2, S]
+                rows = Pw[o[on, j]][:, None, :]                 # [n, 1, S]
                 img = np.bitwise_or.reduce(np.where(bits == 1, rows, 0), 2)
-                contrib = np.zeros((len(pj), M), np.int64)
-                np.put_along_axis(contrib, sel, img, 1)
-                v = v | np.bitwise_or.reduce(contrib, 0)
-                ops += int(bits.sum()) + sel.size
-        j = int(ret_slot[r])
-        if j >= 0:
-            v = np.where((masks >> j) & 1 == 1, 0, v[masks | (1 << j)])
-            ops += M
-    return ops, ((v[None, :] >> bits_of[:, None]) & 1).astype(bool)
+                acc[np.ix_(on, hi)] |= img
+                ops += int(bits.sum()) + img.size
+            v = acc
+        js = ret_rh[r]
+        proj = np.nonzero((js >= 0) & live)[0]
+        if len(proj):
+            j = js[proj][:, None]
+            keep = ((masks[None, :] >> j) & 1) == 0
+            src = np.take_along_axis(v[proj], masks[None, :] | (1 << j), 1)
+            v[proj] = np.where(keep, src, 0)
+            ops += M * len(proj)
+        if lens is not None:
+            died = live & (r < lens) & ~v.any(1)
+            dead[died] = r
+            live &= ~died
+    return ops, v, dead
 
 
-def lane_bound_ms(args, B: int, operations: int):
-    """Least time for one walk on this card: the larger of its bytes
+def bound_ms(nbytes: int, operations: int):
+    """Least time on this card for the work: the larger of its bytes
     (each input read once, each output written once) over the memory
-    rate and the 32-bit operations these inputs need (:func:`lane_work`)
-    over the integer rate."""
-    P, ret_slot, slot_ops, R0 = args
-    R_pad = slot_ops.shape[0]
-    M, S = R0.shape
-    nbytes = 4 * (P.numel() + ret_slot.numel() + slot_ops.numel()
-                  + R0.numel() + (R_pad // B + 1) * M * S)
+    rate and its 32-bit operations (:func:`walk_work`) over the integer
+    rate."""
     t_bytes, t_ops = nbytes / HBM_RATE, operations / INT32_PEAK
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
             f"bytes={nbytes} int32_ops={operations}")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_smem_layout():
     """``reach_lane.smem_bytes`` (routing without a card) against the
-    kernel's own ``jt_lane_walk_smem``, over the geometries it takes."""
+    kernels' own ``jt_lane_walk_smem``, over the geometries they take."""
     from jepsen_tpu_torch.checkers import reach_lane
 
     lib = reach_lane._lib()
@@ -142,52 +193,61 @@ def check_smem_layout():
                             f"{reach_lane.smem_bytes(W, S, O1, warp)}")
 
 
-# (label, kind, n_ops, processes, seed, B, corrupt): the main path's
-# shape first, then a multi-block walk and one past the ladder cap
+def same(label: str, got, want):
+    """Bit for bit, else the phase fails."""
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: kernel differs from its plain "
+                             f"version")
+    return max(float((a.float() - b.float()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(got, want))
+
+
+# (label, kind, n_ops, processes, seed, B, corrupt): the main path's K1
+# shape first (a history below chunk-lockstep's floor), then a
+# multi-block walk and one past the ladder cap
 GEOMS = [
-    ("headline cas-100k", "cas", 100_000, 5, 0, 1024, False),
+    ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False),
     ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False),
     ("W=10 capped ladder", "cas", 1_000, 11, 0, 64, True),
 ]
 
 
-def phase_kernels():
-    """Each geometry: kernel vs plain version on the same CUDA tensors,
-    bit for bit; times of the headline geometry."""
+def phase_k1():
+    """K1 against its plain version on the same CUDA tensors, bit for
+    bit, at each geometry; times of the first."""
+    from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checkers import reach_lane
 
     out = {"max_abs_err": 0.0}
     for label, kind, n_ops, procs, seed, B, corrupt in GEOMS:
-        P, rs, R0 = lane_operands(kind, n_ops, procs, seed, corrupt)
+        P, rs, M = history_operands(gen(kind, n_ops, procs, seed, corrupt),
+                                    models.cas_register())
+        R0 = np.zeros((P.shape[1], M), bool)
+        R0[0, 0] = True
         args = reach_lane.operands_from_numpy(
             P, rs.ret_slot, rs.slot_ops, R0, B=B, device="cuda")
         W = rs.W
         for n_pass in sorted({min(W, reach_lane._FAST_PASSES), W}):
             ck, fin = reach_lane.lane_walk(*args, B, n_pass)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ck_p, fin_p = reach_lane.lane_walk_plain(*args, B, n_pass)
-            torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
-            err = max(float((ck - ck_p).abs().max()),
-                      float((fin - fin_p).abs().max()))
-            same = torch.equal(ck, ck_p) and torch.equal(fin, fin_p)
-            ms = event_ms(lambda: reach_lane.lane_walk(*args, B, n_pass),
-                          10)
-            operations, fin_host = lane_work(P, rs.ret_slot, rs.slot_ops,
-                                             R0, n_pass)
-            if not np.array_equal(fin_host, fin.cpu().numpy().T > 0.5):
+            ref, p_ms = plain_ms(
+                lambda: reach_lane.lane_walk_plain(*args, B, n_pass))
+            err = same(f"lane_walk [{label}] n_pass={n_pass}", (ck, fin), ref)
+            ms = event_ms(lambda: reach_lane.lane_walk(*args, B, n_pass), 10)
+            work, v, _ = walk_work(P, args[1].cpu().numpy()[:, None],
+                                   args[2].cpu().numpy()[:, None],
+                                   words(args[3].cpu().numpy()[None]),
+                                   n_pass)
+            if not np.array_equal(v, words(fin.cpu().numpy()[None])):
                 raise AssertionError(f"lane_walk differs from the host "
                                      f"replay at {label} n_pass={n_pass}")
-            bound, bound_by, work = lane_bound_ms(args, B, operations)
+            bound, bound_by, detail = bound_ms(
+                nbytes(*args, ck, fin), work)
             if W <= 5:
                 # the shared-memory kernel on the same walk: the reason
                 # the warp kernel exists
-                ck_b, fin_b = reach_lane._lane_walk_cuda(*args, B, n_pass,
-                                                         warp=False)
-                if not (torch.equal(ck_b, ck) and torch.equal(fin_b, fin)):
-                    raise AssertionError(f"lane_walk_block differs at "
-                                         f"{label}")
+                blk = reach_lane._lane_walk_cuda(*args, B, n_pass,
+                                                 warp=False)
+                same(f"lane_walk block kernel [{label}]", blk, (ck, fin))
                 block_ms = event_ms(lambda: reach_lane._lane_walk_cuda(
                     *args, B, n_pass, warp=False), 10)
                 log(f"kernel lane_walk [{label}] warp kernel {ms:.6f} ms, "
@@ -196,17 +256,13 @@ def phase_kernels():
             log(f"kernel lane_walk [{label}] W={W} S={P.shape[1]} "
                 f"O1={P.shape[0]} returns={rs.n_returns} "
                 f"R_pad={args[1].shape[0]} B={B} n_pass={n_pass}: "
-                f"bit-identical={same} max_abs_err={err} "
-                f"kernel_ms={ms:.6f} "
+                f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
                 f"us_per_return={1e3 * ms / rs.n_returns:.6f} "
-                f"plain_ms={plain_ms:.3f} bound_ms={bound:.6f} "
-                f"({bound_by}; {work}) alive={bool(fin.any())}")
-            if not same:
-                raise AssertionError(f"lane_walk differs from its plain "
-                                     f"version at {label} n_pass={n_pass}")
+                f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} "
+                f"({bound_by}; {detail}) alive={bool(fin.any())}")
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            if label.startswith("headline"):
-                out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            if label == GEOMS[0][0]:
+                out.update(ms=ms, plain_ms=p_ms, bound_ms=bound,
                            bound_by=bound_by)
         if W > reach_lane._FAST_PASSES:
             # the capped walk, the exact rescue and the death location,
@@ -222,41 +278,214 @@ def phase_kernels():
     return out
 
 
-def phase_main(history, expect_valid: bool):
-    """One check through the user's entry point on the card. Returns the
-    result, its wall seconds, the kernel launches it made and its span
-    seconds by name."""
-    from jepsen_tpu_torch import Linearizable, models, obs
-    from jepsen_tpu_torch.checkers import reach_lane
+def lane_sets(R: torch.Tensor, lanes: int, groups: int) -> np.ndarray:
+    """K2's ``[E·M, H·S]`` sets as ``[H·E, M, S]``, walk ``h·E + e``."""
+    Mp, HS = R.shape
+    M, S = Mp // groups, HS // lanes
+    return R.cpu().numpy().reshape(groups, M, lanes, S) \
+        .transpose(2, 0, 1, 3).reshape(lanes * groups, M, S)
 
-    reach_lane.KERNEL_LAUNCHES = 0
+
+def phase_k2(P, rs, M):
+    """K2 against its plain version at chunk-lockstep's phase-A and
+    phase-B operands of this history, bit for bit; times, bound and the
+    host replay of each phase, and the sum over the two launches."""
+    from jepsen_tpu_torch.checkers import reach_batch
+    from jepsen_tpu_torch.checkers import reach_chunklock as rcl
+
+    C, e_pad, per, A, Bp = rcl.phase_operands(
+        P, rs.ret_slot, rs.slot_ops, M, device="cuda")
+    W, S = rs.W, P.shape[1]
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+           "work": 0}
+    P_t, ops_a, rs_a, r0_a, b_a = A
+    _, ops_b, rs_b, b_b = Bp
+    final_a = None
+    for phase, groups in (("A", 1), ("B", e_pad)):
+        if phase == "A":
+            args, B = (P_t, ops_a, rs_a, r0_a), b_a
+        else:
+            _seeds, r0_b, _cnt = rcl._glue_call(final_a, C, M, S, e_pad)
+            args, B = (P_t, ops_b, rs_b, r0_b), b_b
+        ck, fin = reach_batch.batch_walk(*args, B, W)
+        ref, p_ms = plain_ms(
+            lambda: reach_batch.batch_walk_plain(*args, B, W))
+        label = f"batch_walk [cas-100k phase {phase}]"
+        err = same(label, (ck, fin), ref)
+        blk = reach_batch._batch_walk_cuda(*args, B, W, warp=False)
+        same(label + " block kernel", blk, (ck, fin))
+        ms = event_ms(lambda: reach_batch.batch_walk(*args, B, W), 10)
+        block_ms = event_ms(lambda: reach_batch._batch_walk_cuda(
+            *args, B, W, warp=False), 10)
+        R_pad = args[2].shape[0]
+        ret_rh = np.repeat(args[2].cpu().numpy(), groups, axis=1)
+        ops_rhw = np.repeat(args[1].cpu().numpy().reshape(R_pad, C, W),
+                            groups, axis=1)
+        work, v, _ = walk_work(P, ret_rh, ops_rhw,
+                               words(lane_sets(args[3], C, groups)), W)
+        if not np.array_equal(v, words(lane_sets(fin, C, groups))):
+            raise AssertionError(f"{label} differs from the host replay")
+        moved = nbytes(*args, ck, fin)
+        bound, bound_by, detail = bound_ms(moved, work)
+        log(f"kernel {label} lanes={C} groups={groups} blocks="
+            f"{C * groups} M'={args[3].shape[0]} W={W} S={S} "
+            f"steps={R_pad} B={B}: bit-identical max_abs_err={err} "
+            f"kernel_ms={ms:.6f} (shared-memory kernel {block_ms:.6f}) "
+            f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
+            f"{detail})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms"] += ms
+        out["plain_ms"] += p_ms
+        out["bytes"] += moved
+        out["work"] += work
+        final_a = fin
+    out["bound_ms"], out["bound_by"], detail = bound_ms(out["bytes"],
+                                                        out["work"])
+    log(f"kernel batch_walk [cas-100k, both phases, C={C} e_pad={e_pad} "
+        f"per={per}]: kernel_ms={out['ms']:.6f} plain_ms="
+        f"{out['plain_ms']:.3f} bound_ms={out['bound_ms']:.6f} "
+        f"({out['bound_by']}; {detail})")
+    return out
+
+
+def keyed_histories():
+    """The independent shape: one cas history per key, values wrapped
+    as ``[key, v]``, processes ``key·4 + p``, corrupted keys
+    :data:`BAD_KEYS`. Returns ``(history, per-key histories)``."""
+    per_key, flat = [], []
+    for k in range(N_KEYS):
+        hk = gen("cas", OPS_PER_KEY, KEY_PROCS, k, k in BAD_KEYS)
+        per_key.append(hk)
+        flat += [op.with_(process=k * KEY_PROCS + op.process,
+                          value=[k, op.value]) for op in hk]
+    return [op.with_(index=i, time=i) for i, op in enumerate(flat)], per_key
+
+
+def phase_k3(per_key):
+    """K3 against its plain version at the independent shape (the
+    operands ``check_many`` builds), bit for bit; time, bound and host
+    replay."""
+    from jepsen_tpu_torch import history, models
+    from jepsen_tpu_torch.checkers import events as ev
+    from jepsen_tpu_torch.checkers import reach, reach_lane
+
+    model = models.cas_register()
+    packed = [history.pack(h) for h in per_key]
+    preps = [reach._prep(model, p, max_states=100_000, max_slots=20,
+                         max_dense=1 << 22) for p in packed]
+    W = max(max(p[1].W, 1) for p in preps)
+    rss = [ev.returns_view(p[1]) for p in preps]
+    P, ret, ops, key, _off = reach._keyed_operands(
+        model, packed, rss, list(range(len(packed))), W, 100_000)
+    K = len(packed)
+    t = [torch.as_tensor(np.ascontiguousarray(a, dt), device="cuda")
+         for a, dt in ((P, np.float32), (ret, np.int32), (ops, np.int32),
+                       (key, np.int32))]
+    lo, hi = reach_lane._key_runs(t[3], K)
+    dead = reach_lane._keyed_launch(*t[:3], lo, hi, W)
+    ref, p_ms = plain_ms(lambda: reach_lane.keyed_walk_plain(*t, K, W))
+    err = same("keyed_walk [independent]", (dead,), (ref,))
+    blk = reach_lane._keyed_launch(*t[:3], lo, hi, W, warp=False)
+    same("keyed_walk block kernel [independent]", (blk,), (dead,))
+    ms = event_ms(lambda: reach_lane._keyed_launch(*t[:3], lo, hi, W), 20)
+    block_ms = event_ms(lambda: reach_lane._keyed_launch(
+        *t[:3], lo, hi, W, warp=False), 20)
+    lo_np, n = lo.cpu().numpy(), (hi - lo).cpu().numpy()
+    L = int(n.max())
+    steps = np.arange(L)[:, None]
+    valid = steps < n[None, :]
+    pos = np.where(valid, lo_np[None, :] + steps, 0)
+    ret_rh = np.where(valid, ret[pos], -1)
+    ops_rhw = np.where(valid[..., None], ops[pos], -1)
+    v0 = np.zeros((K, 1 << W), np.int64)
+    v0[:, 0] = 1
+    work, _v, dead_host = walk_work(P, ret_rh, ops_rhw, v0, W, lens=n)
+    want = np.where(dead_host >= 0, lo_np + dead_host, -1)
+    if not np.array_equal(want, dead.cpu().numpy()):
+        raise AssertionError("keyed_walk differs from the host replay")
+    bound, bound_by, detail = bound_ms(nbytes(*t, dead), work)
+    log(f"kernel keyed_walk [independent {K} keys x {OPS_PER_KEY} ops] "
+        f"returns={ret.shape[0]} W={W} S={P.shape[1]} O1={P.shape[0]}: "
+        f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
+        f"(shared-memory kernel {block_ms:.6f}) plain_ms={p_ms:.3f} "
+        f"bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
+        f"{int((dead >= 0).sum())}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def launches():
+    """The kernels' launch counts, by kernel."""
+    from jepsen_tpu_torch.checkers import reach_batch, reach_lane
+
+    return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
+            "batch_walk": reach_batch.KERNEL_LAUNCHES,
+            "keyed_walk": reach_lane.KEYED_LAUNCHES}
+
+
+def zero_launches():
+    from jepsen_tpu_torch.checkers import reach_batch, reach_lane
+
+    reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
+    reach_batch.KERNEL_LAUNCHES = 0
+
+
+def drive(fn):
+    """Run one check of the main path with every kernel count set to 0
+    just before and read just after. Returns the result, its wall
+    seconds, the launches by kernel, the span seconds by name (summed)
+    and the decision ledger."""
+    from jepsen_tpu_torch import obs
+
+    zero_launches()
     with obs.capture() as cap:
         t0 = time.perf_counter()
-        res = Linearizable(models.cas_register()).check(None, history)
+        res = fn()
+        torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    launches = reach_lane.KERNEL_LAUNCHES
-    spans = {s["name"]: s["dur"] / 1e6 for s in cap.spans}
-    if res["valid"] is not expect_valid:
-        raise AssertionError(f"expected valid={expect_valid}: {res}")
-    if launches < 1:
-        raise AssertionError("the main path did not launch the kernel")
-    return res, dt, launches, spans
+    counts = launches()
+    spans = {}
+    for s in cap.spans:
+        spans[s["name"]] = spans.get(s["name"], 0.0) + s["dur"] / 1e6
+    return res, dt, counts, spans, cap.ledger
+
+
+def expect(label, counts, **want):
+    """Each named kernel launched exactly as often as the route needs;
+    ``None`` asks for at least one launch."""
+    for name, n in want.items():
+        got = counts[name]
+        if (n is None and got < 1) or (n is not None and got != n):
+            raise AssertionError(f"{label}: {name} launched {got} times, "
+                                 f"want {'>= 1' if n is None else n}")
+
+
+SPLIT = [("split", "independent.split"), ("pack", "facade.pack"),
+         ("prep", "reach.prep"),
+         ("returns-view", "reach.returns-view"),
+         ("keyed-operands", "reach.keyed-operands"),
+         ("walk", "reach.walk"), ("witness", "reach.witness")]
 
 
 def split(dt: float, spans) -> str:
     """Where a check's seconds went, by the spans the port records:
-    packing the history, memo and event-stream prep, the returns view,
-    the walk on the card, the witness re-walk, and the rest."""
-    parts = [("pack", "facade.pack"), ("prep", "reach.prep"),
-             ("returns-view", "reach.returns-view"),
-             ("walk", "reach.walk"), ("witness", "reach.witness")]
+    splitting by key, packing, memo and event-stream prep, the returns
+    view, the keyed operands, the walk on the card, the witness
+    re-walks, and the rest."""
     out, rest = [], dt
-    for label, name in parts:
+    for label, name in SPLIT:
         t = spans.get(name, 0.0)
-        rest -= t
-        out.append(f"{label} {t:.4f} s ({100 * t / dt:.1f}%)")
+        if t or label in ("pack", "prep", "walk"):
+            rest -= t
+            out.append(f"{label} {t:.4f} s ({100 * t / dt:.1f}%)")
     out.append(f"other {rest:.4f} s ({100 * rest / dt:.1f}%)")
     return ", ".join(out)
+
+
+def linearizable(h, device=None):
+    from jepsen_tpu_torch import Linearizable, models
+
+    return Linearizable(models.cas_register(), device=device).check(None, h)
 
 
 def main() -> int:
@@ -264,7 +493,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from jepsen_tpu_torch import Linearizable, _build, fixtures, models
+    from jepsen_tpu_torch import Linearizable, _build, independent, models
+    from jepsen_tpu_torch.checkers import reach_lane
 
     name = torch.cuda.get_device_name(0)
     card = smi()
@@ -277,48 +507,130 @@ def main() -> int:
         log(_build.build_log(src).strip())
     check_smem_layout()
 
-    kern = phase_kernels()
-
-    h = fixtures.gen_history("cas", n_ops=100_000, processes=5, seed=0)
-    res, dt, launches, spans = phase_main(h, True)
-    log(f"main path valid cas-100k: {res['engine']} valid={res['valid']} "
-        f"{dt:.4f} s = {100_000 / dt:.1f} ops/s; {split(dt, spans)}; "
-        f"kernel launches {launches}")
-    main_launches = launches
-
-    bad = fixtures.corrupt(h, seed=0)
-    res, dt, launches, spans = phase_main(bad, False)
+    # -- kernels against their plain versions --------------------------
+    k1 = phase_k1()
+    h100k = gen("cas", 100_000, 5, 0)
+    P, rs, M = history_operands(h100k, models.cas_register())
+    k2 = phase_k2(P, rs, M)
     t0 = time.perf_counter()
-    ref = Linearizable(models.cas_register(), device="cpu").check(None, bad)
+    h_ind, per_key = keyed_histories()
+    gen_ind_s = time.perf_counter() - t0
+    k3 = phase_k3(per_key)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- the main path ------------------------------------------------
+    res, dt, la, spans, _ = drive(lambda: linearizable(h100k))
+    if res["valid"] is not True or res["engine"] != "reach-chunklock":
+        raise AssertionError(f"valid cas-100k: {res}")
+    expect("valid cas-100k", la, batch_walk=2, lane_walk=0, keyed_walk=0)
+    k2_launches = la["batch_walk"]
+    log(f"main path valid cas-100k: {res['engine']} valid={res['valid']} "
+        f"chunks={res['chunks']} basis-max={res['basis-max']} "
+        f"rescues={res['rescues']} {dt:.4f} s = {100_000 / dt:.1f} ops/s; "
+        f"{split(dt, spans)}; launches {la}")
+
+    bad = gen("cas", 100_000, 5, 0, corrupt=True)
+    res, dt, la, spans, _ = drive(lambda: linearizable(bad))
+    expect("corrupted cas-100k", la, batch_walk=2, lane_walk=None,
+           keyed_walk=0)
+    t0 = time.perf_counter()
+    ref = linearizable(bad, device="cpu")
     cpu_s = time.perf_counter() - t0
-    for key in ("valid", "op", "dead-event", "max-linearized",
-                "final-configs", "previous-ok"):
+    for key in ("valid", "engine", "op", "dead-event", "max-linearized",
+                "final-configs", "previous-ok", "chunks", "basis-max",
+                "rescues"):
         if res.get(key) != ref.get(key):
             raise AssertionError(f"corrupted cas-100k: {key} differs "
                                  f"cuda={res.get(key)} cpu={ref.get(key)}")
-    log(f"main path corrupted cas-100k: valid={res['valid']} "
-        f"dead-event={res['dead-event']} {dt:.4f} s on cuda "
-        f"({launches} launches; {split(dt, spans)}), {cpu_s:.3f} s on "
-        f"cpu; verdict, op, dead event and witness agree")
+    Pb, rsb, Mb = history_operands(bad, models.cas_register())
+    R0 = np.zeros((Pb.shape[1], Mb), bool)
+    R0[0, 0] = True
+    dead_k1, _ = reach_lane.walk_returns(Pb, rsb.ret_slot, rsb.slot_ops, R0,
+                                         device="cuda", fetch_R=False)
+    if res["valid"] is not False or \
+            int(rsb.ret_event[dead_k1]) != res["dead-event"]:
+        raise AssertionError(f"corrupted cas-100k: K1 finds dead return "
+                             f"{dead_k1}, chunk-lockstep {res}")
+    log(f"main path corrupted cas-100k: {res['engine']} "
+        f"valid={res['valid']} dead-event={res['dead-event']} (return "
+        f"{dead_k1}, as K1 finds it) {dt:.4f} s on cuda ({split(dt, spans)}; "
+        f"launches {la}), {cpu_s:.3f} s on cpu; verdict, op, dead event, "
+        f"witness and chunk counts agree")
 
     t0 = time.perf_counter()
-    big = fixtures.gen_history("cas", n_ops=1_000_000, processes=5, seed=1)
+    big = gen("cas", 1_000_000, 5, 1)
     gen_s = time.perf_counter() - t0
-    res, dt, launches, spans = phase_main(big, True)
-    log(f"scale cas-1M: valid={res['valid']} {dt:.4f} s = "
-        f"{1_000_000 / dt:.1f} ops/s; {split(dt, spans)}; history "
-        f"generation {gen_s:.2f} s not counted; kernel launches "
-        f"{launches}")
+    res, dt, la, spans, _ = drive(lambda: linearizable(big))
+    if res["valid"] is not True or res["engine"] != "reach-chunklock":
+        raise AssertionError(f"cas-1M: {res}")
+    expect("cas-1M", la, batch_walk=2, keyed_walk=0)
+    log(f"scale cas-1M: {res['engine']} valid={res['valid']} "
+        f"chunks={res['chunks']} basis-max={res['basis-max']} "
+        f"rescues={res['rescues']} {dt:.4f} s = {1_000_000 / dt:.1f} ops/s; "
+        f"{split(dt, spans)}; history generation {gen_s:.2f} s not "
+        f"counted; launches {la}")
+
+    small = gen("cas", 30_000, 5, 0)
+    res, dt, la, spans, _ = drive(lambda: linearizable(small))
+    if res["valid"] is not True or res["engine"] != "reach-lane":
+        raise AssertionError(f"sub-floor cas-30k: {res}")
+    expect("sub-floor cas-30k", la, lane_walk=1, batch_walk=0, keyed_walk=0)
+    k1_launches = la["lane_walk"]
+    log(f"main path sub-floor cas-30k: {res['engine']} "
+        f"valid={res['valid']} {dt:.4f} s = {30_000 / dt:.1f} ops/s; "
+        f"{split(dt, spans)}; launches {la}")
+
+    def check_independent(device=None):
+        return independent.checker(Linearizable(
+            models.cas_register(), device=device)).check(None, h_ind)
+
+    res, dt, la, spans, ledger = drive(check_independent)
+    routes = [r.get("cause") for r in ledger
+              if r["stage"] == "reach-many" and r["event"] == "route"]
+    if routes != ["keyed"]:
+        raise AssertionError(f"independent: routes {routes}")
+    expect("independent", la, keyed_walk=1, batch_walk=0)
+    k3_launches = la["keyed_walk"]
+    t0 = time.perf_counter()
+    ref = check_independent("cpu")
+    cpu_s = time.perf_counter() - t0
+    if sorted(res["failures"]) != list(BAD_KEYS) or res["valid"] is not \
+            False or res["key-count"] != N_KEYS:
+        raise AssertionError(f"independent: failures {res['failures']}")
+    for key in ("valid", "failures", "key-count"):
+        if res[key] != ref[key]:
+            raise AssertionError(f"independent: {key} differs")
+    for k, r in res["results"].items():
+        for key in ("valid", "engine", "op", "dead-event", "final-configs",
+                    "previous-ok"):
+            if r.get(key) != ref["results"][k].get(key):
+                raise AssertionError(f"independent key {k}: {key} differs "
+                                     f"cuda={r.get(key)} "
+                                     f"cpu={ref['results'][k].get(key)}")
+    n_ops = len(h_ind) // 2
+    log(f"main path independent cas {N_KEYS} keys x {OPS_PER_KEY} ops "
+        f"({KEY_PROCS} processes a key, {len(BAD_KEYS)} corrupted): "
+        f"route keyed, valid={res['valid']} failures={len(res['failures'])} "
+        f"{dt:.4f} s = {n_ops / dt:.1f} ops/s; {split(dt, spans)}; "
+        f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees; history "
+        f"generation {gen_ind_s:.2f} s not counted")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    entries = [
+        ("lane_walk", "lane_walk.cu", "jepsen_tpu/checkers/reach_lane.py:201",
+         k1_launches, k1),
+        ("batch_walk", "batch_walk.cu",
+         "jepsen_tpu/checkers/reach_batch.py:336", k2_launches, k2),
+        ("keyed_walk", "keyed_walk.cu",
+         "jepsen_tpu/checkers/reach_lane.py:339", k3_launches, k3),
+    ]
     log(json.dumps({"kernels": [{
-        "name": "lane_walk", "route": "cuda",
-        "source": "jepsen_tpu_torch/csrc/lane_walk.cu",
-        "replaces": "jepsen_tpu/checkers/reach_lane.py:201",
-        "launches": main_launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None}]}))
+        "name": kname, "route": "cuda",
+        "source": f"jepsen_tpu_torch/csrc/{src}", "replaces": replaces,
+        "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}
+        for kname, src, replaces, n, k in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

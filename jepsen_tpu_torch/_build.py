@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
-``_build/``, keyed by a hash of the source and the flags, then loaded
-with :mod:`ctypes`. No PyTorch headers are involved, so a build takes
+``_build/``, keyed by a hash of the source, the headers and the flags,
+then loaded with :mod:`ctypes`. No PyTorch headers are involved, so a
+build takes
 seconds. The build happens at first use; :func:`build_all` starts one
 ``nvcc`` per source at once. A missing ``nvcc`` or a failed build
 raises: there is no fallback.
@@ -47,9 +48,14 @@ def sources() -> Iterable[str]:
 
 
 def _paths(name: str):
+    """Source, library and log paths of ``csrc/<name>.cu``. The hash
+    covers the source, every header in ``csrc/`` (the walk kernels share
+    ``walk.cuh``) and the flags, so an edit to any of them rebuilds."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.join(BUILD, f"{name}-{digest.hexdigest()[:16]}")
     return src, stem + ".so", stem + ".log"
 

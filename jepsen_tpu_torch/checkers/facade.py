@@ -12,7 +12,7 @@ from __future__ import annotations
 import logging
 import traceback as _traceback
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import history as h
@@ -72,6 +72,9 @@ class Linearizable(Checker):
       the Python oracle (:func:`auto_check_packed`).
     - ``"reach"`` — the dense engine alone
       (:mod:`jepsen_tpu_torch.checkers.reach`).
+    - ``"chunklock"`` — the chunk-lockstep engine alone
+      (:mod:`jepsen_tpu_torch.checkers.reach_chunklock`), with its
+      ``n_chunks``, ``e_pad`` and ``suffix`` options.
     - ``"wgl-cpu"`` — the Python oracle
       (:mod:`jepsen_tpu_torch.checkers.wgl_ref`).
 
@@ -96,6 +99,10 @@ class Linearizable(Checker):
         algorithm = kw.pop("algorithm", self.algorithm)
         if algorithm == "reach":
             return reach.check(model, history, **_engine_kw(kw, _REACH_KW))
+        if algorithm == "chunklock":
+            from jepsen_tpu_torch.checkers import reach_chunklock
+            return reach_chunklock.check_packed(
+                model, h.pack(history), **_engine_kw(kw, _CHUNKLOCK_KW))
         if algorithm == "wgl-cpu":
             return wgl_ref.check(model, history, **_engine_kw(kw, _WGL_KW))
         if algorithm == "auto":
@@ -201,10 +208,55 @@ def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
     return _selected(res, "wgl-cpu-fallback")
 
 
+def auto_check_many_packed(model: Model, packed_list,
+                           kw: Mapping) -> List[Dict[str, Any]]:
+    """The ``auto`` chain for many packed histories at once (the
+    ``independent`` checker's keys): the batched dense engine
+    (:func:`reach.check_many`) on ``kw["device"]`` (default: the card),
+    falling back to the per-history :func:`auto_check_packed` chain
+    only when a history does not fit the dense engine
+    (:class:`~jepsen_tpu_torch.checkers.reach.DenseOverflow`,
+    :class:`~jepsen_tpu_torch.checkers.events.ConcurrencyOverflow`,
+    :class:`~jepsen_tpu_torch.models.memo.StateExplosion`); any other
+    error propagates. In the per-history chain one failing history
+    yields an ``"unknown"`` (check-safe semantics), recorded in the
+    ledger. Results align with ``packed_list``."""
+    from jepsen_tpu_torch.checkers import reach
+    from jepsen_tpu_torch.checkers.events import ConcurrencyOverflow
+    from jepsen_tpu_torch.models.memo import StateExplosion
+
+    ekw = _engine_kw(kw, _REACH_MANY_KW)
+    ekw["device"] = _device.resolve(kw.get("device"))
+    try:
+        with obs.span("facade.check-many", histories=len(packed_list)):
+            out = reach.check_many(model, packed_list, **ekw)
+        obs.engine_selected("reach-many", histories=len(packed_list),
+                            engines=sorted({r.get("engine", "?")
+                                            for r in out}))
+        return out
+    except (reach.DenseOverflow, ConcurrencyOverflow,
+            StateExplosion) as e:
+        obs.engine_fallback("reach-many", type(e).__name__,
+                            histories=len(packed_list))
+    out = []
+    for p in packed_list:
+        try:
+            out.append(auto_check_packed(model, p, kw))
+        except Exception as e:                          # noqa: BLE001
+            obs.checker_swallowed("auto-chain", type(e).__name__,
+                                  ops=p.n)
+            out.append({"valid": "unknown",
+                        "error": f"{type(e).__name__}: {e}"})
+    return out
+
+
 # keyword subsets understood by each engine; user opts are filtered so one
 # checker config can carry opts for every algorithm it may route to.
 _REACH_KW = ("max_states", "max_slots", "max_dense", "should_abort",
              "device")
+_REACH_MANY_KW = _REACH_KW          # check_many takes the same options
+_CHUNKLOCK_KW = ("max_states", "max_slots", "max_dense", "n_chunks",
+                 "e_pad", "suffix", "device")
 _WGL_KW = ("time_limit", "max_configs", "strategy", "should_abort")
 
 

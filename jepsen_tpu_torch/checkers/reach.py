@@ -23,10 +23,15 @@ walks return events alone with each return's pending ops known up front
 produce false verdicts.
 
 Routing in :func:`check_packed`, chosen from the geometry before anything
-launches: the lane kernel when the fast path applies and R and P fit one
-block's shared memory (:func:`reach_lane.lane_fits`); else the torch
-returns walk; else, when the per-return matrix form does not fit, the
-torch event walk (:func:`_walk`).
+launches: chunk-lockstep (:mod:`.reach_chunklock`, the lockstep kernel
+over the stream's chunks) when the fast path applies, the history has
+at least :data:`reach_chunklock.MIN_RETURNS` returns and the walk
+kernels take it; else the lane kernel when R and P fit one block's
+shared memory (:func:`reach_lane.lane_fits`); else the torch returns
+walk; else, when the per-return matrix form does not fit, the torch
+event walk (:func:`_walk`). :func:`check_many` checks many histories
+(the ``independent`` checker's keys) with one launch of the keyed
+kernel.
 """
 from __future__ import annotations
 
@@ -41,10 +46,10 @@ from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import events as ev
-from jepsen_tpu_torch.checkers import reach_lane
+from jepsen_tpu_torch.checkers import reach_chunklock, reach_lane
 from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
-    Memo, memo as build_memo, memo_ops)
+    Memo, StateExplosion, memo as build_memo, memo_ops)
 from jepsen_tpu_torch.op import Op
 
 class DenseOverflow(RuntimeError):
@@ -467,6 +472,40 @@ _ABORT_SEG = 32768
 _ABORTED = {"valid": "unknown", "cause": "aborted", "engine": "reach"}
 
 
+def _chunklock_skip(S_pad: int, M: int, W: int, n_returns: int,
+                    lane_ok: bool, should_abort) -> Optional[str]:
+    """Why chunk-lockstep does not take this history, or None when it
+    does: it runs as one piece (no abort hook), from
+    :data:`reach_chunklock.MIN_RETURNS` returns, up to the exact
+    ladder's cap on slots, and in the walk kernels' envelope (K1 carries
+    its rescues and its death location)."""
+    if should_abort is not None:
+        return "should-abort"
+    if n_returns < reach_chunklock.MIN_RETURNS:
+        return "below-min-returns"
+    if W > reach_chunklock._FAST_PASSES:
+        return "slots"
+    if not (lane_ok and reach_chunklock.admits(S_pad, M, W, n_returns)):
+        return "geometry"
+    return None
+
+
+def _lane_verdict(engine: str, dead: int, elapsed: float,
+                  stream: ev.EventStream, memo: Memo,
+                  packed: h.PackedHistory, rs: "ev.ReturnStream",
+                  P_np: np.ndarray, S_pad: int, M: int, W: int,
+                  device) -> Dict[str, Any]:
+    """The verdict of a walk that reports its dead return index (-1:
+    linearizable), with the witness re-walked by K1 on ``device``."""
+    if dead < 0:
+        return _result_valid(engine, stream, memo, elapsed)
+    out = _result_invalid(engine, stream, memo, packed,
+                          int(rs.ret_event[dead]), elapsed)
+    _attach_witness(out, memo, rs, P_np, S_pad, M, W, int(dead), packed,
+                    lane=True, device=device)
+    return out
+
+
 def check_packed(model: Model, packed: h.PackedHistory, *,
                  max_states: int = 100_000, max_slots: int = 20,
                  max_dense: int = 1 << 22,
@@ -503,14 +542,27 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
 
     with obs.span("reach.returns-view", events=int(stream.n_events)):
         rs = ev.returns_view(stream)
-    # the reference's word-packed body and chunk-lockstep route come
-    # first on its accelerator; neither is ported yet
+    # the reference's word-packed body comes first on its accelerator;
+    # it is not ported
     obs.decision("reach-word", "skipped", cause="not-ported", **geom)
-    if should_abort is None:
-        obs.decision("reach-chunklock", "skipped", cause="not-ported",
-                     **geom)
     P_np = _build_P(memo, S_pad)
-    if reach_lane.lane_fits(S_pad, M, memo.n_ops):
+    lane_ok = reach_lane.lane_fits(S_pad, M, memo.n_ops)
+    skip = _chunklock_skip(S_pad, M, W, rs.n_returns, lane_ok, should_abort)
+    if skip is None:
+        # chunk-lockstep: K2 walks the stream's chunks together, K1
+        # carries the rescues and the death location. An error here is
+        # a fault of the engine and propagates: no other walk hides it
+        obs.decision("reach", "route", engine="reach-chunklock", **geom)
+        with obs.span("reach.walk", engine="reach-chunklock",
+                      returns=int(rs.n_returns)):
+            dead, diag = reach_chunklock.walk_chunklock(
+                P_np, rs.ret_slot, rs.slot_ops, M, device=dev)
+        out = _lane_verdict("reach-chunklock", dead, _time.monotonic() - t0,
+                            stream, memo, packed, rs, P_np, S_pad, M, W, dev)
+        out.update(diag)
+        return out
+    obs.decision("reach-chunklock", "skipped", cause=skip, **geom)
+    if lane_ok:
         obs.decision("reach", "route", engine="reach-lane", **geom)
         R0_np = np.zeros((S_pad, M), bool)
         R0_np[0, 0] = True
@@ -522,14 +574,9 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
                     fetch_R=False, should_abort=should_abort)
         except reach_lane.Aborted:
             return dict(_ABORTED)
-        elapsed = _time.monotonic() - t0
-        if dead < 0:
-            return _result_valid("reach-lane", stream, memo, elapsed)
-        out = _result_invalid("reach-lane", stream, memo, packed,
-                              int(rs.ret_event[dead]), elapsed)
-        _attach_witness(out, memo, rs, P_np, S_pad, M, W, dead, packed,
-                        lane=True, device=dev)
-        return out
+        return _lane_verdict("reach-lane", dead, _time.monotonic() - t0,
+                             stream, memo, packed, rs, P_np, S_pad, M, W,
+                             dev)
 
     obs.decision("reach", "route", engine="reach", **geom)
     P = torch.as_tensor(P_np, device=dev)
@@ -564,3 +611,147 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
                                    dead_event))
     _attach_witness(out, memo, rs, P, S_pad, M, W, dead_ret, packed)
     return out
+
+
+# -- many histories: the `independent` checker's batch ----------------------
+
+def _union_alphabet(model: Model, packed_list, live, max_states: int):
+    """One memo over the union of the keys' op alphabets, plus a per-key
+    LUT from local op ids to union ids (the last entry maps -1 → -1, so
+    free slots survive fancy-indexing). The union table is what lets
+    every key share one transition tensor P."""
+    union: Dict[Any, int] = {}          # (f, hashable(value)) -> union id
+    union_ops: List[Op] = []
+    for i in live:
+        p = packed_list[i]
+        for key, op in zip(h.op_keys_of(p), p.distinct_ops):
+            if key not in union:
+                union[key] = len(union_ops)
+                union_ops.append(op)
+    memo_u = memo_ops(model, tuple(union_ops), max_states=max_states)
+    luts = {}
+    for i in live:
+        keys_i = h.op_keys_of(packed_list[i])
+        lut = np.fromiter((union[k] for k in keys_i), np.int32,
+                          count=len(keys_i))
+        luts[i] = np.append(lut, np.int32(-1))
+    return memo_u, luts
+
+
+def _keyed_operands(model, packed_list, rss, live, W: int,
+                    max_states: int):
+    """The keyed kernel's flat operands: the union transition tensor P
+    plus all keys' real returns concatenated into one stream tagged with
+    key ids. Returns ``(P, ret_flat, ops_flat, key_flat, offsets)``;
+    raises :class:`StateExplosion`/:class:`DenseOverflow` when
+    the union alphabet does not fit the fast path or the kernel."""
+    memo_u, luts = _union_alphabet(model, packed_list, live, max_states)
+    S_pad = max(2, _next_pow2(memo_u.n_states))
+    M = 1 << W
+    if not (_fast_ok(S_pad, W, M, memo_u.n_ops)
+            and reach_lane.keyed_fits(S_pad, M, memo_u.n_ops)):
+        raise DenseOverflow("union alphabet exceeds keyed-kernel budgets")
+    P = _build_P(memo_u, S_pad)
+    wide = [ev.pad_returns(r, r.n_returns, W) for r in rss]
+    counts = [r.n_returns for r in wide]
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    ret_flat = np.concatenate(
+        [r.ret_slot[:n] for r, n in zip(wide, counts)] or
+        [np.zeros(0, np.int32)])
+    ops_flat = np.concatenate(
+        [luts[i][r.slot_ops[:n]] for i, r, n in zip(live, wide, counts)] or
+        [np.zeros((0, W), np.int32)])
+    key_flat = np.repeat(np.arange(len(wide), dtype=np.int32), counts)
+    return P, ret_flat, ops_flat, key_flat, offsets
+
+
+def _check_many_keyed(operands, rss, preps, live, results, packed_list,
+                      M: int, device, t0: float) -> List[Dict[str, Any]]:
+    """All keys' returns in one flat stream, one K3 launch, exact per-key
+    death indices; a failed key's witness is decoded in its own memo
+    and geometry (the flat stream carries union op ids)."""
+    P, ret_flat, ops_flat, key_flat, offsets = operands
+    with obs.span("reach.walk", engine="reach-keyed",
+                  returns=int(ret_flat.shape[0]), keys=len(live)):
+        dead = reach_lane.walk_returns_keyed(
+            P, ret_flat, ops_flat, key_flat, len(live), M, device=device)
+    elapsed = _time.monotonic() - t0
+    for k, i in enumerate(live):
+        memo, stream, _T, S_k, M_k = preps[i]
+        if int(dead[k]) < 0:
+            results[i] = _result_valid("reach-keyed", stream, memo,
+                                       elapsed)
+            continue
+        results[i] = _lane_verdict(
+            "reach-keyed", int(dead[k]) - int(offsets[k]), elapsed, stream,
+            memo, packed_list[i], rss[k], _build_P(memo, S_k), S_k, M_k,
+            max(stream.W, 1), device)
+    return results
+
+
+def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
+               max_states: int = 100_000, max_slots: int = 20,
+               max_dense: int = 1 << 22, should_abort=None,
+               device=None) -> List[Dict[str, Any]]:
+    """Batched per-key checking on ``device`` (default: the card), the
+    ``independent`` checker's hot path; results align with
+    ``packed_list``. Route order: the reference's lockstep and native
+    keyed lanes (recorded as not ported: both need its native union
+    prep); the keyed kernel K3 over all keys at once, when the union
+    alphabet fits it; else each history through :func:`check_packed`
+    (the reference's vmapped batch is not ported). ``should_abort`` is
+    consulted once, before the dispatch; when it fires every history
+    reports ``valid == "unknown"``. Raises :class:`DenseOverflow`,
+    :class:`~jepsen_tpu_torch.checkers.events.ConcurrencyOverflow` or
+    :class:`~jepsen_tpu_torch.models.memo.StateExplosion` when a
+    history does not fit the dense engine."""
+    dev = _device.resolve(device)
+    t0 = _time.monotonic()
+    n = len(packed_list)
+    if should_abort is not None and should_abort():
+        return [{"valid": "unknown", "cause": "aborted",
+                 "engine": "reach-batch"} for _ in packed_list]
+    for stage in ("reach-lockstep", "reach-native-keyed"):
+        obs.decision(stage, "skipped", cause="not-ported", histories=n)
+    with obs.span("reach.prep", histories=n):
+        preps = [None if p.n == 0 or p.n_ok == 0 else
+                 _prep(model, p, max_states=max_states,
+                       max_slots=max_slots, max_dense=max_dense)
+                 for p in packed_list]
+    live = [i for i, p in enumerate(preps) if p is not None]
+    results: List[Optional[Dict[str, Any]]] = [
+        None if p is not None else
+        {"valid": True, "engine": "reach-batch", "events": 0, "time-s": 0.0}
+        for p in preps]
+    if not live:
+        return results  # type: ignore[return-value]
+    S_pad = max(preps[i][3] for i in live)
+    W = max(max(preps[i][1].W, 1) for i in live)
+    M = 1 << W
+    if S_pad * M > max_dense:
+        # padding every key to the common (S_pad, W) can overflow even
+        # when each key fits individually
+        raise DenseOverflow(f"batched dense config space {S_pad}x{M} "
+                            f"exceeds budget {max_dense}")
+    with obs.span("reach.returns-view", histories=len(live)):
+        rss = [ev.returns_view(preps[i][1]) for i in live]
+    try:
+        with obs.span("reach.keyed-operands", histories=len(live)):
+            operands = _keyed_operands(model, packed_list, rss, live, W,
+                                       max_states)
+    except (StateExplosion, DenseOverflow) as e:
+        obs.decision("reach-keyed", "skipped", cause=type(e).__name__,
+                     histories=n)
+    else:
+        obs.decision("reach-many", "route", cause="keyed", histories=n)
+        return _check_many_keyed(operands, rss, preps, live, results,
+                                 packed_list, M, dev, t0)
+    obs.decision("reach-vmapped", "skipped", cause="not-ported",
+                 histories=n)
+    obs.decision("reach-many", "route", cause="per-history", histories=n)
+    for i in live:
+        results[i] = check_packed(model, packed_list[i],
+                                  max_states=max_states,
+                                  max_slots=max_slots, max_dense=max_dense,
+                                  memo=preps[i][0], device=dev)
+    return results  # type: ignore[return-value]

@@ -16,6 +16,11 @@ config set, and emptiness is monotone); a death is located at the
 first empty block checkpoint and refined one return at a time by
 :func:`_refine_dead`. Semantics are identical to
 :func:`jepsen_tpu_torch.checkers.reach._walk_returns`.
+
+:func:`keyed_walk` walks many keys' streams concatenated into one flat
+stream, one launch of ``csrc/keyed_walk.cu`` (counterpart of
+``reach_lane._keyed_call``), and :func:`walk_returns_keyed` is its host
+side; :func:`keyed_walk_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ _SMEM_BYTES = 227 * 1024
 
 #: launches of the CUDA kernel (not of the plain version) in this process
 KERNEL_LAUNCHES = 0
+#: launches of the keyed CUDA kernel (K3) in this process
+KEYED_LAUNCHES = 0
 
 
 class Aborted(RuntimeError):
@@ -56,8 +63,9 @@ _CHUNK = 256                    # returns staged per refill (kChunk)
 
 def smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
     """Shared memory one walk takes, for routing without a card. It
-    mirrors ``jt_lane_walk_smem`` in ``csrc/lane_walk.cu``, the layout's
-    one source, and ``chip_smoke.py`` checks that the two agree: P as
+    mirrors ``walk_smem`` in ``csrc/walk.cuh`` (the layout of all three
+    walk kernels, exported as ``jt_lane_walk_smem``), and
+    ``chip_smoke.py`` checks that the two agree: P as
     ``[O1, S]`` target-set words, a chunk of the return stream, and
     unless the warp kernel holds the set in registers (``warp`` and
     W <= 5) R as one 32-bit state word per mask, double-buffered
@@ -72,9 +80,14 @@ def _kernel_takes(W: int, S: int, O1: int) -> bool:
 
 
 def lane_fits(S_pad: int, M: int, n_ops: int) -> bool:
-    """Whether the kernel takes this geometry: at most 32 states and 16
-    slots, with R and P in one block's shared memory."""
+    """Whether the walk kernels (K1, and K2 and K3, which share its
+    body and shared-memory layout) take this geometry: at most 32
+    states and 16 slots, with R and P in one block's shared memory."""
     return _kernel_takes(M.bit_length() - 1, S_pad, n_ops + 1)
+
+
+#: the keyed kernel's envelope is the lane kernel's
+keyed_fits = lane_fits
 
 
 # -- the kernel and its plain version ---------------------------------------
@@ -102,6 +115,38 @@ def _project(R, j: int, W: int, M: int, S: int):
     half, blk = M >> (j + 1), 1 << j
     taken = R.view(half, 2, blk, S)[:, 1]
     return torch.stack([taken, torch.zeros_like(taken)], 1).reshape(M, S)
+
+
+def _fire_lanes(R, G, W: int):
+    """One Jacobi fire pass over independent lanes walked in lockstep
+    (the plain versions of K2 and K3). ``R`` f32[M', H, S]: lane h's
+    configs, row ``e*M + m`` for mask m of seed group e; ``G``
+    f32[H, W, S, S]: each lane's pending-op matrices (the zero sentinel
+    for a free slot). Every slot fires from the pass-start set into the
+    bit-set half of its mask axis, which never leaves a group of M
+    rows."""
+    Mp, H, S = R.shape
+    F = torch.einsum("mhs,hjst->mhjt", R, G)
+    R = R.clone()
+    for j in range(W):
+        half, blk = Mp >> (j + 1), 1 << j
+        Rr = R.view(half, 2, blk, H, S)
+        Fr = F[:, :, j].reshape(half, 2, blk, H, S)
+        Rr[:, 1] = torch.maximum(Rr[:, 1], (Fr[:, 0] > 0.5).to(R.dtype))
+    return R
+
+
+def _project_lanes(R, js):
+    """Each lane's projection on its returning slot: ``js`` int[H], -1
+    the identity. Row r of lane h keeps row ``r | 1 << js[h]`` when bit
+    ``js[h]`` of r is clear, and is cleared when it is set."""
+    Mp, H, S = R.shape
+    rows = torch.arange(Mp, device=R.device)[:, None]
+    js = js.long()[None, :]
+    bit = torch.where(js >= 0, torch.ones_like(js) << js.clamp(min=0), 0)
+    src = (rows | bit).expand(Mp, H)
+    keep = ((rows & bit) == 0).to(R.dtype)
+    return R.gather(0, src[..., None].expand(Mp, H, S)) * keep[..., None]
 
 
 def lane_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
@@ -139,6 +184,7 @@ def lane_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
 
 
 _LIB = None
+_KEYED_LIB = None
 
 
 def _lib():
@@ -155,6 +201,26 @@ def _lib():
     return _LIB
 
 
+def _keyed_lib():
+    global _KEYED_LIB
+    if _KEYED_LIB is None:
+        from jepsen_tpu_torch import _build
+        lib = _build.load("keyed_walk")
+        lib.jt_keyed_walk.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.jt_keyed_walk.restype = ctypes.c_int
+        _KEYED_LIB = lib
+    return _KEYED_LIB
+
+
+def _check_operands(kernel: str, dev, tensors) -> None:
+    """Every operand a contiguous tensor of its type on ``dev``."""
+    for name, t, dt in tensors:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
+                             f"tensor on {dev}")
+
+
 def _lane_walk_cuda(P, ret_slot, slot_ops, R0, B: int, n_pass: int,
                     warp: bool = True):
     """Launch the kernel; ``warp=False`` takes the shared-memory kernel
@@ -163,13 +229,11 @@ def _lane_walk_cuda(P, ret_slot, slot_ops, R0, B: int, n_pass: int,
     R_pad, W = slot_ops.shape
     M, S = R0.shape
     O1 = P.shape[0]
-    for name, t, dt in (("P", P, torch.float32),
-                        ("ret_slot", ret_slot, torch.int32),
-                        ("slot_ops", slot_ops, torch.int32),
-                        ("R0", R0, torch.float32)):
-        if t.device != R0.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"lane_walk: {name} must be a contiguous "
-                             f"{dt} tensor on {R0.device}")
+    _check_operands("lane_walk", R0.device,
+                    (("P", P, torch.float32),
+                     ("ret_slot", ret_slot, torch.int32),
+                     ("slot_ops", slot_ops, torch.int32),
+                     ("R0", R0, torch.float32)))
     if P.shape[1:] != (S, S) or ret_slot.shape != (R_pad,) \
             or M != 1 << W or R_pad % B:
         raise ValueError(f"lane_walk: inconsistent shapes P{tuple(P.shape)} "
@@ -206,6 +270,133 @@ def lane_walk(P: torch.Tensor, ret_slot: torch.Tensor,
     if R0.device.type == "cpu":
         return lane_walk_plain(P, ret_slot, slot_ops, R0, B, n_pass)
     raise ValueError(f"lane_walk: unsupported device {R0.device}")
+
+
+def _key_runs(key_id: torch.Tensor, n_keys: int):
+    """``(lo, hi)`` int32[n_keys]: key k's returns are ``[lo[k], hi[k])``
+    of the flat stream (``key_id`` int32[N], -1 marks padding); a key
+    with no returns gets ``lo = hi = 0``. Raises unless every id is below
+    ``n_keys`` and every key's returns form one contiguous run."""
+    N = key_id.shape[0]
+    dev = key_id.device
+    k = key_id.long()
+    if N and int(k.max()) >= n_keys:
+        raise ValueError(f"keyed_walk: key id {int(k.max())} out of range "
+                         f"for {n_keys} keys")
+    real = k >= 0
+    kr = k[real]
+    pos = torch.arange(N, device=dev)[real]
+    cnt = torch.zeros(n_keys, dtype=torch.long, device=dev).index_add_(
+        0, kr, torch.ones_like(kr))
+    lo = torch.full((n_keys,), N, dtype=torch.long, device=dev) \
+        .scatter_reduce(0, kr, pos, "amin")
+    hi = torch.full((n_keys,), -1, dtype=torch.long, device=dev) \
+        .scatter_reduce(0, kr, pos, "amax") + 1
+    some = cnt > 0
+    lo = torch.where(some, lo, 0)
+    hi = torch.where(some, hi, 0)
+    if not bool(((hi - lo) == cnt).all()):
+        raise ValueError("keyed_walk: every key's returns must form one "
+                         "contiguous run of the stream")
+    return lo.int().contiguous(), hi.int().contiguous()
+
+
+def keyed_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
+                     slot_ops: torch.Tensor, key_id: torch.Tensor,
+                     n_keys: int, n_pass: int) -> torch.Tensor:
+    """The walk of :func:`keyed_walk` in PyTorch ops, on any device: all
+    keys advance in lockstep, one return each per step, padded with
+    identity steps to the longest key.
+
+    ``P`` f32[O1, S, S]; ``ret_slot`` i32[N]; ``slot_ops`` i32[N, W];
+    ``key_id`` i32[N] (-1 marks padding). Returns ``dead`` i32[n_keys]:
+    the flat index of the first return after which key k's set (seeded
+    one-hot at mask 0, state 0) is empty, or -1. Each step runs
+    ``min(max_k c_k, n_pass)`` passes for every key, ``c_k`` key k's
+    pending count: as many as the reference's per-return gate or more,
+    and passes past a key's closure change nothing."""
+    lo, hi = _key_runs(key_id, n_keys)
+    dev = P.device
+    W = slot_ops.shape[1]
+    O1, S, _ = P.shape
+    M = 1 << W
+    lo, cnt = lo.long(), (hi - lo).long()
+    L = int(cnt.max()) if n_keys else 0
+    t = torch.arange(L, device=dev)
+    valid = t[None, :] < cnt[:, None]                          # [K, L]
+    pos = torch.where(valid, lo[:, None] + t[None, :], 0)
+    js = torch.where(valid, ret_slot.long()[pos], -1)
+    ops = torch.where(valid[..., None], slot_ops.long()[pos], -1)  # [K,L,W]
+    passes = (ops >= 0).sum(2).amax(0).clamp(max=n_pass).tolist() \
+        if n_keys else []
+    idx = torch.where(ops < 0, O1 - 1, ops)
+    R = torch.zeros((M, n_keys, S), dtype=P.dtype, device=dev)
+    R[0, :, 0] = 1.0
+    dead = torch.full((n_keys,), -1, dtype=torch.long, device=dev)
+    for s in range(L):
+        G = P[idx[:, s]]                                       # [K, W, S, S]
+        for _ in range(passes[s]):
+            R = _fire_lanes(R, G, W)
+        R = _project_lanes(R, js[:, s])
+        empty = ~(R > 0.5).any(2).any(0)
+        dead = torch.where(empty & (dead < 0) & valid[:, s], lo + s, dead)
+    return dead.int()
+
+
+def _keyed_launch(P, ret_slot, slot_ops, lo, hi, n_pass: int,
+                  warp: bool = True):
+    """Launch the keyed kernel over the key runs ``[lo[k], hi[k])``
+    (:func:`_key_runs`); ``warp=False`` takes the shared-memory kernel
+    at every W."""
+    global KEYED_LAUNCHES
+    dev = P.device
+    N, W = slot_ops.shape
+    O1, S, _ = P.shape
+    n_keys = lo.shape[0]
+    _check_operands("keyed_walk", dev,
+                    (("P", P, torch.float32),
+                     ("ret_slot", ret_slot, torch.int32),
+                     ("slot_ops", slot_ops, torch.int32),
+                     ("lo", lo, torch.int32), ("hi", hi, torch.int32)))
+    if P.shape[1:] != (S, S) or ret_slot.shape != (N,) \
+            or hi.shape != (n_keys,):
+        raise ValueError(f"keyed_walk: inconsistent shapes P{tuple(P.shape)} "
+                         f"ret_slot{tuple(ret_slot.shape)} slot_ops"
+                         f"{tuple(slot_ops.shape)} lo{tuple(lo.shape)} "
+                         f"hi{tuple(hi.shape)}")
+    if not _kernel_takes(W, S, O1):
+        raise ValueError(f"keyed_walk: the kernel does not take W={W} "
+                         f"S={S} O1={O1} (see keyed_fits)")
+    dead = torch.empty(n_keys, dtype=torch.int32, device=dev)
+    if n_keys == 0:
+        return dead
+    lib = _keyed_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.jt_keyed_walk(
+            P.data_ptr(), ret_slot.data_ptr(), slot_ops.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), dead.data_ptr(), n_keys, W, S,
+            O1, n_pass, int(warp), stream)
+    if err != 0:
+        raise RuntimeError(f"keyed_walk kernel launch failed: CUDA error "
+                           f"{err}")
+    KEYED_LAUNCHES += 1
+    return dead
+
+
+def keyed_walk(P: torch.Tensor, ret_slot: torch.Tensor,
+               slot_ops: torch.Tensor, key_id: torch.Tensor, n_keys: int,
+               n_pass: int) -> torch.Tensor:
+    """The keyed walk with :func:`keyed_walk_plain`'s contract: the CUDA
+    kernel for tensors on the card (one thread block per key), the plain
+    version for tensors on the CPU."""
+    if P.device.type == "cuda":
+        lo, hi = _key_runs(key_id, n_keys)
+        return _keyed_launch(P, ret_slot, slot_ops, lo, hi, n_pass)
+    if P.device.type == "cpu":
+        return keyed_walk_plain(P, ret_slot, slot_ops, key_id, n_keys,
+                                n_pass)
+    raise ValueError(f"keyed_walk: unsupported device {P.device}")
 
 
 # -- host side ---------------------------------------------------------------
@@ -363,3 +554,29 @@ def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
         return -1, (final.cpu().numpy() > 0.5).T if fetch_R else None
     return _locate_dead(ckpt, args[0], W, M, B, ret_slot, slot_ops, base,
                         R_real), None
+
+
+def walk_returns_keyed(P: np.ndarray, ret_slot: np.ndarray,
+                       slot_ops: np.ndarray, key_id: np.ndarray,
+                       n_keys: int, M: int, *, device=None) -> np.ndarray:
+    """Walk ``n_keys`` return streams concatenated into one flat stream,
+    in one launch on ``device`` (default: the card), with the exact
+    ``W``-pass ladder gated by each return's pending count.
+
+    ``P`` f32[O1, S, S] (last row the all-zero sentinel); ``ret_slot``
+    i32[N]; ``slot_ops`` i32[N, W]; ``key_id`` i32[N], each key's
+    returns one contiguous run; ``M`` = 2^W. Returns ``dead``
+    int32[n_keys]: the flat index of key k's first return after which
+    its config set is empty, -1 if the key is linearizable."""
+    W = int(slot_ops.shape[1])
+    if M != 1 << W:
+        raise ValueError(f"walk_returns_keyed: M={M} is not 2^W, W={W}")
+    dev = _device.resolve(device)
+
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+
+    dead = keyed_walk(put(P, np.float32), put(ret_slot, np.int32),
+                      put(slot_ops.reshape(-1, W), np.int32),
+                      put(key_id, np.int32), n_keys, W)
+    return dead.cpu().numpy()

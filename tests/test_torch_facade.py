@@ -133,9 +133,9 @@ def test_ledger_records_route_and_unported_stages():
     assert res["valid"] is True
     assert [r["stage"] for r in cap.selections()] == ["reach-lane"]
     assert cap.fallbacks() == []
-    skipped = {r["stage"] for r in cap.skipped()}
-    assert {"reach-word", "reach-chunklock"} <= skipped
-    assert all(r["cause"] == "not-ported" for r in cap.skipped())
+    skipped = {r["stage"]: r["cause"] for r in cap.skipped()}
+    assert skipped == {"reach-word": "not-ported",
+                       "reach-chunklock": "below-min-returns"}
     assert [r["engine"] for r in cap.ledger
             if r["event"] == "route"] == ["reach-lane"]
 

@@ -139,14 +139,18 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'jepsen_tpu' or "
         "n.startswith('jepsen_tpu.'))\n"
-        "print(len([n for n in sys.modules "
-        "if n.startswith('jepsen_tpu_torch')]), bad)\n"
+        "print(' '.join(sorted(n for n in sys.modules "
+        "if n.startswith('jepsen_tpu_torch'))))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 14      # every module imported
+    imported = set(out.stdout.split())
+    assert len(imported) >= 17                   # every module imported
+    assert {"jepsen_tpu_torch.checkers.reach_batch",
+            "jepsen_tpu_torch.checkers.reach_chunklock",
+            "jepsen_tpu_torch.independent"} <= imported
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
