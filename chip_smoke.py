@@ -3,17 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
-``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``), holds each kernel
-bit for bit against its plain PyTorch version on the card at the shapes
-the main path gives it, then drives the main path through the user's
-entry points and checks the results:
+``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
+K5 ``wide_keyed``), holds each kernel bit for bit against its plain
+PyTorch version on the card at the shapes the main path gives it, then
+drives the main path through the user's entry points and checks the
+results:
 
 - ``Linearizable(cas_register()).check`` on a 100,000-op history
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
   one against the CPU run and against K1), and on a 1,000,000-op one;
 - the same on a 30,000-op history, below chunk-lockstep's floor (K1);
 - ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
-  50 ops (one K3 launch), against the CPU run.
+  50 ops (one K3 launch), against the CPU run;
+- more than 32 states: a 100,000-op cas history over 40 values and a
+  100,000-op multi-register history (one K4 launch each), the corrupted
+  cas one against the CPU run, and 2,000 keys over 40 values (one K5
+  launch) against the CPU run.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last three lines are one JSON object of per-kernel
@@ -67,11 +72,11 @@ def history_operands(h, model):
     return reach._build_P(memo, S_pad), ev.returns_view(stream), M
 
 
-def gen(kind, n_ops, processes, seed, corrupt=False):
+def gen(kind, n_ops, processes, seed, corrupt=False, **kw):
     from jepsen_tpu_torch import fixtures
 
     h = fixtures.gen_history(kind, n_ops=n_ops, processes=processes,
-                             seed=seed)
+                             seed=seed, **kw)
     return fixtures.corrupt(h, seed=seed) if corrupt else h
 
 
@@ -98,32 +103,34 @@ def plain_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def words(sets: np.ndarray) -> np.ndarray:
-    """0/1 sets ``[H, M, S]`` as state words ``[H, M]``."""
-    S = sets.shape[-1]
-    return ((sets > 0.5).astype(np.int64) << np.arange(S)).sum(-1)
+def as_sets(sets) -> np.ndarray:
+    """0/1 sets ``[H, M, S]`` (a tensor or an array) as booleans."""
+    if isinstance(sets, torch.Tensor):
+        sets = sets.cpu().numpy()
+    return sets > 0.5
 
 
 def walk_work(P: np.ndarray, ret_rh: np.ndarray, ops_rhw: np.ndarray,
               v0: np.ndarray, n_pass: int, lens=None):
-    """The 32-bit operations these inputs need in the bit form of the
+    """The 32-bit operations these inputs need in the word form of the
     walk, by replaying H walks in lockstep on the host with numpy, each
-    as the kernels run it: a mask's states are one word; per return,
-    ``min(c, n_pass)`` Jacobi passes, firing pending slot j into mask m
-    (bit j set) ORs the partner set's P rows, one per set bit, and ORs
-    the image in; a projection moves M words. ``ret_rh`` [R, H],
-    ``ops_rhw`` [R, H, W], ``v0`` words [H, M]. With ``lens`` (the keyed
-    walk) walk h stops after the first of its ``lens[h]`` returns that
-    empties it. Returns ``(operations, final words [H, M], dead [H])``;
-    the final sets are an independent check of the kernel."""
+    as the kernels run it: a mask's states are NW = ceil(S / 32) words;
+    per return, ``min(c, n_pass)`` Jacobi passes, firing pending slot j
+    into mask m (bit j set) ORs, into each of the NW words, P's word of
+    each set state of the partner set, and ORs the image in; a
+    projection moves M·NW words. ``ret_rh`` [R, H], ``ops_rhw``
+    [R, H, W], ``v0`` bool sets [H, M, S]. With ``lens`` (K3 to K5) walk
+    h stops after the first of its ``lens[h]`` returns that empties it.
+    Returns ``(operations, final sets [H, M, S], dead [H])``; the final
+    sets are an independent check of the kernel."""
     O1, S, _ = P.shape
     R, H, W = ops_rhw.shape
     M = 1 << W
-    Pw = ((P > 0.5).astype(np.int64) << np.arange(S)).sum(2)   # [O1, S]
-    v = v0.astype(np.int64).copy()
+    NW = -(-S // 32)
+    Pi = (P > 0.5).astype(np.int32)
+    v = v0.astype(bool).copy()
     masks = np.arange(M)
     his = [masks[(masks >> j) & 1 == 1] for j in range(W)]
-    bits_of = np.arange(S)
     live = np.ones(H, bool)
     dead = np.full(H, -1, np.int64)
     ops = 0
@@ -138,23 +145,21 @@ def walk_work(P: np.ndarray, ret_rh: np.ndarray, ops_rhw: np.ndarray,
                 if not len(on):
                     continue
                 hi = his[j]
-                partner = v[on][:, hi ^ (1 << j)]               # [n, M/2]
-                bits = (partner[..., None] >> bits_of) & 1      # [n, M/2, S]
-                rows = Pw[o[on, j]][:, None, :]                 # [n, 1, S]
-                img = np.bitwise_or.reduce(np.where(bits == 1, rows, 0), 2)
+                partner = v[on][:, hi ^ (1 << j)]            # [n, M/2, S]
+                img = (partner.astype(np.int32) @ Pi[o[on, j]]) > 0
                 acc[np.ix_(on, hi)] |= img
-                ops += int(bits.sum()) + img.size
+                ops += NW * (int(partner.sum()) + img.shape[0] * img.shape[1])
             v = acc
         js = ret_rh[r]
         proj = np.nonzero((js >= 0) & live)[0]
         if len(proj):
             j = js[proj][:, None]
             keep = ((masks[None, :] >> j) & 1) == 0
-            src = np.take_along_axis(v[proj], masks[None, :] | (1 << j), 1)
-            v[proj] = np.where(keep, src, 0)
-            ops += M * len(proj)
+            src = v[proj[:, None], masks[None, :] | (1 << j)]  # [n, M, S]
+            v[proj] = src & keep[..., None]
+            ops += M * NW * len(proj)
         if lens is not None:
-            died = live & (r < lens) & ~v.any(1)
+            died = live & (r < lens) & ~v.any((1, 2))
             dead[died] = r
             live &= ~died
     return ops, v, dead
@@ -176,8 +181,9 @@ def nbytes(*tensors) -> int:
 
 
 def check_smem_layout():
-    """``reach_lane.smem_bytes`` (routing without a card) against the
-    kernels' own ``jt_lane_walk_smem``, over the geometries they take."""
+    """``reach_lane.smem_bytes`` and ``reach_pallas.smem_bytes`` (routing
+    without a card) against the kernels' own ``jt_lane_walk_smem`` and
+    ``jt_wide_walk_smem``, over the geometries they take."""
     from jepsen_tpu_torch.checkers import reach_lane
 
     lib = reach_lane._lib()
@@ -191,6 +197,19 @@ def check_smem_layout():
                             f"smem layout differs at W={W} S={S} O1={O1} "
                             f"warp={warp}: kernel {got}, host "
                             f"{reach_lane.smem_bytes(W, S, O1, warp)}")
+    # the wide kernels' layout (K4, K5) against reach_pallas.smem_bytes
+    from jepsen_tpu_torch.checkers import reach_pallas
+
+    lib = reach_pallas._lib()
+    for W in range(1, reach_pallas._MAX_W + 1):
+        for S in (1, 8, 32, 33, 64, 128, 1024):
+            for O1 in (2, 21, 248, 735):
+                got = lib.jt_wide_walk_smem(W, S, O1)
+                if got != reach_pallas.smem_bytes(W, S, O1):
+                    raise AssertionError(
+                        f"wide smem layout differs at W={W} S={S} O1={O1}: "
+                        f"kernel {got}, host "
+                        f"{reach_pallas.smem_bytes(W, S, O1)}")
 
 
 def same(label: str, got, want):
@@ -235,9 +254,8 @@ def phase_k1():
             ms = event_ms(lambda: reach_lane.lane_walk(*args, B, n_pass), 10)
             work, v, _ = walk_work(P, args[1].cpu().numpy()[:, None],
                                    args[2].cpu().numpy()[:, None],
-                                   words(args[3].cpu().numpy()[None]),
-                                   n_pass)
-            if not np.array_equal(v, words(fin.cpu().numpy()[None])):
+                                   as_sets(args[3][None]), n_pass)
+            if not np.array_equal(v, as_sets(fin[None])):
                 raise AssertionError(f"lane_walk differs from the host "
                                      f"replay at {label} n_pass={n_pass}")
             bound, bound_by, detail = bound_ms(
@@ -322,8 +340,8 @@ def phase_k2(P, rs, M):
         ops_rhw = np.repeat(args[1].cpu().numpy().reshape(R_pad, C, W),
                             groups, axis=1)
         work, v, _ = walk_work(P, ret_rh, ops_rhw,
-                               words(lane_sets(args[3], C, groups)), W)
-        if not np.array_equal(v, words(lane_sets(fin, C, groups))):
+                               as_sets(lane_sets(args[3], C, groups)), W)
+        if not np.array_equal(v, as_sets(lane_sets(fin, C, groups))):
             raise AssertionError(f"{label} differs from the host replay")
         moved = nbytes(*args, ck, fin)
         bound, bound_by, detail = bound_ms(moved, work)
@@ -348,26 +366,26 @@ def phase_k2(P, rs, M):
     return out
 
 
-def keyed_histories():
-    """The independent shape: one cas history per key, values wrapped
-    as ``[key, v]``, processes ``key·4 + p``, corrupted keys
-    :data:`BAD_KEYS`. Returns ``(history, per-key histories)``."""
+def keyed_histories(**kw):
+    """The independent shape: one cas history per key (generator options
+    ``kw``), values wrapped as ``[key, v]``, processes ``key·4 + p``,
+    corrupted keys :data:`BAD_KEYS`. Returns ``(history, per-key
+    histories)``."""
     per_key, flat = [], []
     for k in range(N_KEYS):
-        hk = gen("cas", OPS_PER_KEY, KEY_PROCS, k, k in BAD_KEYS)
+        hk = gen("cas", OPS_PER_KEY, KEY_PROCS, k, k in BAD_KEYS, **kw)
         per_key.append(hk)
         flat += [op.with_(process=k * KEY_PROCS + op.process,
                           value=[k, op.value]) for op in hk]
     return [op.with_(index=i, time=i) for i, op in enumerate(flat)], per_key
 
 
-def phase_k3(per_key):
-    """K3 against its plain version at the independent shape (the
-    operands ``check_many`` builds), bit for bit; time, bound and host
-    replay."""
+def keyed_operands(per_key):
+    """The operands ``check_many`` builds for these keys' histories:
+    ``(P, ret, ops, W, tensors on the card)``."""
     from jepsen_tpu_torch import history, models
     from jepsen_tpu_torch.checkers import events as ev
-    from jepsen_tpu_torch.checkers import reach, reach_lane
+    from jepsen_tpu_torch.checkers import reach
 
     model = models.cas_register()
     packed = [history.pack(h) for h in per_key]
@@ -377,10 +395,36 @@ def phase_k3(per_key):
     rss = [ev.returns_view(p[1]) for p in preps]
     P, ret, ops, key, _off = reach._keyed_operands(
         model, packed, rss, list(range(len(packed))), W, 100_000)
-    K = len(packed)
     t = [torch.as_tensor(np.ascontiguousarray(a, dt), device="cuda")
          for a, dt in ((P, np.float32), (ret, np.int32), (ops, np.int32),
                        (key, np.int32))]
+    return P, ret, ops, W, t
+
+
+def keyed_replay(P, ret, ops, lo, hi, W):
+    """:func:`walk_work` over the keys' runs ``[lo, hi)`` in lockstep:
+    ``(operations, each key's flat dead index or -1)``."""
+    lo_np, n = lo.cpu().numpy(), (hi - lo).cpu().numpy()
+    L = int(n.max())
+    steps = np.arange(L)[:, None]
+    valid = steps < n[None, :]
+    pos = np.where(valid, lo_np[None, :] + steps, 0)
+    ret_rh = np.where(valid, ret[pos], -1)
+    ops_rhw = np.where(valid[..., None], ops[pos], -1)
+    v0 = np.zeros((len(n), 1 << W, P.shape[1]), bool)
+    v0[:, 0, 0] = True
+    work, _v, dead_host = walk_work(P, ret_rh, ops_rhw, v0, W, lens=n)
+    return work, np.where(dead_host >= 0, lo_np + dead_host, -1)
+
+
+def phase_k3(per_key):
+    """K3 against its plain version at the independent shape (the
+    operands ``check_many`` builds), bit for bit; time, bound and host
+    replay."""
+    from jepsen_tpu_torch.checkers import reach_lane
+
+    P, ret, ops, W, t = keyed_operands(per_key)
+    K = len(per_key)
     lo, hi = reach_lane._key_runs(t[3], K)
     dead = reach_lane._keyed_launch(*t[:3], lo, hi, W)
     ref, p_ms = plain_ms(lambda: reach_lane.keyed_walk_plain(*t, K, W))
@@ -390,17 +434,7 @@ def phase_k3(per_key):
     ms = event_ms(lambda: reach_lane._keyed_launch(*t[:3], lo, hi, W), 20)
     block_ms = event_ms(lambda: reach_lane._keyed_launch(
         *t[:3], lo, hi, W, warp=False), 20)
-    lo_np, n = lo.cpu().numpy(), (hi - lo).cpu().numpy()
-    L = int(n.max())
-    steps = np.arange(L)[:, None]
-    valid = steps < n[None, :]
-    pos = np.where(valid, lo_np[None, :] + steps, 0)
-    ret_rh = np.where(valid, ret[pos], -1)
-    ops_rhw = np.where(valid[..., None], ops[pos], -1)
-    v0 = np.zeros((K, 1 << W), np.int64)
-    v0[:, 0] = 1
-    work, _v, dead_host = walk_work(P, ret_rh, ops_rhw, v0, W, lens=n)
-    want = np.where(dead_host >= 0, lo_np + dead_host, -1)
+    work, want = keyed_replay(P, ret, ops, lo, hi, W)
     if not np.array_equal(want, dead.cpu().numpy()):
         raise AssertionError("keyed_walk differs from the host replay")
     bound, bound_by, detail = bound_ms(nbytes(*t, dead), work)
@@ -414,20 +448,171 @@ def phase_k3(per_key):
             "bound_ms": bound, "bound_by": bound_by}
 
 
+# the wide shapes: a cas register over 40 values (41 states, S_pad 64)
+# and a multi-register of 3 keys over 3 values (64 states)
+WIDE_CAS = dict(values=40)
+WIDE_MULTI = dict(values=3, keys=3)
+WIDE_RETURNS = 20_000          # K4 against its plain version, and the
+                               # torch returns walk, on this prefix
+
+
+def one_thread(fn):
+    """``fn()`` with one CPU thread: the plain walk's products are a few
+    kilobytes, where more threads only add overhead."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(n)
+
+
+def one_hot(P, M):
+    R0 = np.zeros((P.shape[1], M), bool)
+    R0[0, 0] = True
+    return R0
+
+
+def phase_k4(P_wide, rs_wide):
+    """K4 against its plain version on the same CUDA tensors, bit for
+    bit, with the host replay of each walk: the wide cas-100k's alphabet
+    (735 ops, P's words in device memory) over its first
+    :data:`WIDE_RETURNS` returns, multi-register-20k (P's words in
+    shared memory) and a narrow walk (one word a mask); then K4 against
+    K1 on cas-30k, and the torch returns walk the wide route took
+    before K4, on the first shape. Times, bound and plain time of the
+    first shape."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import reach, reach_lane, reach_pallas
+
+    P_m, rs_m, _ = history_operands(
+        gen("multi", 20_000, 5, 0, **WIDE_MULTI), models.multi_register())
+    P_n, rs_n, _ = history_operands(gen("cas", 4_000, 7, 1),
+                                    models.cas_register())
+    n = WIDE_RETURNS
+    runs = [("cas-40 alphabet, 20,000 returns", P_wide,
+             rs_wide.ret_slot[:n], rs_wide.slot_ops[:n]),
+            ("multi-register-20k", P_m, rs_m.ret_slot, rs_m.slot_ops),
+            ("narrow W=7", P_n, rs_n.ret_slot, rs_n.slot_ops)]
+    out = {"max_abs_err": 0.0}
+    for label, P, ret, ops in runs:
+        W, S, O1 = ops.shape[1], P.shape[1], P.shape[0]
+        args = reach_pallas.operands_from_numpy(P, ret, ops,
+                                                one_hot(P, 1 << W),
+                                                device="cuda")
+        rlim = len(ret)
+        got = reach_pallas.walk(*args, rlim)
+        ref, p_ms = plain_ms(lambda: reach_pallas.walk_plain(*args, rlim))
+        err = same(f"wide_walk [{label}]", got, ref)
+        ms = event_ms(lambda: reach_pallas.walk(*args, rlim), 5)
+        work, v, dead = walk_work(P, ret[:, None], ops[:, None],
+                                  as_sets(args[3][None]), W,
+                                  lens=np.array([rlim]))
+        if not (np.array_equal(v, as_sets(got[1][None]))
+                and int(dead[0]) == int(got[0][0])):
+            raise AssertionError(f"wide_walk differs from the host replay "
+                                 f"at {label}")
+        bound, bound_by, detail = bound_ms(nbytes(*args, *got), work)
+        log(f"kernel wide_walk [{label}] W={W} S={S} O1={O1} "
+            f"P_words_shared={reach_pallas.p_shared(W, S, O1)} "
+            f"returns={rlim}: bit-identical max_abs_err={err} "
+            f"kernel_ms={ms:.6f} us_per_return={1e3 * ms / rlim:.6f} "
+            f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
+            f"{detail}) dead={int(got[0][0])}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if "ms" not in out:
+            out.update(ms=ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, final=got[1])
+    # the route before K4 on the first shape: the torch returns walk
+    label, P, ret, ops = runs[0]
+    W = ops.shape[1]
+    xc, bm = reach._xor_bitmask(W, 1 << W)
+    torch_args = [torch.as_tensor(a, device="cuda") for a in
+                  (P, xc, bm, ops, one_hot(P, 1 << W))]
+    (_ptr, R_t, alive, _), t_ms = plain_ms(lambda: reach._walk_returns(
+        *torch_args[:3], ret, *torch_args[3:]))
+    if not (alive and np.array_equal(R_t.cpu().numpy().T,
+                                     as_sets(out.pop("final")))):
+        raise AssertionError("the torch returns walk disagrees with K4")
+    log(f"torch returns walk [{label}] on the card: {t_ms:.3f} ms "
+        f"({1e3 * t_ms / len(ret):.3f} us a return), K4 {out['ms']:.6f} "
+        f"ms: {t_ms / out['ms']:.1f}x; same final set")
+    # the whole wide cas-100k stream, the main path's launch
+    args = reach_pallas.operands_from_numpy(
+        P_wide, rs_wide.ret_slot, rs_wide.slot_ops,
+        one_hot(P_wide, 1 << rs_wide.W), device="cuda")
+    full_ms = event_ms(lambda: reach_pallas.walk(*args, rs_wide.n_returns),
+                       3)
+    log(f"kernel wide_walk [wide cas-100k, {rs_wide.n_returns} returns]: "
+        f"kernel_ms={full_ms:.6f} us_per_return="
+        f"{1e3 * full_ms / rs_wide.n_returns:.6f}")
+    # one word a mask: K4 against K1 on cas-30k
+    P, rs, M = history_operands(gen("cas", 30_000, 5, 0),
+                                models.cas_register())
+    R0 = one_hot(P, M)
+    lane_args = reach_lane.operands_from_numpy(P, rs.ret_slot, rs.slot_ops,
+                                               R0, device="cuda")
+    wide_args = reach_pallas.operands_from_numpy(P, rs.ret_slot,
+                                                 rs.slot_ops, R0,
+                                                 device="cuda")
+    _ck, fin1 = reach_lane.lane_walk(*lane_args, 1024, rs.W)
+    dead4, fin4 = reach_pallas.walk(*wide_args, rs.n_returns)
+    if not (torch.equal(fin1, fin4) and int(dead4[0]) == -1):
+        raise AssertionError("K4 and K1 disagree on cas-30k")
+    k1_ms = event_ms(lambda: reach_lane.lane_walk(*lane_args, 1024, rs.W), 5)
+    k4_ms = event_ms(lambda: reach_pallas.walk(*wide_args, rs.n_returns), 5)
+    log(f"kernel wide_walk [cas-30k, S={P.shape[1]} W={rs.W}] against K1: "
+        f"same final set; K4 {k4_ms:.6f} ms, K1 {k1_ms:.6f} ms")
+    return out
+
+
+def phase_k5(per_key):
+    """K5 against its plain version at the wide independent shape (the
+    operands ``check_many`` builds), bit for bit; time, bound and host
+    replay."""
+    from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
+
+    P, ret, ops, W, t = keyed_operands(per_key)
+    K = len(per_key)
+    lo, hi = reach_lane._key_runs(t[3], K)
+    dead = reach_pallas._keyed_launch(*t[:3], lo, hi)
+    ref, p_ms = plain_ms(lambda: reach_pallas.keyed_walk_plain(*t, K))
+    err = same("wide_keyed [wide independent]", (dead,), (ref,))
+    ms = event_ms(lambda: reach_pallas._keyed_launch(*t[:3], lo, hi), 20)
+    work, want = keyed_replay(P, ret, ops, lo, hi, W)
+    if not np.array_equal(want, dead.cpu().numpy()):
+        raise AssertionError("wide_keyed differs from the host replay")
+    bound, bound_by, detail = bound_ms(nbytes(*t, dead), work)
+    S, O1 = P.shape[1], P.shape[0]
+    log(f"kernel wide_keyed [wide independent {K} keys x {OPS_PER_KEY} "
+        f"ops] returns={ret.shape[0]} W={W} S={S} O1={O1} "
+        f"P_words_shared={reach_pallas.p_shared(W, S, O1)}: bit-identical "
+        f"max_abs_err={err} kernel_ms={ms:.6f} plain_ms={p_ms:.3f} "
+        f"bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
+        f"{int((dead >= 0).sum())}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
 def launches():
     """The kernels' launch counts, by kernel."""
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
+    from jepsen_tpu_torch.checkers import reach_pallas
 
     return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
             "batch_walk": reach_batch.KERNEL_LAUNCHES,
-            "keyed_walk": reach_lane.KEYED_LAUNCHES}
+            "keyed_walk": reach_lane.KEYED_LAUNCHES,
+            "wide_walk": reach_pallas.KERNEL_LAUNCHES,
+            "wide_keyed": reach_pallas.KEYED_LAUNCHES}
 
 
 def zero_launches():
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
+    from jepsen_tpu_torch.checkers import reach_pallas
 
     reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
     reach_batch.KERNEL_LAUNCHES = 0
+    reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
 
 
 def drive(fn):
@@ -516,6 +701,11 @@ def main() -> int:
     h_ind, per_key = keyed_histories()
     gen_ind_s = time.perf_counter() - t0
     k3 = phase_k3(per_key)
+    wide = gen("cas", 100_000, 5, 0, **WIDE_CAS)
+    P_w, rs_w, _M_w = history_operands(wide, models.cas_register())
+    k4 = phase_k4(P_w, rs_w)
+    h_wide_ind, per_key_wide = keyed_histories(**WIDE_CAS)
+    k5 = phase_k5(per_key_wide)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the main path ------------------------------------------------
@@ -615,6 +805,83 @@ def main() -> int:
         f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees; history "
         f"generation {gen_ind_s:.2f} s not counted")
 
+    # -- the wide main path: more than 32 states, K4 and K5 -------------
+    def check_multi(h, device=None):
+        return Linearizable(models.multi_register(),
+                            device=device).check(None, h)
+
+    multi = gen("multi", 100_000, 5, 0, **WIDE_MULTI)
+    k4_launches = None
+    for label, h, check in (("wide cas-100k", wide, linearizable),
+                            ("multi-register-100k", multi, check_multi)):
+        res, dt, la, spans, _ = drive(lambda: check(h))
+        if res["valid"] is not True or res["engine"] != "reach-pallas":
+            raise AssertionError(f"valid {label}: {res}")
+        expect(label, la, wide_walk=1, lane_walk=0, batch_walk=0,
+               keyed_walk=0, wide_keyed=0)
+        k4_launches = k4_launches or la["wide_walk"]
+        log(f"main path valid {label}: {res['engine']} valid={res['valid']} "
+            f"states={res['states']} slots={res['slots']} {dt:.4f} s = "
+            f"{len(h) // 2 / dt:.1f} ops/s; {split(dt, spans)}; "
+            f"launches {la}")
+
+    bad = gen("cas", 100_000, 5, 0, corrupt=True, **WIDE_CAS)
+    res, dt, la, spans, _ = drive(lambda: linearizable(bad))
+    expect("corrupted wide cas-100k", la, wide_walk=2, lane_walk=0,
+           batch_walk=0, keyed_walk=0, wide_keyed=0)
+    t0 = time.perf_counter()
+    ref = one_thread(lambda: linearizable(bad, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    for key in ("valid", "engine", "op", "dead-event", "max-linearized",
+                "final-configs", "previous-ok"):
+        if res.get(key) != ref.get(key):
+            raise AssertionError(f"corrupted wide cas-100k: {key} differs "
+                                 f"cuda={res.get(key)} cpu={ref.get(key)}")
+    if res["valid"] is not False or not res["final-configs"]:
+        raise AssertionError(f"corrupted wide cas-100k: {res}")
+    log(f"main path corrupted wide cas-100k: {res['engine']} "
+        f"valid={res['valid']} dead-event={res['dead-event']} {dt:.4f} s on "
+        f"cuda ({split(dt, spans)}; launches {la}: the walk and the "
+        f"witness prefix), {cpu_s:.3f} s on cpu; verdict, op, dead event "
+        f"and witness agree")
+
+    def check_wide_independent(device=None):
+        return independent.checker(Linearizable(
+            models.cas_register(), device=device)).check(None, h_wide_ind)
+
+    res, dt, la, spans, ledger = drive(check_wide_independent)
+    routes = [r.get("cause") for r in ledger
+              if r["stage"] == "reach-many" and r["event"] == "route"]
+    if routes != ["keyed-wide"]:
+        raise AssertionError(f"wide independent: routes {routes}")
+    # every key has at most 32 states of its own: K1 re-walks each failed
+    # key's witness prefix in the key's own geometry
+    expect("wide independent", la, wide_keyed=1, keyed_walk=0,
+           batch_walk=0, wide_walk=0, lane_walk=len(BAD_KEYS))
+    k5_launches = la["wide_keyed"]
+    t0 = time.perf_counter()
+    ref = check_wide_independent("cpu")
+    cpu_s = time.perf_counter() - t0
+    if sorted(res["failures"]) != list(BAD_KEYS) or res["valid"] is not \
+            False or res["key-count"] != N_KEYS:
+        raise AssertionError(f"wide independent: failures "
+                             f"{res['failures']}")
+    for key in ("valid", "failures", "key-count"):
+        if res[key] != ref[key]:
+            raise AssertionError(f"wide independent: {key} differs")
+    for k, r in res["results"].items():
+        for key in ("valid", "engine", "op", "dead-event", "final-configs",
+                    "previous-ok"):
+            if r.get(key) != ref["results"][k].get(key):
+                raise AssertionError(f"wide independent key {k}: {key} "
+                                     f"differs cuda={r.get(key)} "
+                                     f"cpu={ref['results'][k].get(key)}")
+    log(f"main path wide independent cas {N_KEYS} keys x {OPS_PER_KEY} ops "
+        f"over 40 values ({len(BAD_KEYS)} corrupted): route keyed-wide, "
+        f"valid={res['valid']} failures={len(res['failures'])} {dt:.4f} s "
+        f"= {len(h_wide_ind) // 2 / dt:.1f} ops/s; {split(dt, spans)}; "
+        f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     entries = [
         ("lane_walk", "lane_walk.cu", "jepsen_tpu/checkers/reach_lane.py:201",
@@ -623,6 +890,10 @@ def main() -> int:
          "jepsen_tpu/checkers/reach_batch.py:336", k2_launches, k2),
         ("keyed_walk", "keyed_walk.cu",
          "jepsen_tpu/checkers/reach_lane.py:339", k3_launches, k3),
+        ("wide_walk", "wide_walk.cu",
+         "jepsen_tpu/checkers/reach_pallas.py:167", k4_launches, k4),
+        ("wide_keyed", "wide_keyed.cu",
+         "jepsen_tpu/checkers/reach_pallas.py:374", k5_launches, k5),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

@@ -19,19 +19,20 @@ the whole reachable set as one dense boolean tensor ``R[state, mask]``:
 Closure passes are needed only just before returns, so the fast path
 walks return events alone with each return's pending ops known up front
 (:func:`_walk_returns`); on the card that walk is one kernel launch
-(:mod:`.reach_lane`). Exact, not probabilistic: the dense set cannot
-produce false verdicts.
+(:mod:`.reach_lane`, or :mod:`.reach_pallas` above 32 states). Exact,
+not probabilistic: the dense set cannot produce false verdicts.
 
 Routing in :func:`check_packed`, chosen from the geometry before anything
 launches: chunk-lockstep (:mod:`.reach_chunklock`, the lockstep kernel
 over the stream's chunks) when the fast path applies, the history has
 at least :data:`reach_chunklock.MIN_RETURNS` returns and the walk
 kernels take it; else the lane kernel when R and P fit one block's
-shared memory (:func:`reach_lane.lane_fits`); else the torch returns
-walk; else, when the per-return matrix form does not fit, the torch
-event walk (:func:`_walk`). :func:`check_many` checks many histories
-(the ``independent`` checker's keys) with one launch of the keyed
-kernel.
+shared memory (:func:`reach_lane.lane_fits`); else the wide kernel K4,
+whose sets span words, when its set fits (:func:`reach_pallas.fits`);
+else the torch returns walk; else, when the per-return matrix form does
+not fit, the torch event walk (:func:`_walk`). :func:`check_many`
+checks many histories (the ``independent`` checker's keys) with one
+launch of a keyed kernel: K3, or K5 above 32 states.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import events as ev
-from jepsen_tpu_torch.checkers import reach_chunklock, reach_lane
+from jepsen_tpu_torch.checkers import (
+    reach_chunklock, reach_lane, reach_pallas)
 from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
     Memo, StateExplosion, memo as build_memo, memo_ops)
@@ -350,26 +352,30 @@ def _seed(S_pad: int, M: int, dev) -> torch.Tensor:
     return R0
 
 
-def _final_configs(memo: Memo, rs: "ev.ReturnStream", P, S_pad: int,
-                   M: int, W: int, dead_ret: int, limit: int = 16,
-                   lane: bool = False, device=None
-                   ) -> List[Dict[str, Any]]:
+def _final_configs(memo: Memo, rs: "ev.ReturnStream", P: np.ndarray,
+                   S_pad: int, M: int, W: int, dead_ret: int,
+                   limit: int = 16, device=None) -> List[Dict[str, Any]]:
     """Decode the configurations that survived up to (but not through)
     the dead return — the analogue of knossos's ``:final-paths``: each
     entry is a reachable model state plus the pending ops it has already
-    linearized. The prefix is re-walked exactly by the lane walk on
-    ``device`` when ``lane`` (one launch on the card; ``P`` the host
-    array), else by the torch returns walk (``P`` a tensor)."""
-    if lane:
-        R0 = np.zeros((S_pad, M), bool)
-        R0[0, 0] = True
+    linearized. The prefix is re-walked exactly on ``device``, by the
+    walk the geometry allows: the lane kernel K1 (one launch on the
+    card), else the wide kernel K4 (one launch), else the torch returns
+    walk."""
+    R0 = np.zeros((S_pad, M), bool)
+    R0[0, 0] = True
+    if reach_lane.lane_fits(S_pad, M, memo.n_ops):
         R = reach_lane.prefix_set(P, rs.ret_slot, rs.slot_ops, R0,
                                   dead_ret, device=device)
+    elif reach_pallas.fits(S_pad, M, memo.n_ops):
+        _, R = reach_pallas.walk_returns(
+            P, rs.ret_slot[:dead_ret], rs.slot_ops[:dead_ret], R0,
+            device=device)
     else:
-        dev = P.device
+        dev = _device.resolve(device)
         xc, bm = _xor_bitmask(W, M)
         _, R_t, _, _ = _walk_returns(
-            P, torch.as_tensor(xc, device=dev),
+            torch.as_tensor(P, device=dev), torch.as_tensor(xc, device=dev),
             torch.as_tensor(bm, device=dev), rs.ret_slot[:dead_ret],
             torch.as_tensor(rs.slot_ops[:dead_ret], device=dev),
             _seed(S_pad, M, dev))
@@ -388,7 +394,7 @@ def _final_configs(memo: Memo, rs: "ev.ReturnStream", P, S_pad: int,
 
 def _attach_witness(out: Dict[str, Any], memo: Memo, rs, P, S_pad, M,
                     W, dead_ret: int, packed: h.PackedHistory,
-                    lane: bool = False, device=None) -> None:
+                    device=None) -> None:
     """Enrich an invalid verdict with knossos-style failure evidence:
     ``final-configs`` (:func:`_final_configs`) and ``previous-ok`` (the
     last successfully linearized return before the failing one).
@@ -398,8 +404,7 @@ def _attach_witness(out: Dict[str, Any], memo: Memo, rs, P, S_pad, M,
     try:
         with obs.span("reach.witness", returns=dead_ret):
             out["final-configs"] = _final_configs(
-                memo, rs, P, S_pad, M, W, dead_ret, lane=lane,
-                device=device)
+                memo, rs, P, S_pad, M, W, dead_ret, device=device)
         if dead_ret > 0:
             prev = packed.entries[int(rs.ret_entry[dead_ret - 1])]
             out["previous-ok"] = prev.op.to_dict()
@@ -496,13 +501,14 @@ def _lane_verdict(engine: str, dead: int, elapsed: float,
                   P_np: np.ndarray, S_pad: int, M: int, W: int,
                   device) -> Dict[str, Any]:
     """The verdict of a walk that reports its dead return index (-1:
-    linearizable), with the witness re-walked by K1 on ``device``."""
+    linearizable), with the witness re-walked on ``device`` by the walk
+    the geometry allows (:func:`_final_configs`)."""
     if dead < 0:
         return _result_valid(engine, stream, memo, elapsed)
     out = _result_invalid(engine, stream, memo, packed,
                           int(rs.ret_event[dead]), elapsed)
     _attach_witness(out, memo, rs, P_np, S_pad, M, W, int(dead), packed,
-                    lane=True, device=device)
+                    device=device)
     return out
 
 
@@ -562,21 +568,28 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
         out.update(diag)
         return out
     obs.decision("reach-chunklock", "skipped", cause=skip, **geom)
+    # the lane kernel K1 up to 32 states, else the wide kernel K4: both
+    # walk the whole stream in one launch and report the dead return
     if lane_ok:
-        obs.decision("reach", "route", engine="reach-lane", **geom)
+        engine, walker = "reach-lane", reach_lane
+    elif reach_pallas.fits(S_pad, M, memo.n_ops):
+        engine, walker = "reach-pallas", reach_pallas
+    else:
+        walker = None
+    if walker is not None:
+        obs.decision("reach", "route", engine=engine, **geom)
         R0_np = np.zeros((S_pad, M), bool)
         R0_np[0, 0] = True
         try:
-            with obs.span("reach.walk", engine="reach-lane",
+            with obs.span("reach.walk", engine=engine,
                           returns=int(rs.n_returns)):
-                dead, _ = reach_lane.walk_returns(
+                dead, _ = walker.walk_returns(
                     P_np, rs.ret_slot, rs.slot_ops, R0_np, device=dev,
                     fetch_R=False, should_abort=should_abort)
         except reach_lane.Aborted:
             return dict(_ABORTED)
-        return _lane_verdict("reach-lane", dead, _time.monotonic() - t0,
-                             stream, memo, packed, rs, P_np, S_pad, M, W,
-                             dev)
+        return _lane_verdict(engine, dead, _time.monotonic() - t0, stream,
+                             memo, packed, rs, P_np, S_pad, M, W, dev)
 
     obs.decision("reach", "route", engine="reach", **geom)
     P = torch.as_tensor(P_np, device=dev)
@@ -609,7 +622,8 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
                           elapsed)
     dead_ret = int(np.searchsorted(rs.ret_event[:rs.n_returns],
                                    dead_event))
-    _attach_witness(out, memo, rs, P, S_pad, M, W, dead_ret, packed)
+    _attach_witness(out, memo, rs, P_np, S_pad, M, W, dead_ret, packed,
+                    device=dev)
     return out
 
 
@@ -638,18 +652,29 @@ def _union_alphabet(model: Model, packed_list, live, max_states: int):
     return memo_u, luts
 
 
+def _keyed_kernel(S_pad: int, M: int, n_ops: int) -> Optional[str]:
+    """The keyed kernel that takes this union geometry, as the route's
+    cause: ``"keyed"`` (K3, up to 32 states), ``"keyed-wide"`` (K5, sets
+    of several words), or None."""
+    if reach_lane.keyed_fits(S_pad, M, n_ops):
+        return "keyed"
+    if reach_pallas.fits(S_pad, M, n_ops):
+        return "keyed-wide"
+    return None
+
+
 def _keyed_operands(model, packed_list, rss, live, W: int,
                     max_states: int):
-    """The keyed kernel's flat operands: the union transition tensor P
+    """The keyed kernels' flat operands: the union transition tensor P
     plus all keys' real returns concatenated into one stream tagged with
     key ids. Returns ``(P, ret_flat, ops_flat, key_flat, offsets)``;
     raises :class:`StateExplosion`/:class:`DenseOverflow` when
-    the union alphabet does not fit the fast path or the kernel."""
+    the union alphabet does not fit the fast path or a keyed kernel."""
     memo_u, luts = _union_alphabet(model, packed_list, live, max_states)
     S_pad = max(2, _next_pow2(memo_u.n_states))
     M = 1 << W
     if not (_fast_ok(S_pad, W, M, memo_u.n_ops)
-            and reach_lane.keyed_fits(S_pad, M, memo_u.n_ops)):
+            and _keyed_kernel(S_pad, M, memo_u.n_ops)):
         raise DenseOverflow("union alphabet exceeds keyed-kernel budgets")
     P = _build_P(memo_u, S_pad)
     wide = [ev.pad_returns(r, r.n_returns, W) for r in rss]
@@ -666,14 +691,17 @@ def _keyed_operands(model, packed_list, rss, live, W: int,
 
 
 def _check_many_keyed(operands, rss, preps, live, results, packed_list,
-                      M: int, device, t0: float) -> List[Dict[str, Any]]:
-    """All keys' returns in one flat stream, one K3 launch, exact per-key
-    death indices; a failed key's witness is decoded in its own memo
-    and geometry (the flat stream carries union op ids)."""
+                      M: int, device, t0: float,
+                      walker) -> List[Dict[str, Any]]:
+    """All keys' returns in one flat stream, one launch of the keyed
+    kernel of ``walker`` (K3 in :mod:`.reach_lane`, K5 in
+    :mod:`.reach_pallas`), exact per-key death indices; a failed key's
+    witness is decoded in its own memo and geometry (the flat stream
+    carries union op ids)."""
     P, ret_flat, ops_flat, key_flat, offsets = operands
     with obs.span("reach.walk", engine="reach-keyed",
                   returns=int(ret_flat.shape[0]), keys=len(live)):
-        dead = reach_lane.walk_returns_keyed(
+        dead = walker.walk_returns_keyed(
             P, ret_flat, ops_flat, key_flat, len(live), M, device=device)
     elapsed = _time.monotonic() - t0
     for k, i in enumerate(live):
@@ -697,8 +725,9 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
     ``independent`` checker's hot path; results align with
     ``packed_list``. Route order: the reference's lockstep and native
     keyed lanes (recorded as not ported: both need its native union
-    prep); the keyed kernel K3 over all keys at once, when the union
-    alphabet fits it; else each history through :func:`check_packed`
+    prep); a keyed kernel over all keys at once, K3 when the union
+    alphabet fits it, else K5 (:func:`reach_pallas.fits`); else each
+    history through :func:`check_packed`
     (the reference's vmapped batch is not ported). ``should_abort`` is
     consulted once, before the dispatch; when it fires every history
     reports ``valid == "unknown"``. Raises :class:`DenseOverflow`,
@@ -743,9 +772,12 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
         obs.decision("reach-keyed", "skipped", cause=type(e).__name__,
                      histories=n)
     else:
-        obs.decision("reach-many", "route", cause="keyed", histories=n)
-        return _check_many_keyed(operands, rss, preps, live, results,
-                                 packed_list, M, dev, t0)
+        P = operands[0]
+        cause = _keyed_kernel(P.shape[1], M, P.shape[0] - 1)
+        obs.decision("reach-many", "route", cause=cause, histories=n)
+        return _check_many_keyed(
+            operands, rss, preps, live, results, packed_list, M, dev, t0,
+            reach_lane if cause == "keyed" else reach_pallas)
     obs.decision("reach-vmapped", "skipped", cause="not-ported",
                  histories=n)
     obs.decision("reach-many", "route", cause="per-history", histories=n)

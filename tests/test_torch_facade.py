@@ -22,6 +22,7 @@ from jepsen_tpu_torch import history as h_pt
 from jepsen_tpu_torch import models as m_pt
 from jepsen_tpu_torch.checkers import reach as reach_pt
 from jepsen_tpu_torch.checkers import reach_lane as lane_pt
+from jepsen_tpu_torch.checkers import reach_pallas as pallas_pt
 
 # tiny tensors: one thread each keeps the parallel test workers from
 # crowding each other's cores
@@ -103,11 +104,12 @@ def test_generated_match_reference(kind, seed, crash_p, corrupt):
 @pytest.mark.parametrize("route", ["torch-returns", "torch-events"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_other_routes_match_reference(monkeypatch, route, corrupt):
-    """Geometries the kernel does not take go to the torch returns walk;
+    """Geometries the kernels do not take go to the torch returns walk;
     those the matrix form does not fit go to the torch event walk. Both
     give the reference's answers, witness included."""
     if route == "torch-returns":
         monkeypatch.setattr(lane_pt, "lane_fits", lambda *a: False)
+        monkeypatch.setattr(pallas_pt, "fits", lambda *a: False)
     else:
         monkeypatch.setattr(reach_ref, "_FAST_MAX_ELEMS", 1)
         monkeypatch.setattr(reach_pt, "_FAST_MAX_ELEMS", 1)
@@ -124,6 +126,26 @@ def test_other_routes_match_reference(monkeypatch, route, corrupt):
     routes = [r["engine"] for r in cap.ledger if r["event"] == "route"]
     assert routes == (["reach"] if route == "torch-returns"
                       else ["reach-events"])
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_wide_kernel_route_matches_reference(monkeypatch, corrupt):
+    """A geometry the lane kernel does not take goes to the wide kernel
+    K4, which takes one word a mask too; its verdict and witness (the
+    prefix re-walked by K4) are the reference's."""
+    monkeypatch.setattr(lane_pt, "lane_fits", lambda *a: False)
+    h1 = fx_ref.gen_history("cas", n_ops=60, processes=4, seed=7)
+    h2 = fx_pt.gen_history("cas", n_ops=60, processes=4, seed=7)
+    if corrupt:
+        h1, h2 = fx_ref.corrupt(h1, seed=7), fx_pt.corrupt(h2, seed=7)
+    r_ref = _ref_check("cas_register", h1)
+    with obs.capture() as cap:
+        r_pt = Linearizable(m_pt.cas_register(), device="cpu").check(None,
+                                                                     h2)
+    _same(r_ref, r_pt)
+    assert r_pt["engine"] == "reach-pallas"
+    assert [r["engine"] for r in cap.ledger if r["event"] == "route"] == \
+        ["reach-pallas"]
 
 
 def test_ledger_records_route_and_unported_stages():

@@ -129,13 +129,29 @@ def test_edn_keyword_syntax_equal():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing every module of the port in a fresh interpreter leaves
-    ``jax`` and ``jepsen_tpu`` out of ``sys.modules``."""
+    """Importing every module of the port, ``chip_smoke.py`` and every
+    module that ``chip_smoke.py`` imports (its imports sit inside
+    functions too) in a fresh interpreter leaves ``jax`` and
+    ``jepsen_tpu`` out of ``sys.modules``."""
     code = (
-        "import pkgutil, sys, importlib, jepsen_tpu_torch\n"
+        "import ast, pkgutil, sys, importlib, jepsen_tpu_torch\n"
         "for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__, "
         "'jepsen_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for node in ast.walk(ast.parse(open('chip_smoke.py').read())):\n"
+        "    if isinstance(node, ast.Import):\n"
+        "        names = [a.name for a in node.names]\n"
+        "    elif isinstance(node, ast.ImportFrom):\n"
+        "        names = [node.module] + [node.module + '.' + a.name\n"
+        "                                 for a in node.names]\n"
+        "    else:\n"
+        "        continue\n"
+        "    for n in names:\n"
+        "        try:\n"
+        "            importlib.import_module(n)\n"
+        "        except ModuleNotFoundError:\n"
+        "            assert '.' in n, n      # a name, not a module\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'jepsen_tpu' or "
         "n.startswith('jepsen_tpu.'))\n"

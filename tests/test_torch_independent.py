@@ -25,6 +25,7 @@ from jepsen_tpu_torch import Linearizable, independent, obs
 from jepsen_tpu_torch import fixtures as fx_pt
 from jepsen_tpu_torch.checkers import reach as reach_pt
 from jepsen_tpu_torch.checkers import reach_lane as lane_pt
+from jepsen_tpu_torch.checkers import reach_pallas as pallas_pt
 
 # tiny tensors: one thread each keeps the parallel test workers from
 # crowding each other's cores
@@ -153,10 +154,11 @@ def test_independent_matches_reference(monkeypatch, kind, n_keys, processes,
 
 def test_reach_algorithm_and_per_history_route(monkeypatch):
     """With ``algorithm="reach"`` the batch stays on the dense engine;
-    when the union alphabet does not fit the keyed kernel, every key goes
-    through the single-history check, with the same results."""
+    when the union alphabet fits no keyed kernel, every key goes through
+    the single-history check, with the same results."""
     monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
     monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
+    monkeypatch.setattr(pallas_pt, "fits", lambda *a: False)
     r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4}, algorithm="reach")
     routes = [r.get("cause") for r in cap.ledger if r["event"] == "route"
               and r["stage"] == "reach-many"]
@@ -166,6 +168,19 @@ def test_reach_algorithm_and_per_history_route(monkeypatch):
     skipped = {r["stage"]: r["cause"] for r in cap.skipped()}
     assert skipped["reach-keyed"] == "DenseOverflow"
     assert skipped["reach-vmapped"] == "not-ported"
+
+
+def test_wide_keyed_route(monkeypatch):
+    """When K3 does not take the union alphabet, K5 does (route cause
+    ``keyed-wide``), with the reference's results for every key."""
+    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
+    r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4})
+    assert [r.get("cause") for r in cap.ledger if r["event"] == "route"
+            and r["stage"] == "reach-many"] == ["keyed-wide"]
+    assert {r["engine"] for r in r_pt["results"].values()} == \
+        {"reach-keyed"}
+    assert sorted(r_pt["failures"]) == [1, 4]
 
 
 def test_overflow_falls_back_per_history():

@@ -1,0 +1,350 @@
+"""The wide walks (kernels K4 and K5's module) against the reference, on
+the CPU.
+
+The reference's first-generation Pallas kernels run in interpret mode;
+the port's ``walk`` and ``keyed_walk`` run their plain PyTorch versions,
+which the CUDA kernels are held against bit for bit on the card by
+``chip_smoke.py``. Every comparison is exact: the config sets are 0/1
+and the indices integers. Then the routes: ``Linearizable`` on histories
+with more than 32 states takes K4, and the ``independent`` checker on
+keys whose union alphabet has more than 32 states takes K5; verdicts,
+failing ops, dead events and witnesses equal the reference facade's.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from jepsen_tpu import fixtures as fx_ref
+from jepsen_tpu import history as h_ref
+from jepsen_tpu import independent as ind_ref
+from jepsen_tpu import models as m_ref
+from jepsen_tpu.checkers import events as ev_ref
+from jepsen_tpu.checkers import facade as fa_ref
+from jepsen_tpu.checkers import reach as reach_ref
+from jepsen_tpu.checkers import reach_pallas as pallas_ref
+from jepsen_tpu_torch import Linearizable, independent, obs
+from jepsen_tpu_torch import fixtures as fx_pt
+from jepsen_tpu_torch import models as m_pt
+from jepsen_tpu_torch.checkers import reach as reach_pt
+from jepsen_tpu_torch.checkers import reach_lane as lane_pt
+from jepsen_tpu_torch.checkers import reach_pallas as pallas_pt
+
+# tiny tensors: one thread each keeps the parallel test workers from
+# crowding each other's cores
+torch.set_num_threads(1)
+
+KEYS = ("valid", "op", "dead-event", "max-linearized", "final-configs",
+        "previous-ok", "events", "slots", "states")
+
+MODEL = {"cas": "cas_register", "multi": "multi_register",
+         "mutex": "mutex", "register": "register"}
+
+# (kind, generator options): wide alphabets first (S_pad 64), then
+# narrow ones (one word a mask)
+WIDE_MULTI = ("multi", dict(n_ops=60, processes=5, values=3, keys=3))
+WIDE_CAS = ("cas", dict(n_ops=300, processes=5, values=40))
+
+
+def _history(fx, kind, kw, seed, corrupt=False):
+    h = fx.gen_history(kind, seed=seed, **kw)
+    return fx.corrupt(h, seed=seed) if corrupt else h
+
+
+def _operands(kind, kw, seed, corrupt=False):
+    """Reference-built numpy operands: ``(P, returns view, one-hot R0)``."""
+    reach_ref._MEMO_CACHE.clear()
+    memo, stream, _T, S_pad, M = reach_ref._prep(
+        getattr(m_ref, MODEL[kind])(),
+        h_ref.pack(_history(fx_ref, kind, kw, seed, corrupt)),
+        max_states=100_000, max_slots=20, max_dense=1 << 22)
+    R0 = np.zeros((S_pad, M), bool)
+    R0[0, 0] = True
+    return reach_ref._build_P(memo, S_pad), ev_ref.returns_view(stream), R0
+
+
+def _ref_walk(P, ret_slot, slot_ops, R0_ms, B, rlim):
+    """The reference kernel ``_walk_call`` in interpret mode on the
+    stream padded to whole blocks of ``B``: ``(dead, R_final [M, S])``."""
+    R = ret_slot.shape[0]
+    W = slot_ops.shape[1]
+    R_pad = max(B, -(-R // B) * B)
+    ret_p = np.full(R_pad, -1, np.int32)
+    ops_p = np.full((R_pad, W), -1, np.int32)
+    ret_p[:R], ops_p[:R] = ret_slot, slot_ops
+    M, S = R0_ms.shape
+    run = pallas_ref._walk_call(B, W, M, S, P.shape[0], R_pad, True)
+    R_out, dead = run(jnp.asarray([rlim], jnp.int32), jnp.asarray(ret_p),
+                      jnp.asarray(ops_p.reshape(-1)),
+                      jnp.asarray(R0_ms, jnp.float32), jnp.asarray(P))
+    return int(dead[0]), np.asarray(R_out)
+
+
+@pytest.mark.parametrize("kind,kw,seed,corrupt", [
+    WIDE_MULTI + (0, False), WIDE_MULTI + (1, True),
+    WIDE_CAS + (0, False), WIDE_CAS + (2, True),
+    ("cas", dict(n_ops=150, processes=5, values=40, crash_p=0.03), 3,
+     False),
+    ("cas", dict(n_ops=150, processes=5, values=40, crash_p=0.03), 4, True),
+    ("cas", dict(n_ops=80, processes=3), 5, True),
+    ("mutex", dict(n_ops=60, processes=3), 6, False)])
+def test_walk_plain_matches_pallas_interpret(kind, kw, seed, corrupt):
+    """``dead`` and ``R_final`` of the port's walk (its plain version on
+    the CPU) equal the reference kernel's, through the host side too."""
+    P, rs, R0 = _operands(kind, kw, seed, corrupt)
+    d_ref, R_ref = pallas_ref.walk_returns(P, rs.ret_slot, rs.slot_ops, R0,
+                                           interpret=True)
+    d_pt, R_pt = pallas_pt.walk_returns(P, rs.ret_slot, rs.slot_ops, R0,
+                                        device="cpu")
+    assert d_pt == d_ref
+    np.testing.assert_array_equal(R_pt, R_ref)
+    assert (d_pt >= 0) == corrupt
+    assert (P.shape[1] > 32) == (kind == "multi" or "values" in kw)
+
+
+@pytest.mark.parametrize("case", ["multi-block", "rlim", "seed"])
+def test_walk_plain_matches_kernel_variants(case):
+    """The reference kernel at a small block (many grid steps), with
+    ``rlim`` below the stream's length, and from a seed that is not
+    one-hot; the port's plain version on the same operands."""
+    corrupt = case != "seed"
+    P, rs, R0 = _operands(*WIDE_CAS, seed=2, corrupt=corrupt)
+    R0_ms = R0.T.astype(np.float32)
+    B, rlim = 1024, rs.n_returns
+    if case == "multi-block":
+        B = 16
+    elif case == "rlim":
+        d_full, _ = _ref_walk(P, rs.ret_slot, rs.slot_ops, R0_ms, B, rlim)
+        assert d_full > 0
+        rlim = d_full                    # the death lies past the limit
+    else:
+        rng = np.random.default_rng(0)
+        R0_ms = (rng.random(R0_ms.shape) < 0.1).astype(np.float32)
+    d_ref, R_ref = _ref_walk(P, rs.ret_slot, rs.slot_ops, R0_ms, B, rlim)
+    t = pallas_pt.operands_from_numpy(P, rs.ret_slot, rs.slot_ops,
+                                      R0_ms.T > 0.5, device="cpu")
+    d_pt, R_pt = pallas_pt.walk_plain(*t, rlim)
+    assert int(d_pt[0]) == d_ref
+    np.testing.assert_array_equal(R_pt.numpy(), R_ref)
+    if case == "rlim":
+        assert d_ref == -1 and not R_ref.any()
+    if case == "multi-block":
+        assert rs.n_returns > 3 * B and d_ref >= 0
+
+
+def test_walk_plain_empty_seed_and_stream():
+    """An empty seed dies at the first return below ``rlim``; an empty
+    stream returns the seed."""
+    P, rs, R0 = _operands(*WIDE_MULTI, seed=0)
+    t = pallas_pt.operands_from_numpy(P, rs.ret_slot, rs.slot_ops, R0,
+                                      device="cpu")
+    empty = torch.zeros_like(t[3])
+    for rlim, want in ((5, 0), (0, -1)):
+        d_ref, _ = _ref_walk(P, rs.ret_slot, rs.slot_ops, empty.numpy(),
+                             1024, rlim)
+        d_pt, R_pt = pallas_pt.walk(*t[:3], empty, rlim)
+        assert int(d_pt[0]) == d_ref == want and not R_pt.any()
+    d, R = pallas_pt.walk(t[0], t[1][:0], t[2][:0], t[3], 0)
+    assert int(d[0]) == -1 and torch.equal(R, t[3])
+
+
+def _keyed_history(fx, n_keys, kw, bad):
+    """``n_keys`` single-key histories (each with its own processes),
+    values wrapped as ``[key, v]`` and concatenated; keys in ``bad``
+    corrupted."""
+    out = []
+    procs = kw["processes"]
+    for k in range(n_keys):
+        hk = _history(fx, "cas", kw, k, k in bad)
+        out += [op.with_(process=k * procs + op.process,
+                         value=[k, op.value]) for op in hk]
+    return [op.with_(index=i, time=i) for i, op in enumerate(out)]
+
+
+def _keyed_operands(n_keys, kw, bad):
+    """The reference's flat keyed operands over the union alphabet."""
+    model = m_ref.cas_register()
+    reach_ref._MEMO_CACHE.clear()
+    packed = [h_ref.pack(_history(fx_ref, "cas", kw, k, k in bad))
+              for k in range(n_keys)]
+    preps = [reach_ref._prep(model, p, max_states=100_000, max_slots=20,
+                             max_dense=1 << 22) for p in packed]
+    W = max(max(p[1].W, 1) for p in preps)
+    rss = [ev_ref.returns_view(p[1]) for p in preps]
+    P, ret, ops, key, _off, _wide = reach_ref._keyed_operands(
+        model, packed, rss, list(range(n_keys)), W, 100_000)
+    return P, ret, ops, key, 1 << W
+
+
+KEYED_KW = dict(n_ops=50, processes=4, values=40)
+
+
+@pytest.mark.parametrize("block", [1024, 16])
+def test_keyed_walk_matches_reference(monkeypatch, block):
+    """Every key's dead index from the port's keyed walk (and its plain
+    version on the same tensors) equals the reference's interpret-mode
+    kernel, on mixed valid and corrupted keys whose union alphabet has
+    more than 32 states; at a small block the keys cross grid steps."""
+    monkeypatch.setattr(pallas_ref, "_BLOCK", block)
+    n_keys, bad = 12, {1, 4, 5, 11}
+    P, ret, ops, key, M = _keyed_operands(n_keys, KEYED_KW, bad)
+    assert P.shape[1] > 32
+    d_ref = pallas_ref.walk_returns_keyed(P, ret, ops, key, n_keys, M,
+                                          interpret=True)
+    d_pt = pallas_pt.walk_returns_keyed(P, ret, ops, key, n_keys, M,
+                                        device="cpu")
+    np.testing.assert_array_equal(d_pt, d_ref)
+    assert set(np.nonzero(d_pt >= 0)[0]) == bad
+    t = [torch.as_tensor(np.ascontiguousarray(a, dt)) for a, dt in
+         ((P, np.float32), (ret, np.int32), (ops, np.int32),
+          (key, np.int32))]
+    np.testing.assert_array_equal(
+        pallas_pt.keyed_walk_plain(*t, n_keys).numpy(), d_ref)
+
+
+def _ref_check(kind, history):
+    """The reference facade's verdict (multi-register models straight to
+    its ``auto`` chain: the per-key decomposition is not ported)."""
+    reach_ref._MEMO_CACHE.clear()
+    model = getattr(m_ref, MODEL[kind])()
+    if kind == "multi":
+        return fa_ref.auto_check_packed(model, h_ref.pack(history), {})
+    return fa_ref.Linearizable(model).check(None, history)
+
+
+def _same(r_ref, r_pt):
+    diff = {k: (r_ref.get(k), r_pt.get(k)) for k in KEYS
+            if r_ref.get(k) != r_pt.get(k)}
+    assert not diff, diff
+
+
+@pytest.mark.parametrize("kind,kw,seed,corrupt", [
+    WIDE_MULTI + (0, False), WIDE_MULTI + (1, True),
+    WIDE_CAS + (0, False), WIDE_CAS + (2, True),
+    ("cas", dict(n_ops=150, processes=5, values=40, crash_p=0.03), 4,
+     True)])
+def test_linearizable_wide_matches_reference(kind, kw, seed, corrupt):
+    """Above 32 states ``Linearizable`` takes K4 (route ``reach-pallas``)
+    and gives the reference facade's verdict, op, dead event and
+    witness; the witness prefix is re-walked by K4 too."""
+    h1 = _history(fx_ref, kind, kw, seed, corrupt)
+    h2 = _history(fx_pt, kind, kw, seed, corrupt)
+    r_ref = _ref_check(kind, h1)
+    with obs.capture() as cap:
+        r_pt = Linearizable(getattr(m_pt, MODEL[kind])(),
+                            device="cpu").check(None, h2)
+    _same(r_ref, r_pt)
+    assert r_pt["valid"] is (not corrupt)
+    assert r_pt["engine"] == "reach-pallas" and r_pt["states"] > 32
+    assert [r["engine"] for r in cap.ledger if r["event"] == "route"] == \
+        ["reach-pallas"]
+    skipped = {r["stage"]: r["cause"] for r in cap.skipped()}
+    assert skipped["reach-chunklock"] == "below-min-returns"
+    if corrupt:
+        assert r_pt["final-configs"] and r_pt["previous-ok"]
+
+
+def test_wide_walk_aborts_between_segments(monkeypatch):
+    """With ``should_abort`` K4 walks segments with the set carried: the
+    same dead return and final set as one walk; a hook that fires gives
+    ``valid == "unknown"``."""
+    monkeypatch.setattr(lane_pt, "_ABORT_SEG", 16)
+    calls = []
+
+    def hook():
+        calls.append(1)
+        return False
+
+    for corrupt in (False, True):
+        P, rs, R0 = _operands(*WIDE_CAS, seed=2, corrupt=corrupt)
+        calls.clear()
+        got = pallas_pt.walk_returns(P, rs.ret_slot, rs.slot_ops, R0,
+                                     device="cpu", should_abort=hook)
+        want = pallas_pt.walk_returns(P, rs.ret_slot, rs.slot_ops, R0,
+                                      device="cpu")
+        assert got[0] == want[0] and np.array_equal(got[1], want[1])
+        assert len(calls) > 1
+    h = _history(fx_pt, *WIDE_CAS, seed=0)
+    res = reach_pt.check(m_pt.cas_register(), h, should_abort=lambda: True,
+                         device="cpu")
+    assert res == {"valid": "unknown", "cause": "aborted", "engine": "reach"}
+
+
+def _check_independent(kw, n_keys, bad):
+    h1 = _keyed_history(fx_ref, n_keys, kw, bad)
+    h2 = _keyed_history(fx_pt, n_keys, kw, bad)
+    reach_ref._MEMO_CACHE.clear()
+    r_ref = ind_ref.checker(fa_ref.linearizable(
+        m_ref.cas_register())).check(None, h1)
+    with obs.capture() as cap:
+        r_pt = independent.checker(Linearizable(
+            m_pt.cas_register(), device="cpu")).check(None, h2)
+    for k in ("valid", "failures", "key-count"):
+        assert r_pt[k] == r_ref[k], k
+    for key, a in r_ref["results"].items():
+        b = r_pt["results"][key]
+        diff = {x: (a.get(x), b.get(x)) for x in KEYS
+                if a.get(x) != b.get(x)}
+        assert not diff, (key, diff)
+    return r_pt, cap
+
+
+@pytest.mark.parametrize("kw,n_keys,bad", [
+    (KEYED_KW, 10, {2, 7}),
+    # keys of more than 32 states of their own: a failed key's witness
+    # is re-walked by K4 in the key's own geometry
+    (dict(n_ops=300, processes=5, values=40), 3, {1})])
+def test_independent_wide_matches_reference(monkeypatch, kw, n_keys, bad):
+    """A union alphabet above 32 states takes K5 (route cause
+    ``keyed-wide``); every key's result equals the reference's."""
+    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    r_pt, cap = _check_independent(kw, n_keys, bad)
+    assert r_pt["valid"] is False and set(r_pt["failures"]) == bad
+    assert [r.get("cause") for r in cap.ledger if r["event"] == "route"
+            and r["stage"] == "reach-many"] == ["keyed-wide"]
+    assert {r["engine"] for r in r_pt["results"].values()} == \
+        {"reach-keyed"}
+    for key in r_pt["failures"]:
+        assert r_pt["results"][key]["final-configs"]
+
+
+def test_fits_is_the_kernel_envelope():
+    """``fits`` admits every geometry of more than 32 states that the
+    reference's ``_pallas_fits`` admits and whose set fits one block's
+    shared memory, and refuses sets beyond it and more than 20 slots."""
+    assert pallas_pt.fits(64, 32, 734)          # wide cas: P in memory
+    assert not pallas_pt.p_shared(5, 64, 735)
+    assert pallas_pt.fits(64, 32, 20)           # multi-register: P shared
+    assert pallas_pt.p_shared(5, 64, 21)
+    assert pallas_pt.fits(8, 32, 35)            # one word a mask
+    assert not pallas_pt.fits(64, 1 << 14, 10)  # set beyond 227 KB
+    assert not pallas_pt.fits(2, 1 << 21, 3)    # > 20 slots
+    for S in (64, 128, 256, 512, 1024, 4096):
+        for W in range(1, 21):
+            set_bytes = pallas_pt.smem_bytes(W, S, 1) - 4 * S * \
+                pallas_pt.n_words(S) * pallas_pt.p_shared(W, S, 1)
+            for n_ops in (1, 30, 700, 5000):
+                if reach_ref._pallas_fits(S, 1 << W, n_ops) and \
+                        set_bytes <= pallas_pt._SMEM_BYTES:
+                    assert pallas_pt.fits(S, 1 << W, n_ops), (S, W, n_ops)
+
+
+def test_wrappers_route_by_device(monkeypatch):
+    """``walk`` and ``keyed_walk`` take the plain version only for CPU
+    tensors; any other device is the kernel's or an error."""
+    calls = []
+    monkeypatch.setattr(pallas_pt, "walk_plain",
+                        lambda *a: calls.append("plain"))
+    monkeypatch.setattr(pallas_pt, "keyed_walk_plain",
+                        lambda *a: calls.append("plain"))
+    t = torch.zeros(1)
+    pallas_pt.walk(t, t, t, t, 1)
+    pallas_pt.keyed_walk(t, t, t, t, 1)
+    assert calls == ["plain", "plain"]
+    meta = torch.zeros(1, device="meta")
+    with pytest.raises(ValueError):
+        pallas_pt.walk(t, t, t, meta, 1)
+    with pytest.raises(ValueError):
+        pallas_pt.keyed_walk(meta, t, t, t, 1)
+    assert calls == ["plain", "plain"]
