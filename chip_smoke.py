@@ -4,10 +4,10 @@
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
-K5 ``wide_keyed``), holds each kernel bit for bit against its plain
-PyTorch version on the card at the shapes the main path gives it, then
-drives the main path through the user's entry points and checks the
-results:
+K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``), holds each
+kernel bit for bit against its plain PyTorch version on the card at the
+shapes the main path gives it, then drives the main path through the
+user's entry points and checks the results:
 
 - ``Linearizable(cas_register()).check`` on a 100,000-op history
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
@@ -18,7 +18,12 @@ results:
 - more than 32 states: a 100,000-op cas history over 40 values and a
   100,000-op multi-register history (one K4 launch each), the corrupted
   cas one against the CPU run, and 2,000 keys over 40 values (one K5
-  launch) against the CPU run.
+  launch) against the CPU run;
+- the ablation harness (``jepsen_tpu_torch.tools.ablate_lane``): its 22
+  variants of the walk's body (19 on K6, 3 on K7) on its cas-100k
+  stream, each held bit for bit against its plain version on the first
+  block of 1,024 returns, then the full ladder through the harness's
+  own function, every exact variant ending on K1's final set.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last three lines are one JSON object of per-kernel
@@ -28,6 +33,7 @@ numbers, the card's name and power limit, and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +63,17 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def ptxas_summary(src: str, text: str) -> str:
+    """One line of what ``ptxas -v`` said of a source's kernels: their
+    number, the registers they use and their largest spill (the full
+    log is beside the library in ``jepsen_tpu_torch/_build/``)."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+    spill = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+    return (f"ptxas {src}: {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+            f"up to {max(spill, default=0)} bytes")
 
 
 def history_operands(h, model):
@@ -210,6 +227,30 @@ def check_smem_layout():
                         f"wide smem layout differs at W={W} S={S} O1={O1}: "
                         f"kernel {got}, host "
                         f"{reach_pallas.smem_bytes(W, S, O1)}")
+    # the ablation kernels' layout (K6, K7) against ablate_lane.smem_bytes
+    from jepsen_tpu_torch.tools import ablate_lane as ab
+
+    walk, stream = ab._walk_lib(), ab._stream_lib()
+    for W in range(1, 9):
+        for S in (1, 8, 32, 64):
+            for rep in (0, 1, 2):
+                for O1, table in ((2, 0), (23, 1), (735, 0)):
+                    got = walk.jt_ablate_walk_smem(W, S, O1, rep, table)
+                    want = ab.smem_bytes(W, S, O1, rep != 0, bool(table))
+                    if got != want:
+                        raise AssertionError(
+                            f"ablate_walk smem layout differs at W={W} S={S} "
+                            f"O1={O1} rep={rep} table={table}: kernel {got}, "
+                            f"host {want}")
+                for i8 in (0, 1):
+                    got = stream.jt_ablate_stream_smem(W, S, rep, i8)
+                    want = ab.smem_bytes(W, S, 1, rep != 0, stream=True,
+                                         g_int8=bool(i8))
+                    if got != want:
+                        raise AssertionError(
+                            f"ablate_stream smem layout differs at W={W} "
+                            f"S={S} rep={rep} int8={i8}: kernel {got}, host "
+                            f"{want}")
 
 
 def same(label: str, got, want):
@@ -594,25 +635,147 @@ def phase_k5(per_key):
             "bound_ms": bound, "bound_by": bound_by}
 
 
+# the ablation harness's stream: its default history (cas, 100,000 ops,
+# 5 processes, seed 42); each variant is held against its plain version
+# on the first block of ABLATE_BLOCK returns
+ABLATE_OPS = 100_000
+ABLATE_BLOCK = 1024
+
+
+def phase_ablate(geom, opnds, stream: bool):
+    """K6 (``stream=False``: the 19 variants of the harness that gather
+    the fire operand in the kernel) or K7 (the 3 streamed ones) against
+    their plain versions on the first :data:`ABLATE_BLOCK` returns of the
+    harness's stream, bit for bit, with the host replay of each walk;
+    time, plain time and bound of each variant. Returns the numbers of
+    the first variant, and the largest error."""
+    from jepsen_tpu_torch.tools import ablate_lane as ab
+
+    B, W, M, S, O1, _R_pad = geom
+    n = ABLATE_BLOCK
+    ret, ops, P, PJ, R0 = opnds
+    ret, ops = ret[:n], ops[:n]
+    P_np, ret_np, ops_np = P.cpu().numpy(), ret.cpu().numpy(), \
+        ops.cpu().numpy()
+    replays = {}
+    out = {"max_abs_err": 0.0}
+    kernel = "ablate_stream" if stream else "ablate_walk"
+    for name in ab.VARIANTS:
+        fire, proj, counts, unroll, n_pass, cgate = ab.spec(name, W)
+        if (proj in ab._STREAM_DTYPE) != stream:
+            continue
+        if stream:
+            G = ab.stream_operand(P, ops, ab._STREAM_DTYPE[proj])
+            args = (ret, G, R0, B, n_pass, fire, counts)
+            kern, plain = ab.ablate_stream, ab.ablate_stream_plain
+            moved = nbytes(ret, G, R0)
+        else:
+            args = (P, ret, ops, PJ, R0, B, n_pass, fire, proj, counts,
+                    unroll, cgate)
+            kern, plain = ab.ablate_walk, ab.ablate_walk_plain
+            moved = nbytes(ret, ops, P, R0, *((PJ,) if proj == "matmul"
+                                             else ()))
+        got = kern(*args)
+        ref, p_ms = plain_ms(lambda: plain(*args))
+        label = f"{kernel} [{name}, first {n} returns of cas-100k]"
+        err = same(label, got, ref)
+        ms = event_ms(lambda: kern(*args), 5)
+        total = ab.passes(name, W)
+        if total not in replays:
+            replays[total] = walk_work(P_np, ret_np[:, None],
+                                       ops_np[:, None], as_sets(R0[None]),
+                                       total)
+        work, v, _ = replays[total]
+        if not np.array_equal(v, as_sets(got[1][None])):
+            raise AssertionError(f"{label} differs from the host replay")
+        bound, bound_by, detail = bound_ms(moved + nbytes(*got), work)
+        log(f"kernel {label}: W={W} S={S} O1={O1} passes<={total} "
+            f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
+            f"us_per_return={1e3 * ms / n:.6f} plain_ms={p_ms:.3f} "
+            f"bound_ms={bound:.6f} ({bound_by}; {detail}) "
+            f"alive={bool(got[1].any())}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if "ms" not in out:
+            out.update(variant=name, ms=ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by)
+    return out
+
+
+def ablate_ladder(geom, opnds, n_ret: int):
+    """The harness's full ladder on its cas-100k stream through its own
+    function (``ablate_lane.ladder``, two interleaved rounds), with every
+    kernel count set to 0 just before and read just after: every exact
+    variant must end on K1's final set. Returns the launches by
+    kernel."""
+    from jepsen_tpu_torch.checkers import reach_lane
+    from jepsen_tpu_torch.tools import ablate_lane as ab
+
+    B, W, M, S, O1, R_pad = geom
+    ret, ops, P, PJ, R0 = opnds
+    want = reach_lane.lane_walk(P, ret, ops, R0, B, W)[1] > 0
+    for dt in (torch.float32, torch.int8):
+        g = ab.stream_operand(P, ops, dt)
+        log(f"ablate_stream operand G at cas-100k: {tuple(g.shape)} {dt}, "
+            f"{nbytes(g)} bytes on the card")
+        del g
+    zero_launches()
+    t0 = time.perf_counter()
+    res = ab.ladder(list(ab.VARIANTS), geom, opnds, repeat=2, log=log)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    la = launches()
+    n_stream = sum(ab.VARIANTS[v][1] in ab._STREAM_DTYPE
+                   for v in ab.VARIANTS)
+    expect("ablate ladder", la, ablate_walk=2 * (len(ab.VARIANTS) - n_stream),
+           ablate_stream=2 * n_stream, lane_walk=0, batch_walk=0)
+    for name, (ms, final) in res.items():
+        fin = final > 0
+        match = torch.equal(fin, want)
+        if ab.exact(name, W) and not match:
+            raise AssertionError(f"ablate ladder: exact variant {name} "
+                                 f"differs from K1's final set")
+        proj = ab.spec(name, W)[1]
+        # the kernel's operands, each read once, and ckpt and final
+        moved = nbytes(ret, R0, final) + 4 * (R_pad // B) * M * S + (
+            R_pad * S * W * S * (1 if proj == "stream-i8" else 4)
+            if proj in ab._STREAM_DTYPE else nbytes(ops, P)
+            + (nbytes(PJ) if proj == "matmul" else 0))
+        log(f"ablate ladder {name:22s} {ms:10.3f} ms "
+            f"{1e6 * ms / n_ret:9.1f} ns/ret match={match} "
+            f"alive={bool(fin.any())} "
+            f"{'exact' if ab.exact(name, W) else 'capped'} "
+            f"passes<={ab.passes(name, W)} bytes_bound_ms="
+            f"{1e3 * moved / HBM_RATE:.6f}")
+    log(f"ablate ladder at cas-100k (B={B} W={W} M={M} S={S} O1={O1} "
+        f"R_pad={R_pad} returns={n_ret}): {len(res)} variants x 2 rounds "
+        f"in {dt:.3f} s; launches {la}")
+    return la
+
+
 def launches():
     """The kernels' launch counts, by kernel."""
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
     from jepsen_tpu_torch.checkers import reach_pallas
+    from jepsen_tpu_torch.tools import ablate_lane
 
     return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
             "batch_walk": reach_batch.KERNEL_LAUNCHES,
             "keyed_walk": reach_lane.KEYED_LAUNCHES,
             "wide_walk": reach_pallas.KERNEL_LAUNCHES,
-            "wide_keyed": reach_pallas.KEYED_LAUNCHES}
+            "wide_keyed": reach_pallas.KEYED_LAUNCHES,
+            "ablate_walk": ablate_lane.ABLATE_LAUNCHES,
+            "ablate_stream": ablate_lane.STREAM_LAUNCHES}
 
 
 def zero_launches():
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
     from jepsen_tpu_torch.checkers import reach_pallas
+    from jepsen_tpu_torch.tools import ablate_lane
 
     reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
     reach_batch.KERNEL_LAUNCHES = 0
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
+    ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
 
 
 def drive(fn):
@@ -689,7 +852,7 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
     for src in _build.sources():
-        log(_build.build_log(src).strip())
+        log(ptxas_summary(src, _build.build_log(src)))
     check_smem_layout()
 
     # -- kernels against their plain versions --------------------------
@@ -706,6 +869,16 @@ def main() -> int:
     k4 = phase_k4(P_w, rs_w)
     h_wide_ind, per_key_wide = keyed_histories(**WIDE_CAS)
     k5 = phase_k5(per_key_wide)
+    from jepsen_tpu_torch.tools import ablate_lane
+
+    t0 = time.perf_counter()
+    ab_geom, ab_opnds, ab_returns = ablate_lane.operands(ABLATE_OPS,
+                                                         device="cuda")
+    log(f"ablate operands (cas-100k, seed 42): {time.perf_counter() - t0:.3f}"
+        f" s, geometry {ab_geom}, {ab_returns} returns")
+    k6 = phase_ablate(ab_geom, ab_opnds, stream=False)
+    k7 = phase_ablate(ab_geom, ab_opnds, stream=True)
+    log(f"ablate kernel phases (K6, K7): {time.perf_counter() - t0:.1f} s")
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # -- the main path ------------------------------------------------
@@ -882,6 +1055,10 @@ def main() -> int:
         f"= {len(h_wide_ind) // 2 / dt:.1f} ops/s; {split(dt, spans)}; "
         f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees")
 
+    # -- the ablation harness: the full ladder, K6 and K7 --------------
+    la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
+    k6_launches, k7_launches = la["ablate_walk"], la["ablate_stream"]
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     entries = [
         ("lane_walk", "lane_walk.cu", "jepsen_tpu/checkers/reach_lane.py:201",
@@ -894,6 +1071,10 @@ def main() -> int:
          "jepsen_tpu/checkers/reach_pallas.py:167", k4_launches, k4),
         ("wide_keyed", "wide_keyed.cu",
          "jepsen_tpu/checkers/reach_pallas.py:374", k5_launches, k5),
+        ("ablate_walk", "ablate_walk.cu", "tools/ablate_lane.py:147",
+         k6_launches, k6),
+        ("ablate_stream", "ablate_stream.cu", "tools/ablate_lane.py:262",
+         k7_launches, k7),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

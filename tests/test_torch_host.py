@@ -131,10 +131,11 @@ def test_edn_keyword_syntax_equal():
 def test_port_imports_neither_jax_nor_reference():
     """Importing every module of the port, ``chip_smoke.py`` and every
     module that ``chip_smoke.py`` imports (its imports sit inside
-    functions too) in a fresh interpreter leaves ``jax`` and
-    ``jepsen_tpu`` out of ``sys.modules``."""
+    functions too) in a fresh interpreter leaves ``jax``, ``jepsen_tpu``
+    and the reference's ``tools/`` scripts (``tools/ablate_lane.py``) out
+    of ``sys.modules``."""
     code = (
-        "import ast, pkgutil, sys, importlib, jepsen_tpu_torch\n"
+        "import ast, os, pkgutil, sys, importlib, jepsen_tpu_torch\n"
         "for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__, "
         "'jepsen_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -154,7 +155,9 @@ def test_port_imports_neither_jax_nor_reference():
         "            assert '.' in n, n      # a name, not a module\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'jepsen_tpu' or "
-        "n.startswith('jepsen_tpu.'))\n"
+        "n.startswith('jepsen_tpu.') or os.path.abspath(getattr("
+        "sys.modules[n], '__file__', None) or '').startswith("
+        "os.path.abspath('tools') + os.sep))\n"
         "print(' '.join(sorted(n for n in sys.modules "
         "if n.startswith('jepsen_tpu_torch'))))\n"
         "assert not bad, bad\n")
@@ -166,7 +169,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(imported) >= 17                   # every module imported
     assert {"jepsen_tpu_torch.checkers.reach_batch",
             "jepsen_tpu_torch.checkers.reach_chunklock",
-            "jepsen_tpu_torch.independent"} <= imported
+            "jepsen_tpu_torch.independent",
+            "jepsen_tpu_torch.tools.ablate_lane"} <= imported
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
