@@ -18,7 +18,11 @@ user's entry points and checks the results:
 - more than 32 states: a 100,000-op cas history over 40 values and a
   100,000-op multi-register history (one K4 launch each), the corrupted
   cas one against the CPU run, and 2,000 keys over 40 values (one K5
-  launch) against the CPU run;
+  launch) against the CPU run; K4 and K5 build P's nibble image tables
+  first (held bit for bit against their plain version on both
+  alphabets), each of their launches logs the form it took (the set in
+  one warp's registers, or the block form), and small histories reach
+  the warp form's other instances (entries of 1 to 8 words);
 - the ablation harness (``jepsen_tpu_torch.tools.ablate_lane``): its 22
   variants of the walk's body (19 on K6, 3 on K7) on its cas-100k
   stream, each held bit for bit against its plain version on the first
@@ -214,13 +218,16 @@ def check_smem_layout():
                             f"smem layout differs at W={W} S={S} O1={O1} "
                             f"warp={warp}: kernel {got}, host "
                             f"{reach_lane.smem_bytes(W, S, O1, warp)}")
-    # the wide kernels' layout (K4, K5) against reach_pallas.smem_bytes
+    # the wide kernels' layout and form (K4, K5) against
+    # reach_pallas.smem_bytes and reach_pallas.warp_form
     from jepsen_tpu_torch.checkers import reach_pallas
 
     lib = reach_pallas._lib()
     for W in range(1, reach_pallas._MAX_W + 1):
-        for S in (1, 8, 32, 33, 64, 128, 1024):
-            for O1 in (2, 21, 248, 735):
+        for S in (1, 8, 32, 33, 64, 100, 128, 256, 257, 1024):
+            if lib.jt_wide_walk_form(W, S) != reach_pallas.warp_form(W, S):
+                raise AssertionError(f"wide form differs at W={W} S={S}")
+            for O1 in (2, 19, 21, 248, 735):
                 got = lib.jt_wide_walk_smem(W, S, O1)
                 if got != reach_pallas.smem_bytes(W, S, O1):
                     raise AssertionError(
@@ -493,8 +500,35 @@ def phase_k3(per_key):
 # and a multi-register of 3 keys over 3 values (64 states)
 WIDE_CAS = dict(values=40)
 WIDE_MULTI = dict(values=3, keys=3)
-WIDE_RETURNS = 20_000          # K4 against its plain version, and the
-                               # torch returns walk, on this prefix
+WIDE_RETURNS = 20_000          # K4 against its plain version on this
+                               # prefix
+TORCH_RETURNS = 5_000          # and the torch returns walk on this one
+
+
+def form(W: int, S: int) -> str:
+    """The form a K4 or K5 launch of this geometry takes."""
+    from jepsen_tpu_torch.checkers import reach_pallas
+
+    return "warp" if reach_pallas.warp_form(W, S) else "block"
+
+
+def phase_tables(alphabets):
+    """K4 and K5's first kernel, ``pack_tables`` (alone, through
+    ``reach_pallas.image_tables``), against its plain version on the
+    same CUDA tensors, bit for bit, on each ``(label, P)``."""
+    from jepsen_tpu_torch.checkers import reach_pallas
+
+    for label, P in alphabets:
+        Pt = torch.as_tensor(P, device="cuda")
+        got = reach_pallas.image_tables(Pt)
+        want, p_ms = plain_ms(lambda: reach_pallas.image_tables_plain(Pt))
+        same(f"pack_tables [{label}]", (got,), (want,))
+        ms = event_ms(lambda: reach_pallas.image_tables(Pt), 10)
+        O1, S = P.shape[0], P.shape[1]
+        log(f"kernel pack_tables [{label}] O1={O1} S={S} "
+            f"tables={tuple(got.shape)} {reach_pallas.table_bytes(S, O1)} "
+            f"bytes, shared at W=5: {reach_pallas.p_shared(5, S, O1)}: "
+            f"bit-identical kernel_ms={ms:.6f} plain_ms={p_ms:.3f}")
 
 
 def one_thread(fn):
@@ -514,27 +548,31 @@ def one_hot(P, M):
     return R0
 
 
-def phase_k4(P_wide, rs_wide):
+def phase_k4(P_wide, rs_wide, P_m, rs_m, multi100):
     """K4 against its plain version on the same CUDA tensors, bit for
     bit, with the host replay of each walk: the wide cas-100k's alphabet
-    (735 ops, P's words in device memory) over its first
-    :data:`WIDE_RETURNS` returns, multi-register-20k (P's words in
-    shared memory) and a narrow walk (one word a mask); then K4 against
-    K1 on cas-30k, and the torch returns walk the wide route took
-    before K4, on the first shape. Times, bound and plain time of the
-    first shape."""
+    (735 ops, the tables in device memory) over its first
+    :data:`WIDE_RETURNS` returns, multi-register-20k (the tables in
+    shared memory; both in the warp form), a narrow walk (one word a
+    mask) and a wide one at W = 7 (both in the block form); then K4
+    against K1 on cas-30k, and the torch returns walk the wide route
+    took before K4, on the first shape's first :data:`TORCH_RETURNS`
+    returns; then the whole wide cas-100k and
+    multi-register-100k streams, the main path's launches. Times, bound
+    and plain time of the first shape."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checkers import reach, reach_lane, reach_pallas
 
-    P_m, rs_m, _ = history_operands(
-        gen("multi", 20_000, 5, 0, **WIDE_MULTI), models.multi_register())
     P_n, rs_n, _ = history_operands(gen("cas", 4_000, 7, 1),
                                     models.cas_register())
+    P_7, rs_7, _ = history_operands(gen("multi", 5_000, 7, 0, **WIDE_MULTI),
+                                    models.multi_register())
     n = WIDE_RETURNS
     runs = [("cas-40 alphabet, 20,000 returns", P_wide,
              rs_wide.ret_slot[:n], rs_wide.slot_ops[:n]),
             ("multi-register-20k", P_m, rs_m.ret_slot, rs_m.slot_ops),
-            ("narrow W=7", P_n, rs_n.ret_slot, rs_n.slot_ops)]
+            ("narrow W=7", P_n, rs_n.ret_slot, rs_n.slot_ops),
+            ("wide multi-register W=7", P_7, rs_7.ret_slot, rs_7.slot_ops)]
     out = {"max_abs_err": 0.0}
     for label, P, ret, ops in runs:
         W, S, O1 = ops.shape[1], P.shape[1], P.shape[0]
@@ -555,7 +593,8 @@ def phase_k4(P_wide, rs_wide):
                                  f"at {label}")
         bound, bound_by, detail = bound_ms(nbytes(*args, *got), work)
         log(f"kernel wide_walk [{label}] W={W} S={S} O1={O1} "
-            f"P_words_shared={reach_pallas.p_shared(W, S, O1)} "
+            f"form={form(W, S)} "
+            f"tables_shared={reach_pallas.p_shared(W, S, O1)} "
             f"returns={rlim}: bit-identical max_abs_err={err} "
             f"kernel_ms={ms:.6f} us_per_return={1e3 * ms / rlim:.6f} "
             f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
@@ -563,30 +602,38 @@ def phase_k4(P_wide, rs_wide):
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if "ms" not in out:
             out.update(ms=ms, plain_ms=p_ms, bound_ms=bound,
-                       bound_by=bound_by, final=got[1])
-    # the route before K4 on the first shape: the torch returns walk
-    label, P, ret, ops = runs[0]
+                       bound_by=bound_by)
+    # the route before K4 on the first shape's first TORCH_RETURNS
+    # returns: the torch returns walk
+    _label, P, ret, ops = runs[0]
+    ret, ops = ret[:TORCH_RETURNS], ops[:TORCH_RETURNS]
     W = ops.shape[1]
+    args = reach_pallas.operands_from_numpy(P, ret, ops, one_hot(P, 1 << W),
+                                            device="cuda")
+    fin = reach_pallas.walk(*args, len(ret))[1]
+    k4_ms = event_ms(lambda: reach_pallas.walk(*args, len(ret)), 5)
     xc, bm = reach._xor_bitmask(W, 1 << W)
     torch_args = [torch.as_tensor(a, device="cuda") for a in
                   (P, xc, bm, ops, one_hot(P, 1 << W))]
     (_ptr, R_t, alive, _), t_ms = plain_ms(lambda: reach._walk_returns(
         *torch_args[:3], ret, *torch_args[3:]))
-    if not (alive and np.array_equal(R_t.cpu().numpy().T,
-                                     as_sets(out.pop("final")))):
+    if not (alive and np.array_equal(R_t.cpu().numpy().T, as_sets(fin))):
         raise AssertionError("the torch returns walk disagrees with K4")
-    log(f"torch returns walk [{label}] on the card: {t_ms:.3f} ms "
-        f"({1e3 * t_ms / len(ret):.3f} us a return), K4 {out['ms']:.6f} "
-        f"ms: {t_ms / out['ms']:.1f}x; same final set")
-    # the whole wide cas-100k stream, the main path's launch
-    args = reach_pallas.operands_from_numpy(
-        P_wide, rs_wide.ret_slot, rs_wide.slot_ops,
-        one_hot(P_wide, 1 << rs_wide.W), device="cuda")
-    full_ms = event_ms(lambda: reach_pallas.walk(*args, rs_wide.n_returns),
-                       3)
-    log(f"kernel wide_walk [wide cas-100k, {rs_wide.n_returns} returns]: "
-        f"kernel_ms={full_ms:.6f} us_per_return="
-        f"{1e3 * full_ms / rs_wide.n_returns:.6f}")
+    log(f"torch returns walk [cas-40 alphabet, {len(ret)} returns] on the "
+        f"card: {t_ms:.3f} ms ({1e3 * t_ms / len(ret):.3f} us a return), "
+        f"K4 {k4_ms:.6f} ms: {t_ms / k4_ms:.1f}x; same final set")
+    # the whole wide cas-100k and multi-register-100k streams, the main
+    # path's launches
+    P_h, rs_h, _ = history_operands(multi100, models.multi_register())
+    for label, P, rs in (("wide cas-100k", P_wide, rs_wide),
+                         ("multi-register-100k", P_h, rs_h)):
+        args = reach_pallas.operands_from_numpy(
+            P, rs.ret_slot, rs.slot_ops, one_hot(P, 1 << rs.W),
+            device="cuda")
+        full_ms = event_ms(lambda: reach_pallas.walk(*args, rs.n_returns), 3)
+        log(f"kernel wide_walk [{label}, {rs.n_returns} returns] "
+            f"form={form(rs.W, P.shape[1])}: kernel_ms={full_ms:.6f} "
+            f"us_per_return={1e3 * full_ms / rs.n_returns:.6f}")
     # one word a mask: K4 against K1 on cas-30k
     P, rs, M = history_operands(gen("cas", 30_000, 5, 0),
                                 models.cas_register())
@@ -603,16 +650,60 @@ def phase_k4(P_wide, rs_wide):
     k1_ms = event_ms(lambda: reach_lane.lane_walk(*lane_args, 1024, rs.W), 5)
     k4_ms = event_ms(lambda: reach_pallas.walk(*wide_args, rs.n_returns), 5)
     log(f"kernel wide_walk [cas-30k, S={P.shape[1]} W={rs.W}] against K1: "
-        f"same final set; K4 {k4_ms:.6f} ms, K1 {k1_ms:.6f} ms")
+        f"same final set; K4 {k4_ms:.6f} ms (form="
+        f"{form(rs.W, P.shape[1])}), K1 {k1_ms:.6f} ms")
     return out
 
 
-def phase_k5(per_key):
+# small histories that reach the warp form's other instances (entries
+# of 1, 4 and 8 words; 1, 4 and 8 nibbles at one word): (label, kind,
+# generator options); each K4 launch against its plain version
+INSTANCES = [("cas S=4", "cas", dict(values=3)),
+             ("cas S=16", "cas", dict(values=12)),
+             ("cas S=32", "cas", dict(values=25)),
+             ("multi S=128", "multi", dict(keys=3, values=4)),
+             ("multi S=256", "multi", dict(keys=4, values=3))]
+
+
+def phase_k4_instances():
+    """K4 against its plain version, bit for bit, at :data:`INSTANCES`
+    (1,000 ops, 4 processes each)."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import reach_pallas
+
+    for label, kind, kw in INSTANCES:
+        model = models.cas_register() if kind == "cas" else \
+            models.multi_register()
+        P, rs, _ = history_operands(gen(kind, 1_000, 4, 0, **kw), model)
+        W, S, O1 = rs.W, P.shape[1], P.shape[0]
+        args = reach_pallas.operands_from_numpy(
+            P, rs.ret_slot, rs.slot_ops, one_hot(P, 1 << W), device="cuda")
+        got = reach_pallas.walk(*args, rs.n_returns)
+        same(f"wide_walk [{label}]", got,
+             reach_pallas.walk_plain(*args, rs.n_returns))
+        log(f"kernel wide_walk [{label}] W={W} S={S} O1={O1} form="
+            f"{form(W, S)} entry words={reach_pallas.table_words(S)} "
+            f"nibbles={reach_pallas.n_nibbles(S)} tables_shared="
+            f"{reach_pallas.p_shared(W, S, O1)} returns={rs.n_returns}: "
+            f"bit-identical dead={int(got[0][0])}")
+
+
+def phase_k5(per_key, per_key_narrow):
     """K5 against its plain version at the wide independent shape (the
     operands ``check_many`` builds), bit for bit; time, bound and host
-    replay."""
+    replay; then at the narrow independent shape, whose tables sit in
+    shared memory (the route takes K3 there)."""
     from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
 
+    P, ret, ops, W, t = keyed_operands(per_key_narrow)
+    lo, hi = reach_lane._key_runs(t[3], len(per_key_narrow))
+    dead = reach_pallas._keyed_launch(*t[:3], lo, hi)
+    same("wide_keyed [narrow independent]", (dead,),
+         (reach_pallas.keyed_walk_plain(*t, len(per_key_narrow)),))
+    S, O1 = P.shape[1], P.shape[0]
+    log(f"kernel wide_keyed [narrow independent] W={W} S={S} O1={O1} "
+        f"form={form(W, S)} tables_shared={reach_pallas.p_shared(W, S, O1)}"
+        f": bit-identical, dead keys={int((dead >= 0).sum())}")
     P, ret, ops, W, t = keyed_operands(per_key)
     K = len(per_key)
     lo, hi = reach_lane._key_runs(t[3], K)
@@ -626,8 +717,8 @@ def phase_k5(per_key):
     bound, bound_by, detail = bound_ms(nbytes(*t, dead), work)
     S, O1 = P.shape[1], P.shape[0]
     log(f"kernel wide_keyed [wide independent {K} keys x {OPS_PER_KEY} "
-        f"ops] returns={ret.shape[0]} W={W} S={S} O1={O1} "
-        f"P_words_shared={reach_pallas.p_shared(W, S, O1)}: bit-identical "
+        f"ops] returns={ret.shape[0]} W={W} S={S} O1={O1} form={form(W, S)} "
+        f"tables_shared={reach_pallas.p_shared(W, S, O1)}: bit-identical "
         f"max_abs_err={err} kernel_ms={ms:.6f} plain_ms={p_ms:.3f} "
         f"bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
         f"{int((dead >= 0).sum())}")
@@ -866,9 +957,14 @@ def main() -> int:
     k3 = phase_k3(per_key)
     wide = gen("cas", 100_000, 5, 0, **WIDE_CAS)
     P_w, rs_w, _M_w = history_operands(wide, models.cas_register())
-    k4 = phase_k4(P_w, rs_w)
+    P_m, rs_m, _ = history_operands(
+        gen("multi", 20_000, 5, 0, **WIDE_MULTI), models.multi_register())
+    phase_tables([("cas-40 alphabet", P_w), ("multi-register", P_m)])
+    multi = gen("multi", 100_000, 5, 0, **WIDE_MULTI)
+    k4 = phase_k4(P_w, rs_w, P_m, rs_m, multi)
+    phase_k4_instances()
     h_wide_ind, per_key_wide = keyed_histories(**WIDE_CAS)
-    k5 = phase_k5(per_key_wide)
+    k5 = phase_k5(per_key_wide, per_key)
     from jepsen_tpu_torch.tools import ablate_lane
 
     t0 = time.perf_counter()
@@ -983,7 +1079,6 @@ def main() -> int:
         return Linearizable(models.multi_register(),
                             device=device).check(None, h)
 
-    multi = gen("multi", 100_000, 5, 0, **WIDE_MULTI)
     k4_launches = None
     for label, h, check in (("wide cas-100k", wide, linearizable),
                             ("multi-register-100k", multi, check_multi)):
@@ -993,8 +1088,10 @@ def main() -> int:
         expect(label, la, wide_walk=1, lane_walk=0, batch_walk=0,
                keyed_walk=0, wide_keyed=0)
         k4_launches = k4_launches or la["wide_walk"]
+        S_pad = max(2, 1 << (res["states"] - 1).bit_length())
         log(f"main path valid {label}: {res['engine']} valid={res['valid']} "
-            f"states={res['states']} slots={res['slots']} {dt:.4f} s = "
+            f"states={res['states']} slots={res['slots']} form="
+            f"{form(res['slots'], S_pad)} {dt:.4f} s = "
             f"{len(h) // 2 / dt:.1f} ops/s; {split(dt, spans)}; "
             f"launches {la}")
 

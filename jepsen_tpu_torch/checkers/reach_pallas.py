@@ -9,6 +9,9 @@ as one launch of K5 in ``csrc/wide_keyed.cu`` (counterpart of
 ``reach_pallas._keyed_call``). Both keep a mask's states as
 ``ceil(S / 32)`` words, so they take any number of states
 (:func:`fits`); the lane kernels of :mod:`.reach_lane` take at most 32.
+Each launch first builds P's nibble image tables (:func:`image_tables`;
+plain version :func:`image_tables_plain`), then walks in the warp form
+(:func:`warp_form`: the set in one warp's registers) or the block form.
 On CPU tensors the wrappers run the plain versions, :func:`walk_plain`
 and :func:`keyed_walk_plain`; on CUDA tensors they launch the kernel or
 raise.
@@ -31,11 +34,14 @@ import torch
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch.checkers import reach_lane
 
-# the kernels' limits (csrc/wide_walk.cuh): 1 <= W <= 20 slots, and the
-# set R [2, M, NW] words plus a chunk of the stream in one block's
-# shared memory (Hopper: 227 KB a block); P's words join them there
-# when they fit, else they stay in device memory
+# the kernels' limits (csrc/wide_walk.cuh): 1 <= W <= 20 slots; the warp
+# form for W <= 5 and at most 8 words a mask, else the block form with
+# the set R [2, M, NW] words in one block's shared memory (Hopper: 227 KB
+# a block) beside a chunk of the stream; P's image tables join them
+# there when they fit, else they stay in device memory
 _MAX_W = 20
+_WARP_MAX_W = 5
+_WARP_MAX_NW = 8
 _CHUNK = reach_lane._CHUNK
 _SMEM_BYTES = reach_lane._SMEM_BYTES
 
@@ -50,21 +56,57 @@ def n_words(S: int) -> int:
     return -(-S // 32)
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def n_nibbles(S: int) -> int:
+    """Nibbles (groups of 4 states) a table holds, ``K``: ``ceil(S / 4)``,
+    rounded up to a power of two where the warp form may take ``S`` (at
+    most 8 words; the padding nibbles' entries are zero)."""
+    K = -(-S // 4)
+    return K if n_words(S) > _WARP_MAX_NW else _pow2_at_least(K)
+
+
+def table_words(S: int) -> int:
+    """Words a table entry takes, ``NT``: ``NW`` rounded up to a power of
+    two up to 8 words (the warp form reads an entry as one vector), else
+    ``NW``."""
+    NW = n_words(S)
+    return NW if NW > _WARP_MAX_NW else _pow2_at_least(NW)
+
+
+def table_bytes(S: int, O1: int) -> int:
+    """Bytes of P's image tables ``[O1, K, 16, NT]``."""
+    return 4 * O1 * n_nibbles(S) * 16 * table_words(S)
+
+
+def warp_form(W: int, S: int) -> bool:
+    """Whether a walk of this geometry takes the warp form (the set in
+    one warp's registers), else the block form; ``wide_warp_form`` in
+    ``csrc/wide_walk.cuh``, exported as ``jt_wide_walk_form``."""
+    return W <= _WARP_MAX_W and n_words(S) <= _WARP_MAX_NW
+
+
+def _smem_base(W: int, S: int) -> int:
+    R = 0 if warp_form(W, S) else 2 * (1 << W) * n_words(S)
+    return 4 * (R + _CHUNK * (W + 1))
+
+
 def p_shared(W: int, S: int, O1: int) -> bool:
-    """Whether P's words ``[O1, S, NW]`` join the set in shared memory."""
-    base = 4 * (2 * (1 << W) * n_words(S) + _CHUNK * (W + 1))
-    return base + 4 * O1 * S * n_words(S) <= _SMEM_BYTES
+    """Whether P's image tables join the set and the stream's chunk in
+    shared memory."""
+    return _smem_base(W, S) + table_bytes(S, O1) <= _SMEM_BYTES
 
 
 def smem_bytes(W: int, S: int, O1: int) -> int:
     """Shared memory one K4 or K5 block takes, for routing without a
     card. It mirrors ``wide_smem`` in ``csrc/wide_walk.cuh`` (exported
     as ``jt_wide_walk_smem``), and ``chip_smoke.py`` checks that the two
-    agree: R as ``[2, M, NW]`` words, a chunk of the return stream, and
-    P's words when all of it fits."""
-    NW = n_words(S)
-    P = 4 * O1 * S * NW if p_shared(W, S, O1) else 0
-    return 4 * (2 * (1 << W) * NW + _CHUNK * (W + 1)) + P
+    agree: R as ``[2, M, NW]`` words in the block form, a chunk of the
+    return stream, and P's image tables when all of it fits."""
+    T = table_bytes(S, O1) if p_shared(W, S, O1) else 0
+    return _smem_base(W, S) + T
 
 
 def _kernel_takes(W: int, S: int, O1: int) -> bool:
@@ -74,8 +116,9 @@ def _kernel_takes(W: int, S: int, O1: int) -> bool:
 
 def fits(S_pad: int, M: int, n_ops: int) -> bool:
     """Whether K4 and K5 take this geometry: at most 20 slots, with the
-    set and a chunk of the stream in one block's shared memory (P may
-    stay in device memory). At S_pad = 64 that is up to 2^12 masks."""
+    set and a chunk of the stream in one block's shared memory (P's
+    tables may stay in device memory). At S_pad = 64 that is up to 2^13
+    masks."""
     return _kernel_takes(M.bit_length() - 1, S_pad, n_ops + 1)
 
 
@@ -126,6 +169,28 @@ def _pass_index(W: int, M: int, dtype, dev):
     j = torch.arange(W, device=dev)[None, :]
     partner = ((m ^ (1 << j)) * W + j).reshape(-1)
     return partner, ((m >> j) & 1).to(dtype)[..., None]
+
+
+def image_tables_plain(P: torch.Tensor) -> torch.Tensor:
+    """P's nibble image tables in PyTorch ops, on any device: the plain
+    version of the kernels' ``pack_tables``. ``P`` f32[O1, S, S] 0/1.
+    Returns i32[O1, K, 16, NT] (K = :func:`n_nibbles`, NT =
+    :func:`table_words`): entry ``[o, k, v]`` holds the image under op o
+    of the states ``4k + b`` for the set bits b of v, as NT words of 32
+    target states (bit i of word w: state 32w + i; words past
+    ``ceil(S/32)`` are zero), each word's bits as a signed int32."""
+    O1, S, _ = P.shape
+    K, NT = n_nibbles(S), table_words(S)
+    rows = torch.zeros(O1, 4 * K, 32 * NT, dtype=P.dtype, device=P.device)
+    rows[:, :S, :S] = (P > 0.5).to(P.dtype)
+    sel = ((torch.arange(16, device=P.device)[:, None]
+            >> torch.arange(4, device=P.device)) & 1).to(P.dtype)
+    # [16, 4] @ [O1, K, 4, 32·NT]: how many of v's states reach each target
+    hit = (sel @ rows.view(O1, K, 4, 32 * NT)) > 0.5
+    shift = torch.arange(32, device=P.device)
+    words = (hit.view(O1, K, 16, NT, 32).long() << shift).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
 
 
 _GATHER = 256               # returns whose operands are gathered at once
@@ -197,6 +262,11 @@ def _lib():
         lib.jt_wide_walk.restype = ctypes.c_int
         lib.jt_wide_walk_smem.argtypes = [ctypes.c_int] * 3
         lib.jt_wide_walk_smem.restype = ctypes.c_size_t
+        lib.jt_wide_walk_form.argtypes = [ctypes.c_int] * 2
+        lib.jt_wide_walk_form.restype = ctypes.c_int
+        lib.jt_wide_tables.argtypes = [ctypes.c_void_p] * 2 + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.jt_wide_tables.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -233,6 +303,36 @@ def _launched(kernel: str, err: int) -> None:
                            f"{err}")
 
 
+def _tables_scratch(O1: int, S: int, dev) -> torch.Tensor:
+    """Device memory for the kernels' image tables ``[O1, K, 16, NT]``."""
+    return torch.empty((O1, n_nibbles(S), 16, table_words(S)),
+                       dtype=torch.int32, device=dev)
+
+
+def image_tables(P: torch.Tensor) -> torch.Tensor:
+    """P's image tables with :func:`image_tables_plain`'s contract: the
+    kernels' ``pack_tables`` alone for a tensor on the card
+    (``jt_wide_tables``; ``chip_smoke.py`` holds it against the plain
+    version), the plain version for a tensor on the CPU."""
+    if P.device.type == "cpu":
+        return image_tables_plain(P)
+    if P.device.type != "cuda":
+        raise ValueError(f"image_tables: unsupported device {P.device}")
+    reach_lane._check_operands("image_tables", P.device,
+                               (("P", P, torch.float32),))
+    O1, S, _ = P.shape
+    if P.shape[1:] != (S, S) or O1 < 1 or S < 1:
+        raise ValueError(f"image_tables: P{tuple(P.shape)} is not "
+                         f"[O1, S, S]")
+    T = _tables_scratch(O1, S, P.device)
+    with torch.cuda.device(P.device):
+        err = _lib().jt_wide_tables(
+            P.data_ptr(), T.data_ptr(), O1, S,
+            torch.cuda.current_stream().cuda_stream)
+    _launched("image_tables", err)
+    return T
+
+
 def _walk_cuda(P, ret_slot, slot_ops, R0, rlim: int):
     global KERNEL_LAUNCHES
     dev = R0.device
@@ -246,13 +346,13 @@ def _walk_cuda(P, ret_slot, slot_ops, R0, rlim: int):
         raise ValueError(f"wide_walk: R0{tuple(R0.shape)} is not "
                          f"[2^W, S] with W={W} S={S}")
     lib = _lib()
-    Pw = torch.empty(O1 * S * n_words(S), dtype=torch.int32, device=dev)
+    T = _tables_scratch(O1, S, dev)
     dead = torch.empty(1, dtype=torch.int32, device=dev)
     final = torch.empty_like(R0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_wide_walk(
-            P.data_ptr(), Pw.data_ptr(), ret_slot.data_ptr(),
+            P.data_ptr(), T.data_ptr(), ret_slot.data_ptr(),
             slot_ops.data_ptr(), R0.data_ptr(), final.data_ptr(),
             dead.data_ptr(), N, int(rlim), W, S, O1, stream)
     _launched("wide_walk", err)
@@ -292,11 +392,11 @@ def _keyed_launch(P, ret_slot, slot_ops, lo, hi):
     if n_keys == 0:
         return dead
     lib = _keyed_lib()
-    Pw = torch.empty(O1 * S * n_words(S), dtype=torch.int32, device=dev)
+    T = _tables_scratch(O1, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_wide_keyed(
-            P.data_ptr(), Pw.data_ptr(), ret_slot.data_ptr(),
+            P.data_ptr(), T.data_ptr(), ret_slot.data_ptr(),
             slot_ops.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             dead.data_ptr(), n_keys, W, S, O1, stream)
     _launched("wide_keyed", err)

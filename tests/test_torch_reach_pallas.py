@@ -322,8 +322,8 @@ def test_fits_is_the_kernel_envelope():
     assert not pallas_pt.fits(2, 1 << 21, 3)    # > 20 slots
     for S in (64, 128, 256, 512, 1024, 4096):
         for W in range(1, 21):
-            set_bytes = pallas_pt.smem_bytes(W, S, 1) - 4 * S * \
-                pallas_pt.n_words(S) * pallas_pt.p_shared(W, S, 1)
+            set_bytes = pallas_pt.smem_bytes(W, S, 1) - \
+                pallas_pt.table_bytes(S, 1) * pallas_pt.p_shared(W, S, 1)
             for n_ops in (1, 30, 700, 5000):
                 if reach_ref._pallas_fits(S, 1 << W, n_ops) and \
                         set_bytes <= pallas_pt._SMEM_BYTES:
@@ -348,3 +348,210 @@ def test_wrappers_route_by_device(monkeypatch):
     with pytest.raises(ValueError):
         pallas_pt.keyed_walk(meta, t, t, t, 1)
     assert calls == ["plain", "plain"]
+
+
+# -- the redesigned body's host side: image tables, layout, form ---------------
+
+def _alphabet(kind, S):
+    """The wide cas (41 states) or multi-register (64 states) alphabet's
+    P, cut or zero-padded to ``S`` states."""
+    P, _rs, _R0 = _operands(*(WIDE_CAS if kind == "cas" else WIDE_MULTI),
+                            seed=0)
+    n = min(S, P.shape[1])
+    out = np.zeros((P.shape[0], S, S), np.float32)
+    out[:, :n, :n] = P[:, :n, :n]
+    return out
+
+
+def _words(bits):
+    """bool [..., 32·n] as uint32 words [..., n], bit i of word w the
+    element 32w + i."""
+    packed = np.packbits(bits.reshape(*bits.shape[:-1], -1, 32), axis=-1,
+                         bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4")[..., 0]
+
+
+def _bits(words, S):
+    """uint32 words [..., n] as bool [..., S]."""
+    b = np.unpackbits(words.astype("<u4")[..., None].view(np.uint8),
+                      axis=-1, bitorder="little")
+    return b.reshape(*words.shape[:-1], -1)[..., :S].astype(bool)
+
+
+@pytest.mark.parametrize("kind", ["cas", "multi"])
+@pytest.mark.parametrize("S", [33, 41, 64, 100])
+def test_image_tables_plain_matches_state_images(kind, S):
+    """Word w of a set's image under op o, OR over its nibbles k of
+    ``T[o, k, nibble]``, equals the image computed state by state, on
+    random sets from a numpy seed; padding words and empty nibbles are
+    zero."""
+    P = _alphabet(kind, S)
+    O1 = P.shape[0]
+    T = pallas_pt.image_tables_plain(torch.from_numpy(P)).numpy()
+    K, NT = pallas_pt.n_nibbles(S), pallas_pt.table_words(S)
+    assert T.shape == (O1, K, 16, NT) and T.dtype == np.int32
+    Tu = T.view(np.uint32)
+    assert not Tu[:, :, 0].any()
+    assert not Tu[..., pallas_pt.n_words(S):].any()
+    rng = np.random.default_rng(S)
+    for density in (0.03, 0.2, 0.7):
+        x = rng.random((16, S)) < density
+        ops = rng.integers(0, O1, 16)
+        xw = _words(np.pad(x, ((0, 0), (0, 32 * NT - S))))
+        for i in range(len(x)):
+            want = np.zeros(S, bool)
+            for s in np.nonzero(x[i])[0]:
+                want |= P[ops[i], s] > 0.5
+            got = np.zeros(NT, np.uint32)
+            for k in range(K):
+                nib = (xw[i, k // 8] >> np.uint32(4 * (k % 8))) & 15
+                got |= Tu[ops[i], k, nib]
+            np.testing.assert_array_equal(_bits(got, 32 * NT)[:S], want)
+            assert not _bits(got, 32 * NT)[S:].any()
+
+
+def _table_walk(P, ret_slot, slot_ops, R0_ms, rlim):
+    """The kernels' arithmetic in numpy: mask m's set as NT words, each
+    return's up to ``c`` passes firing slot j's op into the masks with
+    bit j from the partner's pass-start words, one table entry a nibble,
+    until a pass adds nothing; then the projection; the walk stops at
+    the first empty set. Returns
+    ``(dead, final bool [M, S])``."""
+    T = pallas_pt.image_tables_plain(torch.from_numpy(P)).numpy()
+    Tu = T.view(np.uint32)
+    _O1, K, _, NT = T.shape
+    M, S = R0_ms.shape
+    W = slot_ops.shape[1]
+    x = _words(np.pad(R0_ms > 0.5, ((0, 0), (0, 32 * NT - S))))
+    masks = np.arange(M)
+    dead = 0 if len(ret_slot) and not x.any() else -1
+    for r in range(len(ret_slot) if dead < 0 else 0):
+        ops = slot_ops[r]
+        for _ in range(int((ops >= 0).sum())):
+            acc = x.copy()
+            for j in np.nonzero(ops >= 0)[0]:
+                hi = masks[(masks >> j) & 1 == 1]
+                y = x[hi ^ (1 << j)]
+                for k in range(K):
+                    nib = (y[:, k // 8] >> np.uint32(4 * (k % 8))) & 15
+                    acc[hi] |= Tu[ops[j], k, nib]
+            x, grew = acc, (acc != x).any()
+            if not grew:                # the fixpoint: the rest are identity
+                break
+        js = ret_slot[r]
+        if js >= 0:
+            x = np.where((masks[:, None] >> js) & 1 == 1, np.uint32(0),
+                         x[masks | (1 << js)])
+            if not x.any():
+                dead = r
+                break
+    return (dead if dead < rlim else -1), _bits(x, S)
+
+
+@pytest.mark.parametrize("kind,kw,seed,corrupt,S", [
+    WIDE_MULTI + (0, False, 64), WIDE_MULTI + (1, True, 64),
+    WIDE_CAS + (0, False, 64), WIDE_CAS + (2, True, 64),
+    WIDE_CAS + (0, False, 80),          # NW = 3 in entries of 4 words
+    WIDE_MULTI + (0, False, 100),       # NW = NT = 4
+    ("cas", dict(n_ops=80, processes=3), 5, True, 8)])   # one word
+def test_table_walk_matches_walk_plain(kind, kw, seed, corrupt, S):
+    """The kernels' walk on the nibble tables (numpy, word by word)
+    gives the plain version's dead return and final set, at one, two,
+    three (padded to four) and four words a mask."""
+    P0, rs, _ = _operands(kind, kw, seed, corrupt)
+    n = P0.shape[1]
+    P = np.zeros((P0.shape[0], S, S), np.float32)
+    P[:, :n, :n] = P0
+    M = 1 << rs.W
+    R0 = np.zeros((S, M), bool)
+    R0[0, 0] = True
+    t = pallas_pt.operands_from_numpy(P, rs.ret_slot, rs.slot_ops, R0,
+                                      device="cpu")
+    d_plain, R_plain = pallas_pt.walk_plain(*t, rs.n_returns)
+    d, R = _table_walk(P, rs.ret_slot, rs.slot_ops, R0.T, rs.n_returns)
+    assert d == int(d_plain[0]) and (d >= 0) == corrupt
+    np.testing.assert_array_equal(R, R_plain.numpy() > 0.5)
+
+
+def _old_envelope(W, S):
+    """The envelope of the previous body, where the block form held
+    every walk: the set ``[2, M, NW]`` and a chunk of the stream in one
+    block's shared memory."""
+    return 1 <= W <= 20 and 4 * (2 * (1 << W) * pallas_pt.n_words(S)
+                                 + 256 * (W + 1)) <= 227 * 1024
+
+
+@pytest.mark.parametrize("W,S,n_ops", [
+    (5, 64, 20), (5, 64, 734),          # multi-register, wide cas
+    (7, 64, 18), (12, 64, 20), (12, 64, 734),
+    (13, 64, 20),                       # the largest W at S = 64
+    (9, 1024, 5), (13, 32 + 1, 40)])
+def test_fits_keeps_pinned_geometries(W, S, n_ops):
+    """Each pinned geometry the previous layout took still routes to K4
+    (past the lane kernel) and, as a union, to K5."""
+    M = 1 << W
+    assert _old_envelope(W, S)
+    assert pallas_pt.fits(S, M, n_ops)
+    assert not lane_pt.lane_fits(S, M, n_ops)
+    assert reach_pt._keyed_kernel(S, M, n_ops) == "keyed-wide"
+
+
+def test_fits_equals_the_previous_envelope():
+    """``fits`` takes exactly the geometries the previous layout took:
+    the warp form needs less shared memory, but only where the block
+    form fitted anyway; W = 20, the kernels' slot limit, fits at no S
+    (its set alone is 2^21 words), and more slots never."""
+    for W in range(1, 23):
+        for S in (1, 2, 8, 32, 33, 41, 64, 100, 128, 256, 257, 512, 1024,
+                  4096):
+            for O1 in (2, 21, 735, 5000):
+                assert pallas_pt.fits(S, 1 << W, O1 - 1) == \
+                    _old_envelope(W, S), (W, S, O1)
+    assert not any(pallas_pt.fits(S, 1 << 20, 10) for S in (1, 64, 1024))
+    assert pallas_pt.fits(64, 1 << 13, 20)
+    assert not pallas_pt.fits(64, 1 << 14, 20)
+
+
+@pytest.mark.parametrize("W,S,warp", [
+    (5, 256, True), (5, 257, False), (6, 256, False), (6, 33, False),
+    (1, 1, True), (4, 64, True), (5, 64, True), (1, 257, False),
+    (20, 64, False)])
+def test_form_selection_boundaries(W, S, warp):
+    """The warp form exactly when W <= 5 and NW <= 8, and the layout
+    each form takes: no set in shared memory in the warp form, the set
+    double-buffered in the block form; the tables join when they fit."""
+    assert pallas_pt.warp_form(W, S) is warp
+    NW = pallas_pt.n_words(S)
+    chunk = 4 * 256 * (W + 1)
+    set_bytes = 0 if warp else 8 * (1 << W) * NW
+    T = pallas_pt.table_bytes(S, 3)
+    shared = set_bytes + chunk + T <= 227 * 1024
+    assert pallas_pt.p_shared(W, S, 3) is shared
+    assert pallas_pt.smem_bytes(W, S, 3) == set_bytes + chunk + T * shared
+
+
+def test_table_layout():
+    """Entries of NT words: NW rounded up to a power of two up to 8,
+    else NW; K = ceil(S / 4) nibbles, rounded up to a power of two up to
+    256 states (8·NT at 33 states and more); the two alphabets' table
+    sizes."""
+    words = {1: (1, 1), 5: (1, 2), 17: (1, 8), 32: (1, 8), 33: (2, 16),
+             64: (2, 16), 65: (4, 32), 96: (4, 32), 128: (4, 32),
+             129: (8, 64), 256: (8, 64), 257: (9, 65), 1024: (32, 256)}
+    for S, (nt, k) in words.items():
+        assert pallas_pt.table_words(S) == nt, S
+        assert pallas_pt.n_nibbles(S) == k, S
+    assert pallas_pt.table_bytes(64, 21) == 43_008
+    assert pallas_pt.table_bytes(64, 735) == 1_505_280
+    assert pallas_pt.p_shared(5, 64, 21) and not pallas_pt.p_shared(5, 64,
+                                                                    735)
+
+
+def test_image_tables_routes_by_device(monkeypatch):
+    """``image_tables`` takes the plain version only for a CPU tensor;
+    any other device is the kernel's or an error."""
+    P = torch.from_numpy(_alphabet("multi", 64))
+    assert torch.equal(pallas_pt.image_tables(P),
+                       pallas_pt.image_tables_plain(P))
+    with pytest.raises(ValueError):
+        pallas_pt.image_tables(torch.zeros(2, 4, 4, device="meta"))
