@@ -11,8 +11,15 @@ user's entry points and checks the results:
 
 - ``Linearizable(cas_register()).check`` on a 100,000-op history
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
-  one against the CPU run and against K1), and on a 1,000,000-op one;
+  one against the CPU run and against K1, with no torch returns walk:
+  K1 reports the dead return itself; its walk split stage by stage,
+  ``tools/walk_split.py``), and on a 1,000,000-op one;
 - the same on a 30,000-op history, below chunk-lockstep's floor (K1);
+  K1 and K2 walk P's nibble image tables, built by one
+  ``pack_tables`` launch and copied into each block's shared memory
+  or, for a many-op alphabet at 32 states, read from device memory;
+  each K1 launch is held against its plain version in its dead return
+  too;
 - ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
   50 ops (one K3 launch), against the CPU run;
 - more than 32 states: a 100,000-op cas history over 40 values and a
@@ -202,22 +209,28 @@ def nbytes(*tensors) -> int:
 
 
 def check_smem_layout():
-    """``reach_lane.smem_bytes`` and ``reach_pallas.smem_bytes`` (routing
-    without a card) against the kernels' own ``jt_lane_walk_smem`` and
+    """``reach_lane.smem_bytes``, ``reach_lane.keyed_smem_bytes`` and
+    ``reach_pallas.smem_bytes`` (routing without a card) against the
+    kernels' own ``jt_lane_walk_smem``, ``jt_keyed_walk_smem`` and
     ``jt_wide_walk_smem``, over the geometries they take."""
     from jepsen_tpu_torch.checkers import reach_lane
 
-    lib = reach_lane._lib()
+    lane, keyed = reach_lane._lib(), reach_lane._keyed_lib()
     for W in range(1, reach_lane._MAX_W + 1):
         for S in (1, 8, 32):
-            for O1 in (2, 37, 1000):
+            for O1 in (2, 37, 442, 443, 1000):
                 for warp in (False, True):
-                    got = lib.jt_lane_walk_smem(W, S, O1, int(warp))
-                    if got != reach_lane.smem_bytes(W, S, O1, warp):
-                        raise AssertionError(
-                            f"smem layout differs at W={W} S={S} O1={O1} "
-                            f"warp={warp}: kernel {got}, host "
-                            f"{reach_lane.smem_bytes(W, S, O1, warp)}")
+                    for lib, fn, host in (
+                            (lane, "jt_lane_walk_smem",
+                             reach_lane.smem_bytes),
+                            (keyed, "jt_keyed_walk_smem",
+                             reach_lane.keyed_smem_bytes)):
+                        got = getattr(lib, fn)(W, S, O1, int(warp))
+                        if got != host(W, S, O1, warp):
+                            raise AssertionError(
+                                f"{fn} differs at W={W} S={S} O1={O1} "
+                                f"warp={warp}: kernel {got}, host "
+                                f"{host(W, S, O1, warp)}")
     # the wide kernels' layout and form (K4, K5) against
     # reach_pallas.smem_bytes and reach_pallas.warp_form
     from jepsen_tpu_torch.checkers import reach_pallas
@@ -269,63 +282,81 @@ def same(label: str, got, want):
                else 0.0 for a, b in zip(got, want))
 
 
-# (label, kind, n_ops, processes, seed, B, corrupt): the main path's K1
-# shape first (a history below chunk-lockstep's floor), then a
-# multi-block walk and one past the ladder cap
+# (label, kind, n_ops, processes, seed, B, corrupt, generator options,
+# returns walked or None for all): the main path's K1 shape first (a
+# history below chunk-lockstep's floor), then a multi-block walk, one
+# past the ladder cap, a corrupted one that dies mid-stream and a
+# many-op alphabet at 32 states whose tables stay in device memory (its
+# first 4,096 returns: the plain version takes about 1 ms a return)
 GEOMS = [
-    ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False),
-    ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False),
-    ("W=10 capped ladder", "cas", 1_000, 11, 0, 64, True),
+    ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False, {}, None),
+    ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False, {}, None),
+    ("W=10 capped ladder", "cas", 1_000, 11, 0, 64, True, {}, None),
+    ("corrupted cas-4k", "cas", 4_000, 5, 3, 256, True, {}, None),
+    ("S=32 many ops, tables in device memory", "cas", 60_000, 5, 0, 1024,
+     False, dict(values=31), 4096),
 ]
+
+
+def tables_place(W: int, S: int, O1: int, warp: bool) -> str:
+    from jepsen_tpu_torch.checkers import reach_lane
+
+    return "shared" if reach_lane.tables_shared(W, S, O1, warp) \
+        else "device"
 
 
 def phase_k1():
     """K1 against its plain version on the same CUDA tensors, bit for
-    bit, at each geometry; times of the first."""
+    bit (the dead return included), at each geometry, in the warp form
+    and the block form; times of the first."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checkers import reach_lane
 
     out = {"max_abs_err": 0.0}
-    for label, kind, n_ops, procs, seed, B, corrupt in GEOMS:
-        P, rs, M = history_operands(gen(kind, n_ops, procs, seed, corrupt),
-                                    models.cas_register())
+    for label, kind, n_ops, procs, seed, B, corrupt, kw, cut in GEOMS:
+        P, rs, M = history_operands(
+            gen(kind, n_ops, procs, seed, corrupt, **kw),
+            models.cas_register())
+        n_ret = rs.n_returns if cut is None else cut
         R0 = np.zeros((P.shape[1], M), bool)
         R0[0, 0] = True
         args = reach_lane.operands_from_numpy(
-            P, rs.ret_slot, rs.slot_ops, R0, B=B, device="cuda")
-        W = rs.W
+            P, rs.ret_slot[:n_ret], rs.slot_ops[:n_ret], R0, B=B,
+            device="cuda")
+        W, S, O1 = rs.W, P.shape[1], P.shape[0]
         for n_pass in sorted({min(W, reach_lane._FAST_PASSES), W}):
-            ck, fin = reach_lane.lane_walk(*args, B, n_pass)
+            got = reach_lane.lane_walk(*args, B, n_pass)
             ref, p_ms = plain_ms(
                 lambda: reach_lane.lane_walk_plain(*args, B, n_pass))
-            err = same(f"lane_walk [{label}] n_pass={n_pass}", (ck, fin), ref)
+            err = same(f"lane_walk [{label}] n_pass={n_pass}", got, ref)
             ms = event_ms(lambda: reach_lane.lane_walk(*args, B, n_pass), 10)
-            work, v, _ = walk_work(P, args[1].cpu().numpy()[:, None],
-                                   args[2].cpu().numpy()[:, None],
-                                   as_sets(args[3][None]), n_pass)
-            if not np.array_equal(v, as_sets(fin[None])):
+            work, v, dead = walk_work(P, args[1].cpu().numpy()[:, None],
+                                      args[2].cpu().numpy()[:, None],
+                                      as_sets(args[3][None]), n_pass,
+                                      lens=np.array([n_ret]))
+            if not (np.array_equal(v, as_sets(got[1][None]))
+                    and int(dead[0]) == int(got[2][0])):
                 raise AssertionError(f"lane_walk differs from the host "
                                      f"replay at {label} n_pass={n_pass}")
-            bound, bound_by, detail = bound_ms(
-                nbytes(*args, ck, fin), work)
+            bound, bound_by, detail = bound_ms(nbytes(*args, *got), work)
+            block = ""
             if W <= 5:
-                # the shared-memory kernel on the same walk: the reason
-                # the warp kernel exists
-                blk = reach_lane._lane_walk_cuda(*args, B, n_pass,
-                                                 warp=False)
-                same(f"lane_walk block kernel [{label}]", blk, (ck, fin))
-                block_ms = event_ms(lambda: reach_lane._lane_walk_cuda(
+                # the block form on the same walk: the reason the warp
+                # form exists
+                same(f"lane_walk block form [{label}]",
+                     reach_lane._lane_walk_cuda(*args, B, n_pass,
+                                                warp=False), got)
+                t = event_ms(lambda: reach_lane._lane_walk_cuda(
                     *args, B, n_pass, warp=False), 10)
-                log(f"kernel lane_walk [{label}] warp kernel {ms:.6f} ms, "
-                    f"shared-memory kernel {block_ms:.6f} ms "
-                    f"(bit-identical)")
-            log(f"kernel lane_walk [{label}] W={W} S={P.shape[1]} "
-                f"O1={P.shape[0]} returns={rs.n_returns} "
+                block = f" (block form {t:.6f} ms, bit-identical)"
+            log(f"kernel lane_walk [{label}] W={W} S={S} O1={O1} "
+                f"form={'warp' if W <= 5 else 'block'} "
+                f"tables={tables_place(W, S, O1, True)} returns={n_ret} "
                 f"R_pad={args[1].shape[0]} B={B} n_pass={n_pass}: "
                 f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
-                f"us_per_return={1e3 * ms / rs.n_returns:.6f} "
+                f"us_per_return={1e3 * ms / n_ret:.6f}{block} "
                 f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} "
-                f"({bound_by}; {detail}) alive={bool(fin.any())}")
+                f"({bound_by}; {detail}) dead={int(got[2][0])}")
             out["max_abs_err"] = max(out["max_abs_err"], err)
             if label == GEOMS[0][0]:
                 out.update(ms=ms, plain_ms=p_ms, bound_ms=bound,
@@ -379,7 +410,7 @@ def phase_k2(P, rs, M):
         label = f"batch_walk [cas-100k phase {phase}]"
         err = same(label, (ck, fin), ref)
         blk = reach_batch._batch_walk_cuda(*args, B, W, warp=False)
-        same(label + " block kernel", blk, (ck, fin))
+        same(label + " block form", blk, (ck, fin))
         ms = event_ms(lambda: reach_batch.batch_walk(*args, B, W), 10)
         block_ms = event_ms(lambda: reach_batch._batch_walk_cuda(
             *args, B, W, warp=False), 10)
@@ -396,7 +427,7 @@ def phase_k2(P, rs, M):
         log(f"kernel {label} lanes={C} groups={groups} blocks="
             f"{C * groups} M'={args[3].shape[0]} W={W} S={S} "
             f"steps={R_pad} B={B}: bit-identical max_abs_err={err} "
-            f"kernel_ms={ms:.6f} (shared-memory kernel {block_ms:.6f}) "
+            f"kernel_ms={ms:.6f} (block form {block_ms:.6f}) "
             f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
             f"{detail})")
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -513,10 +544,12 @@ def form(W: int, S: int) -> str:
 
 
 def phase_tables(alphabets):
-    """K4 and K5's first kernel, ``pack_tables`` (alone, through
-    ``reach_pallas.image_tables``), against its plain version on the
-    same CUDA tensors, bit for bit, on each ``(label, P)``."""
-    from jepsen_tpu_torch.checkers import reach_pallas
+    """``pack_tables`` (alone, through ``reach_pallas.image_tables``):
+    K4 and K5's first kernel, and K1 and K2's where their tables stay in
+    device memory, against its plain version on the same CUDA tensors,
+    bit for bit, on each ``(label, P)``; where a W = 5 walk keeps them
+    (K1 and K2 up to 32 states, else K4 and K5)."""
+    from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
 
     for label, P in alphabets:
         Pt = torch.as_tensor(P, device="cuda")
@@ -525,9 +558,11 @@ def phase_tables(alphabets):
         same(f"pack_tables [{label}]", (got,), (want,))
         ms = event_ms(lambda: reach_pallas.image_tables(Pt), 10)
         O1, S = P.shape[0], P.shape[1]
+        shared = reach_lane.tables_shared(5, S, O1) if S <= 32 else \
+            reach_pallas.p_shared(5, S, O1)
         log(f"kernel pack_tables [{label}] O1={O1} S={S} "
             f"tables={tuple(got.shape)} {reach_pallas.table_bytes(S, O1)} "
-            f"bytes, shared at W=5: {reach_pallas.p_shared(5, S, O1)}: "
+            f"bytes, shared at W=5: {shared}: "
             f"bit-identical kernel_ms={ms:.6f} plain_ms={p_ms:.3f}")
 
 
@@ -643,9 +678,10 @@ def phase_k4(P_wide, rs_wide, P_m, rs_m, multi100):
     wide_args = reach_pallas.operands_from_numpy(P, rs.ret_slot,
                                                  rs.slot_ops, R0,
                                                  device="cuda")
-    _ck, fin1 = reach_lane.lane_walk(*lane_args, 1024, rs.W)
+    _ck, fin1, dead1 = reach_lane.lane_walk(*lane_args, 1024, rs.W)
     dead4, fin4 = reach_pallas.walk(*wide_args, rs.n_returns)
-    if not (torch.equal(fin1, fin4) and int(dead4[0]) == -1):
+    if not (torch.equal(fin1, fin4) and int(dead4[0]) == int(dead1[0])
+            == -1):
         raise AssertionError("K4 and K1 disagree on cas-30k")
     k1_ms = event_ms(lambda: reach_lane.lane_walk(*lane_args, 1024, rs.W), 5)
     k4_ms = event_ms(lambda: reach_pallas.walk(*wide_args, rs.n_returns), 5)
@@ -959,7 +995,10 @@ def main() -> int:
     P_w, rs_w, _M_w = history_operands(wide, models.cas_register())
     P_m, rs_m, _ = history_operands(
         gen("multi", 20_000, 5, 0, **WIDE_MULTI), models.multi_register())
-    phase_tables([("cas-40 alphabet", P_w), ("multi-register", P_m)])
+    P_32, _rs_32, _ = history_operands(
+        gen("cas", 60_000, 5, 0, values=31), models.cas_register())
+    phase_tables([("cas-40 alphabet", P_w), ("multi-register", P_m),
+                  ("cas alphabet", P), ("cas alphabet at 32 states", P_32)])
     multi = gen("multi", 100_000, 5, 0, **WIDE_MULTI)
     k4 = phase_k4(P_w, rs_w, P_m, rs_m, multi)
     phase_k4_instances()
@@ -990,7 +1029,9 @@ def main() -> int:
 
     bad = gen("cas", 100_000, 5, 0, corrupt=True)
     res, dt, la, spans, _ = drive(lambda: linearizable(bad))
-    expect("corrupted cas-100k", la, batch_walk=2, lane_walk=None,
+    # K1 twice: the dead chunk, which reports its dead return, and the
+    # witness prefix
+    expect("corrupted cas-100k", la, batch_walk=2, lane_walk=2,
            keyed_walk=0)
     t0 = time.perf_counter()
     ref = linearizable(bad, device="cpu")
@@ -1015,6 +1056,17 @@ def main() -> int:
         f"{dead_k1}, as K1 finds it) {dt:.4f} s on cuda ({split(dt, spans)}; "
         f"launches {la}), {cpu_s:.3f} s on cpu; verdict, op, dead event, "
         f"witness and chunk counts agree")
+    # the walk stage by stage, each stage synchronised: no torch returns
+    # walk, K1 once on the dead chunk and once for the witness
+    from jepsen_tpu_torch.tools import walk_split
+
+    st = walk_split.split(bad)
+    if st["calls"].get("torch-walk", 0) or st["calls"].get("refine", 0) \
+            or st["calls"].get("k1 in localize") != 1 \
+            or st["calls"].get("k1 in witness-prefix") != 1 \
+            or st["dead-event"] != res["dead-event"]:
+        raise AssertionError(f"corrupted cas-100k split: {st}")
+    log(f"walk split corrupted cas-100k: {json.dumps(st)}")
 
     t0 = time.perf_counter()
     big = gen("cas", 1_000_000, 5, 1)

@@ -14,7 +14,8 @@ PyTorch ops, following the reference's gate literally.
 :func:`walk_returns_batch` is the host side, as the reference's
 blocking dispatch and collect: the capped ladder, the exact ``W``-pass
 rescue when a lane dies, and each dead lane located at its first empty
-block checkpoint and refined by :func:`reach_lane._refine_dead`.
+block checkpoint and refined by :func:`reach_lane._refine_dead`, one K1
+launch over the dying block.
 Verdicts and dead indices are those of H single-history walks.
 """
 from __future__ import annotations
@@ -83,7 +84,7 @@ def _lib():
     if _LIB is None:
         from jepsen_tpu_torch import _build
         lib = _build.load("batch_walk")
-        lib.jt_batch_walk.argtypes = [ctypes.c_void_p] * 6 + \
+        lib.jt_batch_walk.argtypes = [ctypes.c_void_p] * 7 + \
             [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.jt_batch_walk.restype = ctypes.c_int
         _LIB = lib
@@ -92,8 +93,9 @@ def _lib():
 
 def _batch_walk_cuda(P, slot_ops, ret_slot_rh, R0, B: int, n_pass: int,
                      warp: bool = True):
-    """Launch the kernel, one block per (lane, seed group); ``warp=False``
-    takes the shared-memory kernel at every W."""
+    """Launch the kernel, one block per (lane, seed group), after one
+    ``pack_tables`` launch for P's tables; ``warp=False`` takes the
+    block form at every W."""
     global KERNEL_LAUNCHES
     dev = R0.device
     reach_lane._check_operands(
@@ -119,13 +121,15 @@ def _batch_walk_cuda(P, slot_ops, ret_slot_rh, R0, B: int, n_pass: int,
     ckpt = torch.empty((R_pad // B, Mp, HS), dtype=torch.float32,
                        device=dev)
     final = torch.empty((Mp, HS), dtype=torch.float32, device=dev)
+    T = reach_lane.tables_scratch(O1, S, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_batch_walk(
-            P.data_ptr(), ret_slot_rh.data_ptr(), slot_ops.data_ptr(),
-            R0.data_ptr(), ckpt.data_ptr(), final.data_ptr(), R_pad, H, E,
-            W, S, O1, B, n_pass, int(warp), stream)
+            P.data_ptr(), T.data_ptr(), ret_slot_rh.data_ptr(),
+            slot_ops.data_ptr(), R0.data_ptr(), ckpt.data_ptr(),
+            final.data_ptr(), R_pad, H, E, W, S, O1, B, n_pass, int(warp),
+            stream)
     if err != 0:
         raise RuntimeError(f"batch_walk kernel launch failed: CUDA error "
                            f"{err}")
@@ -185,7 +189,8 @@ def walk_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
     linearizable. The capped ladder runs first (a surviving lane is
     valid); when a lane dies and ``W`` is past the cap, the exact
     ``W``-pass walk decides; each dead lane is located at its first
-    empty block checkpoint and refined one return at a time."""
+    empty block checkpoint, and one K1 launch over the block before it
+    gives the exact return."""
     geom, args, R_lens = pack_batch_operands(P, ret_slots, slot_ops, M,
                                              B=B, device=device)
     B, W, M, S, H, O1, R_pad = geom
@@ -211,8 +216,7 @@ def walk_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
         first_empty = int(np.argmin(occ)) if not occ.all() else n_blocks
         blk = max(0, first_empty - 1)
         dead[h] = reach_lane._refine_dead(
-            P_t, W, M, rs_t[:, h].cpu().numpy(),
-            ops_t.view(R_pad, H, W)[:, h].cpu().numpy(),
-            ck[blk, :, h].T > 0.5, blk * B,
-            min(B, max(1, R_lens[h] - blk * B)))
+            P_t, W, rs_t[:, h].cpu().numpy(),
+            ops_t.view(R_pad, H, W)[:, h].cpu().numpy(), ck[blk, :, h],
+            blk * B, min(B, max(1, R_lens[h] - blk * B)), B)
     return dead

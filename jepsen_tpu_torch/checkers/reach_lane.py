@@ -3,18 +3,21 @@
 :func:`lane_walk` runs the whole walk over the dense config set
 ``R[mask, state]`` as one launch of the hand-written CUDA kernel in
 ``csrc/lane_walk.cu`` (counterpart of the reference package's Pallas
-lane kernel, ``reach_lane._lane_call``). On CPU tensors it runs
+lane kernel, ``reach_lane._lane_call``), on P's nibble image tables
+(:func:`image_tables_plain` is their plain version; built by one launch
+of the kernels' ``pack_tables``, then copied into shared memory when
+they fit, :func:`tables_shared`, else read from device memory). The kernel also reports the exact dead return, the first
+after which the set is empty. On CPU tensors it runs
 :func:`lane_walk_plain`, the same arithmetic in PyTorch ops; on CUDA
 tensors it launches the kernel or raises.
 
 The host side mirrors the reference: :func:`pack_operands` pads the
 return stream to whole blocks of ``B`` returns on the device;
-:func:`walk_returns` runs the pending-count gate ladder capped at :data:`_FAST_PASSES`
-passes, then, for ``W > _FAST_PASSES``, the exact ``W``-pass rescue
-when the capped walk dies (sound: fewer passes under-approximate the
-config set, and emptiness is monotone); a death is located at the
-first empty block checkpoint and refined one return at a time by
-:func:`_refine_dead`. Semantics are identical to
+:func:`walk_returns` runs the pending-count gate ladder capped at
+:data:`_FAST_PASSES` passes, then, for ``W > _FAST_PASSES``, the exact
+``W``-pass rescue when the capped walk dies (sound: fewer passes
+under-approximate the config set, and emptiness is monotone); the
+death is the walk's own dead return. Semantics are identical to
 :func:`jepsen_tpu_torch.checkers.reach._walk_returns`.
 
 :func:`keyed_walk` walks many keys' streams concatenated into one flat
@@ -41,9 +44,9 @@ _FAST_PASSES = 8
 # then runs segment by segment with the config set carried, checking
 # the hook between segments
 _ABORT_SEG = 32768
-# the kernel's limits: 1 <= W <= 16 slots, S <= 32 states (one 32-bit
-# word per mask), and R plus P in one block's shared memory (Hopper:
-# 227 KB per block)
+# the kernels' limits: 1 <= W <= 16 slots, S <= 32 states (one 32-bit
+# word per mask), and R plus P's words in one block's shared memory
+# (Hopper: 227 KB per block)
 _MAX_W = 16
 _MAX_S = 32
 _SMEM_BYTES = 227 * 1024
@@ -59,30 +62,87 @@ class Aborted(RuntimeError):
 
 
 _CHUNK = 256                    # returns staged per refill (kChunk)
+# the warp form: at most 5 slots (M <= 32 masks), and for the wide walks
+# at most 8 words a mask (kWarpMaxW, kWarpMaxNW)
+_WARP_MAX_W = 5
+_WARP_MAX_NW = 8
+
+
+def n_words(S: int) -> int:
+    """32-bit words a mask's set of ``S`` states takes."""
+    return -(-S // 32)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def n_nibbles(S: int) -> int:
+    """Nibbles (groups of 4 states) an image table holds, ``K``:
+    ``ceil(S / 4)``, rounded up to a power of two where the warp form may
+    take ``S`` (at most 8 words; the padding nibbles' entries are zero).
+    ``n_nibbles`` in ``csrc/walk.cuh``."""
+    K = -(-S // 4)
+    return K if n_words(S) > _WARP_MAX_NW else _pow2_at_least(K)
+
+
+def table_words(S: int) -> int:
+    """Words an image table's entry takes, ``NT``: ``NW`` rounded up to a
+    power of two up to 8 words (the warp form reads an entry as one
+    vector), else ``NW``; one word at most 32 states."""
+    NW = n_words(S)
+    return NW if NW > _WARP_MAX_NW else _pow2_at_least(NW)
+
+
+def table_bytes(S: int, O1: int) -> int:
+    """Bytes of P's image tables ``[O1, K, 16, NT]``."""
+    return 4 * O1 * n_nibbles(S) * 16 * table_words(S)
+
+
+def _smem_base(W: int, warp: bool) -> int:
+    R = 0 if warp and W <= _WARP_MAX_W else 2 * (1 << W)
+    return 4 * (R + _CHUNK * (W + 1))
+
+
+def tables_shared(W: int, S: int, O1: int, warp: bool = True) -> bool:
+    """Whether K1 and K2 keep P's image tables in each block's shared
+    memory, beside the set and a chunk of the stream (else in device
+    memory); ``t_shared`` in ``csrc/walk.cuh``."""
+    return _smem_base(W, warp) + table_bytes(S, O1) <= _SMEM_BYTES
 
 
 def smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
-    """Shared memory one walk takes, for routing without a card. It
-    mirrors ``walk_smem`` in ``csrc/walk.cuh`` (the layout of all three
-    walk kernels, exported as ``jt_lane_walk_smem``), and
-    ``chip_smoke.py`` checks that the two agree: P as
-    ``[O1, S]`` target-set words, a chunk of the return stream, and
-    unless the warp kernel holds the set in registers (``warp`` and
+    """Shared memory one K1 or K2 block takes. It mirrors ``lane_smem``
+    in ``csrc/walk.cuh`` (exported as ``jt_lane_walk_smem``), and
+    ``chip_smoke.py`` checks that the two agree: P's image tables when
+    they fit (:func:`tables_shared`), a chunk of the return stream, and
+    unless the warp form holds the set in registers (``warp`` and
     W <= 5) R as one 32-bit state word per mask, double-buffered
     ``[2, M]``."""
-    R = 0 if warp and W <= 5 else 2 * (1 << W)
-    return 4 * (R + _CHUNK * (W + 1) + O1 * S)
+    T = table_bytes(S, O1) if tables_shared(W, S, O1, warp) else 0
+    return _smem_base(W, warp) + T
+
+
+def keyed_smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
+    """Shared memory one K3 block takes, and the envelope of all three
+    narrow walks. It mirrors ``keyed_smem`` in ``csrc/walk.cuh``
+    (exported as ``jt_keyed_walk_smem``), and ``chip_smoke.py`` checks
+    that the two agree: P as ``[O1, S]`` target-set words beside
+    :func:`smem_bytes`'s set and chunk."""
+    return _smem_base(W, warp) + 4 * O1 * S
 
 
 def _kernel_takes(W: int, S: int, O1: int) -> bool:
     return 1 <= W <= _MAX_W and 1 <= S <= _MAX_S \
-        and smem_bytes(W, S, O1) <= _SMEM_BYTES
+        and keyed_smem_bytes(W, S, O1) <= _SMEM_BYTES
 
 
 def lane_fits(S_pad: int, M: int, n_ops: int) -> bool:
-    """Whether the walk kernels (K1, and K2 and K3, which share its
-    body and shared-memory layout) take this geometry: at most 32
-    states and 16 slots, with R and P in one block's shared memory."""
+    """Whether the narrow walk kernels (K1, K2 and K3) take this
+    geometry: at most 32 states and 16 slots, with R and P's words in
+    one block's shared memory (K3's layout; K1 and K2 take every
+    geometry K3 takes, their tables in device memory where they do not
+    fit beside the set)."""
     return _kernel_takes(M.bit_length() - 1, S_pad, n_ops + 1)
 
 
@@ -151,17 +211,20 @@ def _project_lanes(R, js):
 
 def lane_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
                     slot_ops: torch.Tensor, R0: torch.Tensor, B: int,
-                    n_pass: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    n_pass: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The walk of :func:`lane_walk` in PyTorch ops, on any device.
 
     ``P`` f32[O1, S, S] (row O1-1 the all-zero sentinel for slot -1);
     ``ret_slot`` i32[R_pad]; ``slot_ops`` i32[R_pad, W]; ``R0``
-    f32[M, S]. Returns ``(ckpt f32[R_pad // B, M, S], final f32[M, S])``:
-    the set at the start of each block of ``B`` returns, and after the
-    last. Each return runs ``min(c_r, n_pass)`` fire passes (``c_r`` its
-    pending count), then the projection. (The reference runs at least
-    one pass; with ``c_r = 0`` every op is -1 and a pass is the
-    identity, so the two agree bit for bit.)"""
+    f32[M, S]. Returns ``(ckpt f32[R_pad // B, M, S], final f32[M, S],
+    dead i32[1])``: the set at the start of each block of ``B`` returns,
+    the set after the last, and the first return after which the set is
+    empty, or -1. Each return runs ``min(c_r, n_pass)`` fire passes
+    (``c_r`` its pending count), then the projection. (The reference runs
+    at least one pass; with ``c_r = 0`` every op is -1 and a pass is the
+    identity, so the two agree bit for bit.) An empty set stays empty, so
+    the checkpoints past the death and the final set are empty."""
     R_pad, W = slot_ops.shape
     M, S = R0.shape
     O1 = P.shape[0]
@@ -170,6 +233,7 @@ def lane_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
     js = ret_slot.tolist()
     ckpt = torch.empty((R_pad // B, M, S), dtype=R0.dtype,
                        device=R0.device)
+    alive = []                  # per return: is the set after it nonempty
     R = R0.clone()
     for b0 in range(0, R_pad, B):
         ckpt[b0 // B] = R
@@ -180,7 +244,35 @@ def lane_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
             for _ in range(min(pend[r], n_pass)):
                 R = _one_fire_pass(R, G[k], W, M, S)
             R = _project(R, js[r], W, M, S)
-    return ckpt, R
+            alive.append(R.any())
+    alive = torch.stack(alive)
+    dead = -1 if bool(alive.all()) else int(torch.argmin(alive.int()))
+    return ckpt, R, torch.tensor([dead], dtype=torch.int32,
+                                 device=R0.device)
+
+
+def image_tables_plain(P: torch.Tensor) -> torch.Tensor:
+    """P's nibble image tables in PyTorch ops, on any device: the plain
+    version of the kernels' ``pack_tables`` (``csrc/walk.cuh``; K1 and
+    K2 at most 32 states, K4 and K5 at any).
+    ``P`` f32[O1, S, S] 0/1. Returns i32[O1, K, 16, NT] (K =
+    :func:`n_nibbles`, NT = :func:`table_words`): entry ``[o, k, v]``
+    holds the image under op o of the states ``4k + b`` for the set bits
+    b of v, as NT words of 32 target states (bit i of word w: state
+    32w + i; words past ``ceil(S/32)`` are zero), each word's bits as a
+    signed int32."""
+    O1, S, _ = P.shape
+    K, NT = n_nibbles(S), table_words(S)
+    rows = torch.zeros(O1, 4 * K, 32 * NT, dtype=P.dtype, device=P.device)
+    rows[:, :S, :S] = (P > 0.5).to(P.dtype)
+    sel = ((torch.arange(16, device=P.device)[:, None]
+            >> torch.arange(4, device=P.device)) & 1).to(P.dtype)
+    # [16, 4] @ [O1, K, 4, 32·NT]: how many of v's states reach each target
+    hit = (sel @ rows.view(O1, K, 4, 32 * NT)) > 0.5
+    shift = torch.arange(32, device=P.device)
+    words = (hit.view(O1, K, 16, NT, 32).long() << shift).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
 
 
 _LIB = None
@@ -192,7 +284,7 @@ def _lib():
     if _LIB is None:
         from jepsen_tpu_torch import _build
         lib = _build.load("lane_walk")
-        lib.jt_lane_walk.argtypes = [ctypes.c_void_p] * 6 + \
+        lib.jt_lane_walk.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.jt_lane_walk.restype = ctypes.c_int
         lib.jt_lane_walk_smem.argtypes = [ctypes.c_int] * 4
@@ -209,6 +301,8 @@ def _keyed_lib():
         lib.jt_keyed_walk.argtypes = [ctypes.c_void_p] * 6 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.jt_keyed_walk.restype = ctypes.c_int
+        lib.jt_keyed_walk_smem.argtypes = [ctypes.c_int] * 4
+        lib.jt_keyed_walk_smem.restype = ctypes.c_size_t
         _KEYED_LIB = lib
     return _KEYED_LIB
 
@@ -221,10 +315,19 @@ def _check_operands(kernel: str, dev, tensors) -> None:
                              f"tensor on {dev}")
 
 
+def tables_scratch(O1: int, S: int, dev) -> torch.Tensor:
+    """Device memory for P's image tables ``[O1, K, 16, NT]``, which the
+    table walks (K1, K2, K4, K5) build first (``pack_tables``)."""
+    return torch.empty((O1, n_nibbles(S), 16, table_words(S)),
+                       dtype=torch.int32, device=dev)
+
+
 def _lane_walk_cuda(P, ret_slot, slot_ops, R0, B: int, n_pass: int,
                     warp: bool = True):
-    """Launch the kernel; ``warp=False`` takes the shared-memory kernel
-    at every W (``chip_smoke.py`` times the two)."""
+    """Launch the kernel; ``warp=False`` takes the block form at every W
+    (``chip_smoke.py`` times the two). ``ckpt`` and ``final`` start
+    zeroed: the walk stops at its death, and the plain version's sets
+    from there on are empty."""
     global KERNEL_LAUNCHES
     R_pad, W = slot_ops.shape
     M, S = R0.shape
@@ -243,25 +346,29 @@ def _lane_walk_cuda(P, ret_slot, slot_ops, R0, B: int, n_pass: int,
         raise ValueError(f"lane_walk: the kernel does not take W={W} "
                          f"S={S} O1={O1} (see lane_fits)")
     lib = _lib()
-    ckpt = torch.empty((R_pad // B, M, S), dtype=torch.float32,
-                       device=R0.device)
-    final = torch.empty((M, S), dtype=torch.float32, device=R0.device)
-    with torch.cuda.device(R0.device):
+    dev = R0.device
+    ckpt = torch.zeros((R_pad // B, M, S), dtype=torch.float32, device=dev)
+    final = torch.zeros((M, S), dtype=torch.float32, device=dev)
+    dead = torch.empty(1, dtype=torch.int32, device=dev)
+    T = tables_scratch(O1, S, dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_lane_walk(
-            P.data_ptr(), ret_slot.data_ptr(), slot_ops.data_ptr(),
-            R0.data_ptr(), ckpt.data_ptr(), final.data_ptr(),
-            R_pad, W, S, O1, B, n_pass, int(warp), stream)
+            P.data_ptr(), T.data_ptr(), ret_slot.data_ptr(),
+            slot_ops.data_ptr(), R0.data_ptr(), ckpt.data_ptr(),
+            final.data_ptr(), dead.data_ptr(), R_pad, W, S, O1, B, n_pass,
+            int(warp), stream)
     if err != 0:
         raise RuntimeError(f"lane_walk kernel launch failed: CUDA error "
                            f"{err}")
     KERNEL_LAUNCHES += 1
-    return ckpt, final
+    return ckpt, final, dead
 
 
 def lane_walk(P: torch.Tensor, ret_slot: torch.Tensor,
               slot_ops: torch.Tensor, R0: torch.Tensor, B: int,
-              n_pass: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              n_pass: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The returns walk with :func:`lane_walk_plain`'s contract: the
     CUDA kernel for tensors on the card (asynchronous, on the current
     stream), the plain version for tensors on the CPU."""
@@ -449,39 +556,26 @@ def pack_operands(P: np.ndarray, ret_slot: np.ndarray,
     return (B, W, M, S, O1, int(args[1].shape[0])), args
 
 
-def _refine_dead(P: torch.Tensor, W: int, M: int, ret_slot: np.ndarray,
-                 slot_ops: np.ndarray, R0_blk_sm: torch.Tensor, start: int,
-                 n: int) -> int:
-    """Exact dead return index within ``[start, start + n)``: re-walk
-    that block one return at a time with the torch walk from the
-    block-start config set (bool ``[S, M]``)."""
-    from jepsen_tpu_torch.checkers import reach
-
+def _refine_dead(P: torch.Tensor, W: int, ret_slot: np.ndarray,
+                 slot_ops: np.ndarray, R0: torch.Tensor, start: int, n: int,
+                 B: int) -> int:
+    """Exact dead return index within ``[start, start + n)``, whose
+    block-start set ``R0`` (f32 ``[M, S]`` on ``P``'s device) a
+    checkpoint gave: one K1 launch over that block, with the exact
+    ``W``-pass ladder, reading its dead return. The block's own walk
+    died in it, so a launch that finds no death raises."""
+    rs, so = _padded(ret_slot[start:start + n], slot_ops[start:start + n],
+                     B)
     dev = P.device
-    xc, bm = reach._xor_bitmask(W, M)
-    ptr1, _, alive, _ = reach._walk_returns(
-        P, torch.as_tensor(xc, device=dev), torch.as_tensor(bm, device=dev),
-        torch.as_tensor(np.ascontiguousarray(ret_slot[start:start + n],
-                                             np.int32), device=dev),
-        torch.as_tensor(np.ascontiguousarray(slot_ops[start:start + n],
-                                             np.int32), device=dev),
-        R0_blk_sm, unroll=1)
-    if alive:                           # shouldn't happen; be conservative
-        return start + n - 1
-    return start + ptr1 - 1
-
-
-def _locate_dead(ckpt: torch.Tensor, P, W: int, M: int, B: int,
-                 ret_slot, slot_ops, base: int, R_real: int) -> int:
-    """First empty block checkpoint → the block before it holds the
-    death; refine it one return at a time."""
-    occupied = ckpt.reshape(ckpt.shape[0], -1).any(1).cpu().numpy()
-    first_empty = int(np.argmin(occupied)) if not occupied.all() \
-        else int(ckpt.shape[0])
-    blk = max(0, first_empty - 1)
-    start = base + blk * B
-    return _refine_dead(P, W, M, ret_slot, slot_ops, ckpt[blk].T > 0.5,
-                        start, min(B, max(1, R_real - start)))
+    _, _, dead = lane_walk(
+        P, torch.as_tensor(np.ascontiguousarray(rs, np.int32), device=dev),
+        torch.as_tensor(np.ascontiguousarray(so, np.int32), device=dev),
+        R0.contiguous(), B, W)
+    d = int(dead[0])
+    if d < 0:
+        raise RuntimeError(f"K1 finds no death in returns [{start}, "
+                           f"{start + n}), where the block's walk died")
+    return start + d
 
 
 def prefix_set(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
@@ -492,15 +586,15 @@ def prefix_set(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
     W = int(slot_ops.shape[1])
     args = operands_from_numpy(P, ret_slot[:n], slot_ops[:n], R0_sm, B=B,
                                device=device)
-    _, final = lane_walk(*args, B, W)
+    _, final, _ = lane_walk(*args, B, W)
     return (final.cpu().numpy() > 0.5).T
 
 
 def _walk_segmented(args, geom, n_pass: int, should_abort):
     """Abortable drive: segments of about :data:`_ABORT_SEG` returns with
     the config set carried, the hook checked between segments. Returns
-    ``(ckpt, base, final)``: on a death, the dying segment's checkpoints
-    and start; raises :class:`Aborted` when the hook fires."""
+    ``(dead, final)``, ``dead`` offset by its segment's start; raises
+    :class:`Aborted` when the hook fires."""
     B, W, M, S, O1, R_pad = geom
     P, rs_t, so_t, R_cur = args
     seg_len = max(B, _ABORT_SEG // B * B)
@@ -509,12 +603,13 @@ def _walk_segmented(args, geom, n_pass: int, should_abort):
         if should_abort():
             raise Aborted()
         seg = min(seg_len, R_pad - base)
-        ckpt, R_cur = lane_walk(P, rs_t[base:base + seg],
-                                so_t[base:base + seg], R_cur, B, n_pass)
-        if not bool(R_cur.any()):
-            return ckpt, base, R_cur
+        _, R_cur, dead = lane_walk(P, rs_t[base:base + seg],
+                                   so_t[base:base + seg], R_cur, B, n_pass)
+        dead = int(dead[0])
+        if dead >= 0:
+            return base + dead, R_cur
         base += seg
-    return None, base, R_cur
+    return -1, R_cur
 
 
 def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
@@ -526,12 +621,11 @@ def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
     ``P`` f32[O1, S, S] (last row the all-zero sentinel); ``ret_slot``
     i32[R]; ``slot_ops`` i32[R, W]; ``R0_sm`` bool[S, M]. Returns
     ``(dead, R_final)``: ``dead`` is the first return index at which the
-    config set emptied (-1 if linearizable) and ``R_final`` the final
-    config set as bool[S, M] (``None`` on invalid histories or with
-    ``fetch_R=False``). With ``should_abort`` the walk runs in
-    :data:`_ABORT_SEG`-return segments and raises :class:`Aborted` when
-    the hook fires between them."""
-    R_real = int(ret_slot.shape[0])
+    config set emptied (-1 if linearizable), as the walk reports it, and
+    ``R_final`` the final config set as bool[S, M] (``None`` on invalid
+    histories or with ``fetch_R=False``). With ``should_abort`` the walk
+    runs in :data:`_ABORT_SEG`-return segments and raises
+    :class:`Aborted` when the hook fires between them."""
     geom, args = pack_operands(P, ret_slot, slot_ops, R0_sm, B=B,
                                device=device)
     B, W, M, S, O1, R_pad = geom
@@ -540,20 +634,17 @@ def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
     def run(n_pass: int):
         if should_abort is not None:
             return _walk_segmented(args, geom, n_pass, should_abort)
-        ckpt, final = lane_walk(*args, B, n_pass)
-        return ckpt, 0, final
+        _, final, dead = lane_walk(*args, B, n_pass)
+        return int(dead[0]), final          # the one device round trip
 
-    ckpt, base, final = run(n_fast)
-    alive = bool(final.any())               # the one device round trip
-    if n_fast < W and (not alive or fetch_R):
+    dead, final = run(n_fast)
+    if n_fast < W and (dead >= 0 or fetch_R):
         # a capped death may be false, and a capped surviving set may
         # be an under-approximation: decide (and decode) exactly
-        ckpt, base, final = run(W)
-        alive = bool(final.any())
-    if alive:
-        return -1, (final.cpu().numpy() > 0.5).T if fetch_R else None
-    return _locate_dead(ckpt, args[0], W, M, B, ret_slot, slot_ops, base,
-                        R_real), None
+        dead, final = run(W)
+    if dead >= 0:
+        return dead, None
+    return -1, (final.cpu().numpy() > 0.5).T if fetch_R else None
 
 
 def walk_returns_keyed(P: np.ndarray, ret_slot: np.ndarray,

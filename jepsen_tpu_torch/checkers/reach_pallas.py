@@ -33,6 +33,10 @@ import torch
 
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch.checkers import reach_lane
+# P's image tables are the narrow walks' (csrc/walk.cuh): one layout and
+# one builder at any number of states
+from jepsen_tpu_torch.checkers.reach_lane import (  # noqa: F401
+    image_tables_plain, n_nibbles, n_words, table_bytes, table_words)
 
 # the kernels' limits (csrc/wide_walk.cuh): 1 <= W <= 20 slots; the warp
 # form for W <= 5 and at most 8 words a mask, else the block form with
@@ -40,8 +44,8 @@ from jepsen_tpu_torch.checkers import reach_lane
 # a block) beside a chunk of the stream; P's image tables join them
 # there when they fit, else they stay in device memory
 _MAX_W = 20
-_WARP_MAX_W = 5
-_WARP_MAX_NW = 8
+_WARP_MAX_W = reach_lane._WARP_MAX_W
+_WARP_MAX_NW = reach_lane._WARP_MAX_NW
 _CHUNK = reach_lane._CHUNK
 _SMEM_BYTES = reach_lane._SMEM_BYTES
 
@@ -49,36 +53,6 @@ _SMEM_BYTES = reach_lane._SMEM_BYTES
 KERNEL_LAUNCHES = 0
 #: launches of the K5 CUDA kernel in this process
 KEYED_LAUNCHES = 0
-
-
-def n_words(S: int) -> int:
-    """32-bit words a mask's set of ``S`` states takes."""
-    return -(-S // 32)
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << (n - 1).bit_length()
-
-
-def n_nibbles(S: int) -> int:
-    """Nibbles (groups of 4 states) a table holds, ``K``: ``ceil(S / 4)``,
-    rounded up to a power of two where the warp form may take ``S`` (at
-    most 8 words; the padding nibbles' entries are zero)."""
-    K = -(-S // 4)
-    return K if n_words(S) > _WARP_MAX_NW else _pow2_at_least(K)
-
-
-def table_words(S: int) -> int:
-    """Words a table entry takes, ``NT``: ``NW`` rounded up to a power of
-    two up to 8 words (the warp form reads an entry as one vector), else
-    ``NW``."""
-    NW = n_words(S)
-    return NW if NW > _WARP_MAX_NW else _pow2_at_least(NW)
-
-
-def table_bytes(S: int, O1: int) -> int:
-    """Bytes of P's image tables ``[O1, K, 16, NT]``."""
-    return 4 * O1 * n_nibbles(S) * 16 * table_words(S)
 
 
 def warp_form(W: int, S: int) -> bool:
@@ -169,28 +143,6 @@ def _pass_index(W: int, M: int, dtype, dev):
     j = torch.arange(W, device=dev)[None, :]
     partner = ((m ^ (1 << j)) * W + j).reshape(-1)
     return partner, ((m >> j) & 1).to(dtype)[..., None]
-
-
-def image_tables_plain(P: torch.Tensor) -> torch.Tensor:
-    """P's nibble image tables in PyTorch ops, on any device: the plain
-    version of the kernels' ``pack_tables``. ``P`` f32[O1, S, S] 0/1.
-    Returns i32[O1, K, 16, NT] (K = :func:`n_nibbles`, NT =
-    :func:`table_words`): entry ``[o, k, v]`` holds the image under op o
-    of the states ``4k + b`` for the set bits b of v, as NT words of 32
-    target states (bit i of word w: state 32w + i; words past
-    ``ceil(S/32)`` are zero), each word's bits as a signed int32."""
-    O1, S, _ = P.shape
-    K, NT = n_nibbles(S), table_words(S)
-    rows = torch.zeros(O1, 4 * K, 32 * NT, dtype=P.dtype, device=P.device)
-    rows[:, :S, :S] = (P > 0.5).to(P.dtype)
-    sel = ((torch.arange(16, device=P.device)[:, None]
-            >> torch.arange(4, device=P.device)) & 1).to(P.dtype)
-    # [16, 4] @ [O1, K, 4, 32·NT]: how many of v's states reach each target
-    hit = (sel @ rows.view(O1, K, 4, 32 * NT)) > 0.5
-    shift = torch.arange(32, device=P.device)
-    words = (hit.view(O1, K, 16, NT, 32).long() << shift).sum(-1)
-    return torch.where(words >= 1 << 31, words - (1 << 32),
-                       words).to(torch.int32)
 
 
 _GATHER = 256               # returns whose operands are gathered at once
@@ -303,12 +255,6 @@ def _launched(kernel: str, err: int) -> None:
                            f"{err}")
 
 
-def _tables_scratch(O1: int, S: int, dev) -> torch.Tensor:
-    """Device memory for the kernels' image tables ``[O1, K, 16, NT]``."""
-    return torch.empty((O1, n_nibbles(S), 16, table_words(S)),
-                       dtype=torch.int32, device=dev)
-
-
 def image_tables(P: torch.Tensor) -> torch.Tensor:
     """P's image tables with :func:`image_tables_plain`'s contract: the
     kernels' ``pack_tables`` alone for a tensor on the card
@@ -324,7 +270,7 @@ def image_tables(P: torch.Tensor) -> torch.Tensor:
     if P.shape[1:] != (S, S) or O1 < 1 or S < 1:
         raise ValueError(f"image_tables: P{tuple(P.shape)} is not "
                          f"[O1, S, S]")
-    T = _tables_scratch(O1, S, P.device)
+    T = reach_lane.tables_scratch(O1, S, P.device)
     with torch.cuda.device(P.device):
         err = _lib().jt_wide_tables(
             P.data_ptr(), T.data_ptr(), O1, S,
@@ -346,7 +292,7 @@ def _walk_cuda(P, ret_slot, slot_ops, R0, rlim: int):
         raise ValueError(f"wide_walk: R0{tuple(R0.shape)} is not "
                          f"[2^W, S] with W={W} S={S}")
     lib = _lib()
-    T = _tables_scratch(O1, S, dev)
+    T = reach_lane.tables_scratch(O1, S, dev)
     dead = torch.empty(1, dtype=torch.int32, device=dev)
     final = torch.empty_like(R0)
     with torch.cuda.device(dev):
@@ -392,7 +338,7 @@ def _keyed_launch(P, ret_slot, slot_ops, lo, hi):
     if n_keys == 0:
         return dead
     lib = _keyed_lib()
-    T = _tables_scratch(O1, S, dev)
+    T = reach_lane.tables_scratch(O1, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_wide_keyed(

@@ -8,13 +8,13 @@
 //
 // What it computes: key k's returns are the run [lo[k], hi[k]) of the
 // flat stream (ret_slot [N], slot_ops [N, W]). Its walk starts from the
-// one-hot seed (mask 0, state 0), runs wide_walk.cuh's passes and
+// one-hot seed (mask 0, state 0), runs walk.cuh's passes and
 // projection, and dead[k] gets the flat index of the first return
 // after which the key's set is empty, or -1. The TPU kernel walks the
 // keys one after another, resetting its set at each key's first
 // return; the keys are independent, so here each key is a block: one
 // warp with the set in registers for at most 5 slots and 256 states
-// (the independent suite has 4 slots), else wide_walk.cuh's block form.
+// (the independent suite has 4 slots), else walk.cuh's block form.
 //
 // What bounds it on an H100: each key's serial chain (tens of returns
 // at the independent suite's 50 ops a key, each a few passes of
@@ -34,11 +34,10 @@ extern "C" {
 int jt_wide_keyed(const void* P, void* T, const void* ret_slot,
                   const void* slot_ops, const void* lo, const void* hi,
                   void* dead, int K, int W, int S, int O1, void* stream) {
-  Wide g{Walk{(const float*)P, (const int*)ret_slot, (const int*)slot_ops,
-              nullptr, nullptr, nullptr, (const int*)lo, (const int*)hi,
-              (int*)dead, 0, 1, W, S, O1, 1, W},
-         nullptr, 0, 0, 0, 0, 0};
-  return launch_wide<true>(g, (uint32_t*)T, K, stream);
+  const Walk a{(const float*)P, (const int*)ret_slot, (const int*)slot_ops,
+               nullptr, nullptr, nullptr, (const int*)lo, (const int*)hi,
+               (int*)dead, 0, 1, W, S, O1, 1, W};
+  return launch_wide<true>(a, 0, (uint32_t*)T, K, stream);
 }
 
 }  // extern "C"

@@ -7,7 +7,7 @@
 // (jepsen_tpu/checkers/reach_pallas.py, _walk_call / _make_kernel, with
 // its helpers _fire_and_project, _one_fire_pass and _gather_G).
 //
-// What it computes: the walk of wide_walk.cuh from the seed R0 over
+// What it computes: the walk of walk.cuh from the seed R0 over
 // returns [0, R), then the final set, and the first return r < rlim
 // after which the set is empty (-1 if none). The reference finds that
 // return exactly; so does this kernel (no checkpoints, no refinement).
@@ -51,11 +51,10 @@ int jt_wide_walk(const void* P, void* T, const void* ret_slot,
                  void* dead, int R, int rlim, int W, int S, int O1,
                  void* stream) {
   if (R < 0) return (int)cudaErrorInvalidValue;
-  Wide g{Walk{(const float*)P, (const int*)ret_slot, (const int*)slot_ops,
-              (const float*)R0, nullptr, (float*)final_out, nullptr,
-              nullptr, (int*)dead, R, 1, W, S, O1, 1, W},
-         nullptr, 0, 0, 0, rlim, 0};
-  return launch_wide<false>(g, (uint32_t*)T, 1, stream);
+  const Walk a{(const float*)P, (const int*)ret_slot, (const int*)slot_ops,
+               (const float*)R0, nullptr, (float*)final_out, nullptr,
+               nullptr, (int*)dead, R, 1, W, S, O1, 1, W};
+  return launch_wide<false>(a, rlim, (uint32_t*)T, 1, stream);
 }
 
 }  // extern "C"

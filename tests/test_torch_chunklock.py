@@ -183,3 +183,47 @@ def test_walk_error_is_not_hidden(monkeypatch):
     _h1, h2 = _pair("cas", 100, 3, None)
     with pytest.raises(cl_pt.ChunklockUnfit, match="not confirmed"):
         Linearizable(fx_pt.model_for("cas"), device="cpu").check(None, h2)
+
+
+def test_walk_split_death_runs_no_torch_walk(monkeypatch):
+    """The walk-split tool on a corrupted chunk-lockstep check: both K2
+    phases, the glue and the fold run once, K1 once on the dead chunk
+    (its own dead return: no refinement, no torch returns walk), once
+    for each chunk the host fold rescues and once for the witness
+    prefix; the staged run finds the unstaged run's dead
+    event, and the wrapped functions are restored after."""
+    from jepsen_tpu_torch.checkers import reach as reach_pt
+    from jepsen_tpu_torch.checkers import reach_lane as lane_pt
+    from jepsen_tpu_torch.tools import walk_split
+
+    monkeypatch.setattr(cl_pt, "MIN_RETURNS", 16)
+    _h1, h2 = _pair("cas", 120, 11, 11)
+    before = (lane_pt.lane_walk, reach_pt._walk_returns, cl_pt._localize)
+    st = walk_split.split(h2, "cpu")
+    assert (lane_pt.lane_walk, reach_pt._walk_returns,
+            cl_pt._localize) == before
+    assert st["valid"] is False and st["engine"] == "reach-chunklock"
+    calls = dict(st["calls"])
+    # the host fold's rescues re-walk chunks with K1 too: one launch each
+    assert calls.pop("localize") == calls.pop("k1 in localize") >= 1
+    assert calls == {"phase-a": 1, "glue": 1, "phase-b": 1, "fold": 1,
+                     "witness-prefix": 1, "k1 in witness-prefix": 1}
+    assert st["torch_walk_returns"] == 0
+    assert set(st["split_ms"]) == set(st["calls"])
+    assert st["spans_s"]["reach.walk"] > 0 and st["wall_s"] > 0
+
+
+def test_walk_split_missing_stage_raises(monkeypatch):
+    """A stage the tool cannot find raises, so a stage with no calls is
+    one the check did not run; the stages wrapped before it are
+    restored."""
+    from jepsen_tpu_torch.checkers import reach as reach_pt
+    from jepsen_tpu_torch.checkers import reach_lane as lane_pt
+    from jepsen_tpu_torch.tools import walk_split
+
+    before = lane_pt.lane_walk
+    monkeypatch.delattr(reach_pt, "_walk_returns")
+    with pytest.raises(AttributeError, match="_walk_returns"):
+        with walk_split.staged(torch.device("cpu")):
+            pass
+    assert lane_pt.lane_walk is before
