@@ -21,7 +21,11 @@ user's entry points and checks the results:
   each K1 launch is held against its plain version in its dead return
   too;
 - ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
-  50 ops (one K3 launch), against the CPU run;
+  50 ops and on 200 keys of 1,000 ops (one K3 launch each), against the
+  CPU run; K3 walks P's nibble image tables as K1 and K2 do, in the warp
+  form and in the block form (held bit for bit against its plain
+  version and the host replay at W = 4, 6 and 8 and at the long keys,
+  and timed beside K5 on the same keys);
 - more than 32 states: a 100,000-op cas history over 40 values and a
   100,000-op multi-register history (one K4 launch each), the corrupted
   cas one against the CPU run, and 2,000 keys over 40 values (one K5
@@ -35,6 +39,11 @@ user's entry points and checks the results:
   stream, each held bit for bit against its plain version on the first
   block of 1,024 returns, then the full ladder through the harness's
   own function, every exact variant ending on K1's final set.
+
+Kernel times are CUDA events around ``n`` calls of a wrapper
+(:func:`event_ms`, the wrapper's host work included), and for the short
+kernels (K3, K5, ``pack_tables``) also the device's own kernel records
+(``tools/keyed_times.device_ms``), printed beside them.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last three lines are one JSON object of per-kernel
@@ -51,6 +60,9 @@ import time
 
 import numpy as np
 import torch
+
+from jepsen_tpu_torch.tools.keyed_times import (LONG_BAD, LONG_KEYS,
+                                                LONG_OPS, device_ms)
 
 HBM_RATE = 3.35e12       # H100 SXM device-memory bytes/s
 # H100 SXM 32-bit integer operations/s: the data sheet's 67 TFLOP/s fp32
@@ -74,6 +86,23 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def ptxas_kernels(text: str):
+    """``(kernel, registers, spill store bytes)`` of each entry function
+    in a ``ptxas -v`` log, the kernel as its name and template
+    arguments."""
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name = re.search(r"\d+([a-z_]+?)[IE]", mangled)
+        args = ",".join(re.findall(r"L[a-z](\d+)E", mangled))
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append((f"{name.group(1) if name else mangled}<{args}>",
+                    int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else -1))
+    return out
 
 
 def ptxas_summary(src: str, text: str) -> str:
@@ -109,7 +138,9 @@ def gen(kind, n_ops, processes, seed, corrupt=False, **kw):
 
 
 def event_ms(fn, n: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``n`` launches, warmed."""
+    """Mean milliseconds of ``fn()`` over ``n`` calls, warmed, by CUDA
+    events around the calls: the device's time, and the wrapper's host
+    time where the device waits on it (short kernels)."""
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -209,10 +240,10 @@ def nbytes(*tensors) -> int:
 
 
 def check_smem_layout():
-    """``reach_lane.smem_bytes``, ``reach_lane.keyed_smem_bytes`` and
-    ``reach_pallas.smem_bytes`` (routing without a card) against the
-    kernels' own ``jt_lane_walk_smem``, ``jt_keyed_walk_smem`` and
-    ``jt_wide_walk_smem``, over the geometries they take."""
+    """``reach_lane.smem_bytes`` and ``reach_pallas.smem_bytes`` (routing
+    without a card) against the kernels' own ``jt_lane_walk_smem``,
+    ``jt_keyed_walk_smem`` (K1, K2, K3) and ``jt_wide_walk_smem``, over
+    the geometries they take."""
     from jepsen_tpu_torch.checkers import reach_lane
 
     lane, keyed = reach_lane._lib(), reach_lane._keyed_lib()
@@ -224,7 +255,7 @@ def check_smem_layout():
                             (lane, "jt_lane_walk_smem",
                              reach_lane.smem_bytes),
                             (keyed, "jt_keyed_walk_smem",
-                             reach_lane.keyed_smem_bytes)):
+                             reach_lane.smem_bytes)):
                         got = getattr(lib, fn)(W, S, O1, int(warp))
                         if got != host(W, S, O1, warp):
                             raise AssertionError(
@@ -445,16 +476,17 @@ def phase_k2(P, rs, M):
     return out
 
 
-def keyed_histories(**kw):
+def keyed_histories(n_keys=N_KEYS, n_ops=OPS_PER_KEY, bad=BAD_KEYS,
+                    processes=KEY_PROCS, **kw):
     """The independent shape: one cas history per key (generator options
-    ``kw``), values wrapped as ``[key, v]``, processes ``key·4 + p``,
-    corrupted keys :data:`BAD_KEYS`. Returns ``(history, per-key
-    histories)``."""
+    ``kw``), values wrapped as ``[key, v]``, processes ``key·4 + p``
+    (4 processes a key), corrupted keys ``bad``. Returns ``(history,
+    per-key histories)``."""
     per_key, flat = [], []
-    for k in range(N_KEYS):
-        hk = gen("cas", OPS_PER_KEY, KEY_PROCS, k, k in BAD_KEYS, **kw)
+    for k in range(n_keys):
+        hk = gen("cas", n_ops, processes, k, k in bad, **kw)
         per_key.append(hk)
-        flat += [op.with_(process=k * KEY_PROCS + op.process,
+        flat += [op.with_(process=k * processes + op.process,
                           value=[k, op.value]) for op in hk]
     return [op.with_(index=i, time=i) for i, op in enumerate(flat)], per_key
 
@@ -496,35 +528,63 @@ def keyed_replay(P, ret, ops, lo, hi, W):
     return work, np.where(dead_host >= 0, lo_np + dead_host, -1)
 
 
-def phase_k3(per_key):
-    """K3 against its plain version at the independent shape (the
-    operands ``check_many`` builds), bit for bit; time, bound and host
-    replay."""
-    from jepsen_tpu_torch.checkers import reach_lane
+def dev_text(dev) -> str:
+    """A :func:`device_ms` result as text: the launch's device time and
+    each kernel's, with ``pack_tables``' share."""
+    if dev is None:
+        return "device_ms not measured (the profiler recorded no kernel)"
+    k = dev["kernels"]
+    parts = ", ".join(f"{name} {ms:.6f}" for name, ms in k.items())
+    share = 100 * k.get("pack_tables", 0.0) / dev["total"]
+    return (f"device_ms={dev['total']:.6f} ({parts}; pack_tables share "
+            f"{share:.1f}%; {100 * dev['recorded']:.0f}% of the launches "
+            f"recorded)")
+
+
+def phase_k3(label, per_key, n: int = 20, k5: bool = False):
+    """K3 on the operands ``check_many`` builds for these keys, in the
+    warp form (W <= 5) and the block form, each bit for bit against its
+    plain version, which the host replay confirms; per form the
+    wrapper's time (:func:`event_ms`) and the device's own
+    (:func:`device_ms`: ``pack_tables`` and the walk). With ``k5``, K5
+    on the same keys too (whose block form takes any number of words a
+    mask). Returns the first form's numbers, ``ms`` the device's time
+    when it was measured."""
+    from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
 
     P, ret, ops, W, t = keyed_operands(per_key)
     K = len(per_key)
     lo, hi = reach_lane._key_runs(t[3], K)
-    dead = reach_lane._keyed_launch(*t[:3], lo, hi, W)
     ref, p_ms = plain_ms(lambda: reach_lane.keyed_walk_plain(*t, K, W))
-    err = same("keyed_walk [independent]", (dead,), (ref,))
-    blk = reach_lane._keyed_launch(*t[:3], lo, hi, W, warp=False)
-    same("keyed_walk block kernel [independent]", (blk,), (dead,))
-    ms = event_ms(lambda: reach_lane._keyed_launch(*t[:3], lo, hi, W), 20)
-    block_ms = event_ms(lambda: reach_lane._keyed_launch(
-        *t[:3], lo, hi, W, warp=False), 20)
     work, want = keyed_replay(P, ret, ops, lo, hi, W)
-    if not np.array_equal(want, dead.cpu().numpy()):
-        raise AssertionError("keyed_walk differs from the host replay")
-    bound, bound_by, detail = bound_ms(nbytes(*t, dead), work)
-    log(f"kernel keyed_walk [independent {K} keys x {OPS_PER_KEY} ops] "
-        f"returns={ret.shape[0]} W={W} S={P.shape[1]} O1={P.shape[0]}: "
-        f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
-        f"(shared-memory kernel {block_ms:.6f}) plain_ms={p_ms:.3f} "
-        f"bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
-        f"{int((dead >= 0).sum())}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    if not np.array_equal(want, ref.cpu().numpy()):
+        raise AssertionError(f"keyed_walk_plain [{label}] differs from the "
+                             f"host replay")
+    bound, bound_by, detail = bound_ms(nbytes(*t, ref), work)
+    S, O1 = P.shape[1], P.shape[0]
+    head = (f"[{label}] returns={ret.shape[0]} W={W} S={S} O1={O1} "
+            f"tables_shared={reach_lane.tables_shared(W, S, O1)}")
+    runs = [(f"keyed_walk {'warp' if warp else 'block'} form",
+             lambda warp=warp: reach_lane._keyed_launch(*t[:3], lo, hi, W,
+                                                        warp))
+            for warp in ((True, False) if W <= 5 else (False,))]
+    if k5:
+        runs.append((f"wide_keyed form={form(W, S)}",
+                     lambda: reach_pallas._keyed_launch(*t[:3], lo, hi)))
+    out = None
+    for name, run in runs:
+        err = same(f"{name} {head}", (run(),), (ref,))
+        ms = event_ms(run, n)
+        dev = device_ms(run, n)
+        log(f"kernel {name} {head}: bit-identical max_abs_err={err} "
+            f"wrapper event_ms={ms:.6f} {dev_text(dev)} plain_ms={p_ms:.3f}"
+            f" bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
+            f"{int((ref >= 0).sum())}")
+        if out is None:
+            out = {"max_abs_err": err, "ms": dev["total"] if dev else ms,
+                   "plain_ms": p_ms, "bound_ms": bound,
+                   "bound_by": bound_by}
+    return out
 
 
 # the wide shapes: a cas register over 40 values (41 states, S_pad 64)
@@ -545,10 +605,10 @@ def form(W: int, S: int) -> str:
 
 def phase_tables(alphabets):
     """``pack_tables`` (alone, through ``reach_pallas.image_tables``):
-    K4 and K5's first kernel, and K1 and K2's where their tables stay in
-    device memory, against its plain version on the same CUDA tensors,
-    bit for bit, on each ``(label, P)``; where a W = 5 walk keeps them
-    (K1 and K2 up to 32 states, else K4 and K5)."""
+    the first kernel of every table walk (K1-K5), against its plain
+    version on the same CUDA tensors, bit for bit, on each ``(label,
+    P)``; its wrapper's and its device time, and where a W = 5 walk
+    keeps the tables (K1, K2 and K3 up to 32 states, else K4 and K5)."""
     from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
 
     for label, P in alphabets:
@@ -557,13 +617,16 @@ def phase_tables(alphabets):
         want, p_ms = plain_ms(lambda: reach_pallas.image_tables_plain(Pt))
         same(f"pack_tables [{label}]", (got,), (want,))
         ms = event_ms(lambda: reach_pallas.image_tables(Pt), 10)
+        dev = device_ms(lambda: reach_pallas.image_tables(Pt), 10)
         O1, S = P.shape[0], P.shape[1]
         shared = reach_lane.tables_shared(5, S, O1) if S <= 32 else \
             reach_pallas.p_shared(5, S, O1)
         log(f"kernel pack_tables [{label}] O1={O1} S={S} "
             f"tables={tuple(got.shape)} {reach_pallas.table_bytes(S, O1)} "
             f"bytes, shared at W=5: {shared}: "
-            f"bit-identical kernel_ms={ms:.6f} plain_ms={p_ms:.3f}")
+            f"bit-identical wrapper event_ms={ms:.6f} device_ms="
+            f"{dev['total'] if dev else 'not measured'} "
+            f"plain_ms={p_ms:.3f}")
 
 
 def one_thread(fn):
@@ -724,22 +787,13 @@ def phase_k4_instances():
             f"bit-identical dead={int(got[0][0])}")
 
 
-def phase_k5(per_key, per_key_narrow):
+def phase_k5(per_key):
     """K5 against its plain version at the wide independent shape (the
-    operands ``check_many`` builds), bit for bit; time, bound and host
-    replay; then at the narrow independent shape, whose tables sit in
-    shared memory (the route takes K3 there)."""
+    operands ``check_many`` builds), bit for bit; wrapper and device
+    time, bound and host replay. (``phase_k3`` holds it at the narrow
+    shapes, beside K3.)"""
     from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
 
-    P, ret, ops, W, t = keyed_operands(per_key_narrow)
-    lo, hi = reach_lane._key_runs(t[3], len(per_key_narrow))
-    dead = reach_pallas._keyed_launch(*t[:3], lo, hi)
-    same("wide_keyed [narrow independent]", (dead,),
-         (reach_pallas.keyed_walk_plain(*t, len(per_key_narrow)),))
-    S, O1 = P.shape[1], P.shape[0]
-    log(f"kernel wide_keyed [narrow independent] W={W} S={S} O1={O1} "
-        f"form={form(W, S)} tables_shared={reach_pallas.p_shared(W, S, O1)}"
-        f": bit-identical, dead keys={int((dead >= 0).sum())}")
     P, ret, ops, W, t = keyed_operands(per_key)
     K = len(per_key)
     lo, hi = reach_lane._key_runs(t[3], K)
@@ -747,6 +801,7 @@ def phase_k5(per_key, per_key_narrow):
     ref, p_ms = plain_ms(lambda: reach_pallas.keyed_walk_plain(*t, K))
     err = same("wide_keyed [wide independent]", (dead,), (ref,))
     ms = event_ms(lambda: reach_pallas._keyed_launch(*t[:3], lo, hi), 20)
+    dev = device_ms(lambda: reach_pallas._keyed_launch(*t[:3], lo, hi), 20)
     work, want = keyed_replay(P, ret, ops, lo, hi, W)
     if not np.array_equal(want, dead.cpu().numpy()):
         raise AssertionError("wide_keyed differs from the host replay")
@@ -755,11 +810,11 @@ def phase_k5(per_key, per_key_narrow):
     log(f"kernel wide_keyed [wide independent {K} keys x {OPS_PER_KEY} "
         f"ops] returns={ret.shape[0]} W={W} S={S} O1={O1} form={form(W, S)} "
         f"tables_shared={reach_pallas.p_shared(W, S, O1)}: bit-identical "
-        f"max_abs_err={err} kernel_ms={ms:.6f} plain_ms={p_ms:.3f} "
-        f"bound_ms={bound:.6f} ({bound_by}; {detail}) dead keys="
-        f"{int((dead >= 0).sum())}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+        f"max_abs_err={err} wrapper event_ms={ms:.6f} {dev_text(dev)} "
+        f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; {detail}) "
+        f"dead keys={int((dead >= 0).sum())}")
+    return {"max_abs_err": err, "ms": dev["total"] if dev else ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 # the ablation harness's stream: its default history (cas, 100,000 ops,
@@ -957,6 +1012,47 @@ def split(dt: float, spans) -> str:
     return ", ".join(out)
 
 
+def check_keyed(label, h, n_keys, bad, cause, **launches):
+    """One ``independent`` check of the main path on ``[key, v]``
+    history ``h``, on the card with every count zeroed first, then on
+    the CPU: the route's cause must be ``cause``, each kernel launched
+    as ``launches`` says, the failed keys ``bad``, and every key's
+    result equal on both. Returns the launches by kernel."""
+    from jepsen_tpu_torch import Linearizable, independent, models
+
+    def check(device=None):
+        return independent.checker(Linearizable(
+            models.cas_register(), device=device)).check(None, h)
+
+    res, dt, la, spans, ledger = drive(check)
+    routes = [r.get("cause") for r in ledger
+              if r["stage"] == "reach-many" and r["event"] == "route"]
+    if routes != [cause]:
+        raise AssertionError(f"{label}: routes {routes}")
+    expect(label, la, **launches)
+    t0 = time.perf_counter()
+    ref = check("cpu")
+    cpu_s = time.perf_counter() - t0
+    if sorted(res["failures"]) != list(bad) or res["valid"] is not \
+            False or res["key-count"] != n_keys:
+        raise AssertionError(f"{label}: failures {res['failures']}")
+    for key in ("valid", "failures", "key-count"):
+        if res[key] != ref[key]:
+            raise AssertionError(f"{label}: {key} differs")
+    for k, r in res["results"].items():
+        for key in ("valid", "engine", "op", "dead-event", "final-configs",
+                    "previous-ok"):
+            if r.get(key) != ref["results"][k].get(key):
+                raise AssertionError(f"{label} key {k}: {key} differs "
+                                     f"cuda={r.get(key)} "
+                                     f"cpu={ref['results'][k].get(key)}")
+    log(f"main path {label} ({len(bad)} corrupted): route {cause}, "
+        f"valid={res['valid']} failures={len(res['failures'])} {dt:.4f} s = "
+        f"{len(h) // 2 / dt:.1f} ops/s; {split(dt, spans)}; launches {la}; "
+        f"{cpu_s:.3f} s on cpu, every key agrees")
+    return la
+
+
 def linearizable(h, device=None):
     from jepsen_tpu_torch import Linearizable, models
 
@@ -968,7 +1064,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from jepsen_tpu_torch import Linearizable, _build, independent, models
+    from jepsen_tpu_torch import Linearizable, _build, models
     from jepsen_tpu_torch.checkers import reach_lane
 
     name = torch.cuda.get_device_name(0)
@@ -980,6 +1076,9 @@ def main() -> int:
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
     for src in _build.sources():
         log(ptxas_summary(src, _build.build_log(src)))
+    for kern, regs, spill in ptxas_kernels(_build.build_log("keyed_walk")):
+        log(f"ptxas keyed_walk.cu {kern}: {regs} registers, spill stores "
+            f"{spill} bytes")
     check_smem_layout()
 
     # -- kernels against their plain versions --------------------------
@@ -990,7 +1089,15 @@ def main() -> int:
     t0 = time.perf_counter()
     h_ind, per_key = keyed_histories()
     gen_ind_s = time.perf_counter() - t0
-    k3 = phase_k3(per_key)
+    k3 = phase_k3(f"independent {N_KEYS} keys x {OPS_PER_KEY} ops", per_key,
+                  k5=True)
+    for procs in (6, 8):
+        # the block form at its lookup count against K5's at any number
+        # of words, on the same keys
+        phase_k3(f"{N_KEYS} keys x {OPS_PER_KEY} ops, {procs} processes",
+                 keyed_histories(processes=procs)[1], k5=True)
+    h_long, per_key_long = keyed_histories(LONG_KEYS, LONG_OPS, LONG_BAD)
+    phase_k3(f"long keys {LONG_KEYS} x {LONG_OPS} ops", per_key_long, n=10)
     wide = gen("cas", 100_000, 5, 0, **WIDE_CAS)
     P_w, rs_w, _M_w = history_operands(wide, models.cas_register())
     P_m, rs_m, _ = history_operands(
@@ -1003,7 +1110,7 @@ def main() -> int:
     k4 = phase_k4(P_w, rs_w, P_m, rs_m, multi)
     phase_k4_instances()
     h_wide_ind, per_key_wide = keyed_histories(**WIDE_CAS)
-    k5 = phase_k5(per_key_wide, per_key)
+    k5 = phase_k5(per_key_wide)
     from jepsen_tpu_torch.tools import ablate_lane
 
     t0 = time.perf_counter()
@@ -1091,40 +1198,13 @@ def main() -> int:
         f"valid={res['valid']} {dt:.4f} s = {30_000 / dt:.1f} ops/s; "
         f"{split(dt, spans)}; launches {la}")
 
-    def check_independent(device=None):
-        return independent.checker(Linearizable(
-            models.cas_register(), device=device)).check(None, h_ind)
-
-    res, dt, la, spans, ledger = drive(check_independent)
-    routes = [r.get("cause") for r in ledger
-              if r["stage"] == "reach-many" and r["event"] == "route"]
-    if routes != ["keyed"]:
-        raise AssertionError(f"independent: routes {routes}")
-    expect("independent", la, keyed_walk=1, batch_walk=0)
+    la = check_keyed(f"independent cas {N_KEYS} keys x {OPS_PER_KEY} ops",
+                     h_ind, N_KEYS, BAD_KEYS, "keyed", keyed_walk=1,
+                     batch_walk=0)
     k3_launches = la["keyed_walk"]
-    t0 = time.perf_counter()
-    ref = check_independent("cpu")
-    cpu_s = time.perf_counter() - t0
-    if sorted(res["failures"]) != list(BAD_KEYS) or res["valid"] is not \
-            False or res["key-count"] != N_KEYS:
-        raise AssertionError(f"independent: failures {res['failures']}")
-    for key in ("valid", "failures", "key-count"):
-        if res[key] != ref[key]:
-            raise AssertionError(f"independent: {key} differs")
-    for k, r in res["results"].items():
-        for key in ("valid", "engine", "op", "dead-event", "final-configs",
-                    "previous-ok"):
-            if r.get(key) != ref["results"][k].get(key):
-                raise AssertionError(f"independent key {k}: {key} differs "
-                                     f"cuda={r.get(key)} "
-                                     f"cpu={ref['results'][k].get(key)}")
-    n_ops = len(h_ind) // 2
-    log(f"main path independent cas {N_KEYS} keys x {OPS_PER_KEY} ops "
-        f"({KEY_PROCS} processes a key, {len(BAD_KEYS)} corrupted): "
-        f"route keyed, valid={res['valid']} failures={len(res['failures'])} "
-        f"{dt:.4f} s = {n_ops / dt:.1f} ops/s; {split(dt, spans)}; "
-        f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees; history "
-        f"generation {gen_ind_s:.2f} s not counted")
+    log(f"independent history generation {gen_ind_s:.2f} s not counted")
+    check_keyed(f"long keys {LONG_KEYS} x {LONG_OPS} ops", h_long, LONG_KEYS,
+                LONG_BAD, "keyed", keyed_walk=1, batch_walk=0)
 
     # -- the wide main path: more than 32 states, K4 and K5 -------------
     def check_multi(h, device=None):
@@ -1167,42 +1247,13 @@ def main() -> int:
         f"witness prefix), {cpu_s:.3f} s on cpu; verdict, op, dead event "
         f"and witness agree")
 
-    def check_wide_independent(device=None):
-        return independent.checker(Linearizable(
-            models.cas_register(), device=device)).check(None, h_wide_ind)
-
-    res, dt, la, spans, ledger = drive(check_wide_independent)
-    routes = [r.get("cause") for r in ledger
-              if r["stage"] == "reach-many" and r["event"] == "route"]
-    if routes != ["keyed-wide"]:
-        raise AssertionError(f"wide independent: routes {routes}")
     # every key has at most 32 states of its own: K1 re-walks each failed
     # key's witness prefix in the key's own geometry
-    expect("wide independent", la, wide_keyed=1, keyed_walk=0,
-           batch_walk=0, wide_walk=0, lane_walk=len(BAD_KEYS))
+    la = check_keyed(f"wide independent cas {N_KEYS} keys x {OPS_PER_KEY} "
+                     f"ops over 40 values", h_wide_ind, N_KEYS, BAD_KEYS,
+                     "keyed-wide", wide_keyed=1, keyed_walk=0, batch_walk=0,
+                     wide_walk=0, lane_walk=len(BAD_KEYS))
     k5_launches = la["wide_keyed"]
-    t0 = time.perf_counter()
-    ref = check_wide_independent("cpu")
-    cpu_s = time.perf_counter() - t0
-    if sorted(res["failures"]) != list(BAD_KEYS) or res["valid"] is not \
-            False or res["key-count"] != N_KEYS:
-        raise AssertionError(f"wide independent: failures "
-                             f"{res['failures']}")
-    for key in ("valid", "failures", "key-count"):
-        if res[key] != ref[key]:
-            raise AssertionError(f"wide independent: {key} differs")
-    for k, r in res["results"].items():
-        for key in ("valid", "engine", "op", "dead-event", "final-configs",
-                    "previous-ok"):
-            if r.get(key) != ref["results"][k].get(key):
-                raise AssertionError(f"wide independent key {k}: {key} "
-                                     f"differs cuda={r.get(key)} "
-                                     f"cpu={ref['results'][k].get(key)}")
-    log(f"main path wide independent cas {N_KEYS} keys x {OPS_PER_KEY} ops "
-        f"over 40 values ({len(BAD_KEYS)} corrupted): route keyed-wide, "
-        f"valid={res['valid']} failures={len(res['failures'])} {dt:.4f} s "
-        f"= {len(h_wide_ind) // 2 / dt:.1f} ops/s; {split(dt, spans)}; "
-        f"launches {la}; {cpu_s:.3f} s on cpu, every key agrees")
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)

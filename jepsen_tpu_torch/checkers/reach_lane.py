@@ -6,8 +6,9 @@
 lane kernel, ``reach_lane._lane_call``), on P's nibble image tables
 (:func:`image_tables_plain` is their plain version; built by one launch
 of the kernels' ``pack_tables``, then copied into shared memory when
-they fit, :func:`tables_shared`, else read from device memory). The kernel also reports the exact dead return, the first
-after which the set is empty. On CPU tensors it runs
+they fit, :func:`tables_shared`, else read from device memory). The
+kernel also reports the exact dead return, the first after which the
+set is empty. On CPU tensors it runs
 :func:`lane_walk_plain`, the same arithmetic in PyTorch ops; on CUDA
 tensors it launches the kernel or raises.
 
@@ -22,8 +23,10 @@ death is the walk's own dead return. Semantics are identical to
 
 :func:`keyed_walk` walks many keys' streams concatenated into one flat
 stream, one launch of ``csrc/keyed_walk.cu`` (counterpart of
-``reach_lane._keyed_call``), and :func:`walk_returns_keyed` is its host
-side; :func:`keyed_walk_plain` is its plain version.
+``reach_lane._keyed_call``) on the same tables, one thread block a key,
+and :func:`walk_returns_keyed` is its host side (the keys' runs found in
+numpy, :func:`key_runs`); :func:`keyed_walk_plain` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -45,8 +48,8 @@ _FAST_PASSES = 8
 # the hook between segments
 _ABORT_SEG = 32768
 # the kernels' limits: 1 <= W <= 16 slots, S <= 32 states (one 32-bit
-# word per mask), and R plus P's words in one block's shared memory
-# (Hopper: 227 KB per block)
+# word per mask), and the narrow walks' envelope (keyed_smem_bytes) in
+# one block's shared memory (Hopper: 227 KB per block)
 _MAX_W = 16
 _MAX_S = 32
 _SMEM_BYTES = 227 * 1024
@@ -105,16 +108,17 @@ def _smem_base(W: int, warp: bool) -> int:
 
 
 def tables_shared(W: int, S: int, O1: int, warp: bool = True) -> bool:
-    """Whether K1 and K2 keep P's image tables in each block's shared
+    """Whether K1, K2 and K3 keep P's image tables in each block's shared
     memory, beside the set and a chunk of the stream (else in device
     memory); ``t_shared`` in ``csrc/walk.cuh``."""
     return _smem_base(W, warp) + table_bytes(S, O1) <= _SMEM_BYTES
 
 
 def smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
-    """Shared memory one K1 or K2 block takes. It mirrors ``lane_smem``
-    in ``csrc/walk.cuh`` (exported as ``jt_lane_walk_smem``), and
-    ``chip_smoke.py`` checks that the two agree: P's image tables when
+    """Shared memory one K1, K2 or K3 block takes. It mirrors
+    ``lane_smem`` in ``csrc/walk.cuh`` (exported as ``jt_lane_walk_smem``
+    and ``jt_keyed_walk_smem``), and ``chip_smoke.py`` checks that they
+    agree: P's image tables when
     they fit (:func:`tables_shared`), a chunk of the return stream, and
     unless the warp form holds the set in registers (``warp`` and
     W <= 5) R as one 32-bit state word per mask, double-buffered
@@ -124,11 +128,12 @@ def smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
 
 
 def keyed_smem_bytes(W: int, S: int, O1: int, warp: bool = True) -> int:
-    """Shared memory one K3 block takes, and the envelope of all three
-    narrow walks. It mirrors ``keyed_smem`` in ``csrc/walk.cuh``
-    (exported as ``jt_keyed_walk_smem``), and ``chip_smoke.py`` checks
-    that the two agree: P as ``[O1, S]`` target-set words beside
-    :func:`smem_bytes`'s set and chunk."""
+    """The envelope of the three narrow walks (K1, K2, K3), as bytes: P
+    as ``[O1, S]`` target-set words beside :func:`smem_bytes`'s set and
+    chunk must fit in one block's shared memory. It is no kernel's
+    layout (the walks keep P's image tables, in shared memory where they
+    fit, :func:`smem_bytes`); it fixes which geometries
+    :func:`lane_fits` takes, so that the routes do not move."""
     return _smem_base(W, warp) + 4 * O1 * S
 
 
@@ -139,10 +144,9 @@ def _kernel_takes(W: int, S: int, O1: int) -> bool:
 
 def lane_fits(S_pad: int, M: int, n_ops: int) -> bool:
     """Whether the narrow walk kernels (K1, K2 and K3) take this
-    geometry: at most 32 states and 16 slots, with R and P's words in
-    one block's shared memory (K3's layout; K1 and K2 take every
-    geometry K3 takes, their tables in device memory where they do not
-    fit beside the set)."""
+    geometry: at most 32 states and 16 slots, within the envelope
+    :func:`keyed_smem_bytes` (each walk keeps its tables in device
+    memory where they do not fit beside the set)."""
     return _kernel_takes(M.bit_length() - 1, S_pad, n_ops + 1)
 
 
@@ -298,7 +302,7 @@ def _keyed_lib():
     if _KEYED_LIB is None:
         from jepsen_tpu_torch import _build
         lib = _build.load("keyed_walk")
-        lib.jt_keyed_walk.argtypes = [ctypes.c_void_p] * 6 + \
+        lib.jt_keyed_walk.argtypes = [ctypes.c_void_p] * 7 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.jt_keyed_walk.restype = ctypes.c_int
         lib.jt_keyed_walk_smem.argtypes = [ctypes.c_int] * 4
@@ -317,7 +321,7 @@ def _check_operands(kernel: str, dev, tensors) -> None:
 
 def tables_scratch(O1: int, S: int, dev) -> torch.Tensor:
     """Device memory for P's image tables ``[O1, K, 16, NT]``, which the
-    table walks (K1, K2, K4, K5) build first (``pack_tables``)."""
+    table walks (K1-K5) build first (``pack_tables``)."""
     return torch.empty((O1, n_nibbles(S), 16, table_words(S)),
                        dtype=torch.int32, device=dev)
 
@@ -379,33 +383,38 @@ def lane_walk(P: torch.Tensor, ret_slot: torch.Tensor,
     raise ValueError(f"lane_walk: unsupported device {R0.device}")
 
 
-def _key_runs(key_id: torch.Tensor, n_keys: int):
+def key_runs(key_id: np.ndarray, n_keys: int
+             ) -> Tuple[np.ndarray, np.ndarray]:
     """``(lo, hi)`` int32[n_keys]: key k's returns are ``[lo[k], hi[k])``
-    of the flat stream (``key_id`` int32[N], -1 marks padding); a key
-    with no returns gets ``lo = hi = 0``. Raises unless every id is below
+    of the flat stream (``key_id`` int[N], -1 marks padding); a key with
+    no returns gets ``lo = hi = 0``. Raises unless every id is below
     ``n_keys`` and every key's returns form one contiguous run."""
-    N = key_id.shape[0]
-    dev = key_id.device
-    k = key_id.long()
-    if N and int(k.max()) >= n_keys:
-        raise ValueError(f"keyed_walk: key id {int(k.max())} out of range "
+    k = np.asarray(key_id).reshape(-1)
+    lo = np.zeros(n_keys, np.int32)
+    hi = np.zeros(n_keys, np.int32)
+    if not k.size:
+        return lo, hi
+    # the runs of one id: two passes over the stream, the rest per run
+    starts = np.concatenate(([0], np.flatnonzero(k[1:] != k[:-1]) + 1))
+    ends = np.append(starts[1:], k.size)
+    ids = k[starts]
+    if int(ids.max()) >= n_keys:
+        raise ValueError(f"keyed_walk: key id {int(ids.max())} out of range "
                          f"for {n_keys} keys")
-    real = k >= 0
-    kr = k[real]
-    pos = torch.arange(N, device=dev)[real]
-    cnt = torch.zeros(n_keys, dtype=torch.long, device=dev).index_add_(
-        0, kr, torch.ones_like(kr))
-    lo = torch.full((n_keys,), N, dtype=torch.long, device=dev) \
-        .scatter_reduce(0, kr, pos, "amin")
-    hi = torch.full((n_keys,), -1, dtype=torch.long, device=dev) \
-        .scatter_reduce(0, kr, pos, "amax") + 1
-    some = cnt > 0
-    lo = torch.where(some, lo, 0)
-    hi = torch.where(some, hi, 0)
-    if not bool(((hi - lo) == cnt).all()):
+    real = ids >= 0
+    ids, starts, ends = ids[real], starts[real], ends[real]
+    if np.unique(ids).size != ids.size:
         raise ValueError("keyed_walk: every key's returns must form one "
                          "contiguous run of the stream")
-    return lo.int().contiguous(), hi.int().contiguous()
+    lo[ids], hi[ids] = starts, ends
+    return lo, hi
+
+
+def _key_runs(key_id: torch.Tensor, n_keys: int):
+    """:func:`key_runs` of a tensor, as int32 tensors on its device."""
+    lo, hi = key_runs(key_id.cpu().numpy(), n_keys)
+    return (torch.as_tensor(lo, device=key_id.device),
+            torch.as_tensor(hi, device=key_id.device))
 
 
 def keyed_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
@@ -453,8 +462,8 @@ def keyed_walk_plain(P: torch.Tensor, ret_slot: torch.Tensor,
 def _keyed_launch(P, ret_slot, slot_ops, lo, hi, n_pass: int,
                   warp: bool = True):
     """Launch the keyed kernel over the key runs ``[lo[k], hi[k])``
-    (:func:`_key_runs`); ``warp=False`` takes the shared-memory kernel
-    at every W."""
+    (:func:`key_runs`); ``warp=False`` takes the block form at every
+    W."""
     global KEYED_LAUNCHES
     dev = P.device
     N, W = slot_ops.shape
@@ -478,12 +487,13 @@ def _keyed_launch(P, ret_slot, slot_ops, lo, hi, n_pass: int,
     if n_keys == 0:
         return dead
     lib = _keyed_lib()
+    T = tables_scratch(O1, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_keyed_walk(
-            P.data_ptr(), ret_slot.data_ptr(), slot_ops.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), dead.data_ptr(), n_keys, W, S,
-            O1, n_pass, int(warp), stream)
+            P.data_ptr(), T.data_ptr(), ret_slot.data_ptr(),
+            slot_ops.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            dead.data_ptr(), n_keys, W, S, O1, n_pass, int(warp), stream)
     if err != 0:
         raise RuntimeError(f"keyed_walk kernel launch failed: CUDA error "
                            f"{err}")
@@ -667,7 +677,13 @@ def walk_returns_keyed(P: np.ndarray, ret_slot: np.ndarray,
     def put(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
 
-    dead = keyed_walk(put(P, np.float32), put(ret_slot, np.int32),
-                      put(slot_ops.reshape(-1, W), np.int32),
-                      put(key_id, np.int32), n_keys, W)
+    args = (put(P, np.float32), put(ret_slot, np.int32),
+            put(slot_ops.reshape(-1, W), np.int32))
+    if dev.type == "cuda":
+        # the keys' runs found on the host, with no device sync, and sent
+        # in one copy
+        runs = put(np.stack(key_runs(key_id, n_keys)), np.int32)
+        dead = _keyed_launch(*args, runs[0], runs[1], W)
+    else:
+        dead = keyed_walk(*args, put(key_id, np.int32), n_keys, W)
     return dead.cpu().numpy()

@@ -1,11 +1,10 @@
 // The returns walk over the dense config set R[mask, state]. One body,
-// on P's nibble image tables, serves four kernels: K1 (lane_walk.cu, one
-// history) and K2 (batch_walk.cu, H lanes in lockstep, E seed groups
-// per lane) at most 32 states, one 32-bit word a mask; K4 (wide_walk.cu,
-// one history) and K5 (wide_keyed.cu, many keys' streams concatenated)
-// at any number of states, launched through wide_walk.cuh. K3
-// (keyed_walk.cu, many keys, at most 32 states) keeps the first body,
-// at the end of this file.
+// on P's nibble image tables, serves five kernels: K1 (lane_walk.cu, one
+// history), K2 (batch_walk.cu, H lanes in lockstep, E seed groups per
+// lane) and K3 (keyed_walk.cu, many keys' streams concatenated) at most
+// 32 states, one 32-bit word a mask; K4 (wide_walk.cu, one history) and
+// K5 (wide_keyed.cu, many keys' streams) at any number of states,
+// launched through wide_walk.cuh.
 //
 // What one walk computes, for each return r of its stream:
 //   c_r    = #{j : slot_ops[r, j] >= 0}                (pending ops)
@@ -29,9 +28,9 @@
 // pending slots (a fired slot's bit stays set), at most c_r long, while
 // pass p reaches every chain of length p: so min(c_r, W) passes reach
 // the fixpoint, as the reference's popcount loop (two passes, then more
-// while the popcount grows) does. K1, K2, K4 and K5 stop at the first
-// pass that adds nothing; K2 gates each lane by its own c_r where the
-// reference gates by the batch's largest (batch_walk.cu).
+// while the popcount grows) does. K1-K5 stop at the first pass that
+// adds nothing; K2 gates each lane by its own c_r where the reference
+// gates by the batch's largest (batch_walk.cu).
 //
 // An empty set stays empty: firing adds only images of members, and the
 // projection only moves or drops them. So a walk that reports its dead
@@ -62,8 +61,8 @@
 //     states the pattern at NT = 4 and 8);
 //   - no branch around a lookup: bit j of the mask gates slot j's image
 //     by a bitwise AND, so a pass's loads overlap. In K1 and K2 a free
-//     slot's op is P's last, all-zero row (the sentinel); K4 and K5 skip
-//     a free slot by a branch the same in every thread;
+//     slot's op is P's last, all-zero row (the sentinel); K3, K4 and K5
+//     skip a free slot by a branch the same in every thread;
 //   - the tables go into shared memory when they fit beside the set and
 //     a chunk of the stream (the cas alphabet of 37 ops at S = 8: 4,736
 //     bytes), each block copying them in; else they stay in device
@@ -83,10 +82,6 @@
 //   - the return stream is staged into shared memory a chunk of
 //     returns at a time by the whole block, so the chain never waits on
 //     a device-memory load.
-// K3 keeps the first design: P as [O1][S] target-set words in shared
-// memory, a partner set's image as the OR of P's words over its set
-// states (a loop over set bits), `min(c_r, n_pass)` passes, and the
-// projection fused into the last pass.
 
 #pragma once
 
@@ -167,7 +162,7 @@ inline bool warp_form(int W, int use_warp) {
   return use_warp && W <= kWarpMaxW;
 }
 
-// -- P's nibble image tables (K1, K2, K4, K5) --------------------------------
+// -- P's nibble image tables (K1-K5) --------------------------------------
 
 inline int n_words(int S) { return (S + 31) / 32; }
 inline int pow2_at_least(int n) {
@@ -306,12 +301,12 @@ __device__ __forceinline__ void or_part(const uint32_t* To, int hb,
   }
 }
 
-// -- K1, K2, K4 and K5: the walk on the tables ---------------------------------
+// -- K1-K5: the walk on the tables ------------------------------------------
 
 // One launch's operands of a walk on the tables: the walk's (Walk) and
 // P's tables. K1 and K2 are the lockstep walk (kLock below: a
 // checkpoint every B returns, a free slot reading the sentinel); K4
-// walks one history from R0 (H = 1); K5 walks key runs (kKeyed).
+// walks one history from R0 (H = 1); K3 and K5 walk key runs (kKeyed).
 struct TableWalk {
   Walk a;
   const uint32_t* T;  // [O1][K][16][NT], filled by pack_tables
@@ -360,7 +355,7 @@ __device__ __forceinline__ int slot_row(const int* __restrict__ ops_s, int k,
 // set (K4: H = 1 and one block, so the rows are R0 and final_out
 // whole), and when dead is given, the first r < rlim after which its set
 // is empty, or -1, to dead[0]; kLock also writes the set at the start of
-// every block of B returns to ckpt. Keyed (K5), block k walks key k's
+// every block of B returns to ckpt. Keyed (K3, K5), block k walks key k's
 // run [lo[k], hi[k]) from the one-hot seed (mask 0, state 0) and writes
 // the flat index of its first empty return, or -1, to dead[k]. A walk
 // with dead stops at its first empty return.
@@ -491,10 +486,11 @@ __global__ void walk_warp(TableWalk g) {
   }
 }
 
-// One word a mask (kLock): mask m's set after one fire pass from `src`,
-// every slot's image of its partner's set by KT table lookups, gated by
-// bit j of m.
-template <int KT>
+// One word a mask (K1, K2, K3): mask m's set after one fire pass from
+// `src`, every slot's image of its partner's set by KT table lookups,
+// gated by bit j of m. A free slot reads the sentinel (kLock), else is
+// skipped by a branch the same in every thread.
+template <int KT, bool kLock>
 __device__ __forceinline__ uint32_t fire_tab(const uint32_t* __restrict__ src,
                                              const uint32_t* __restrict__ T,
                                              const int (&op)[kMaxW], int W,
@@ -503,6 +499,9 @@ __device__ __forceinline__ uint32_t fire_tab(const uint32_t* __restrict__ src,
 #pragma unroll
   for (int j = 0; j < kMaxW; ++j) {
     if (j >= W) break;
+    if constexpr (!kLock) {
+      if (op[j] < 0) continue;
+    }
     const uint32_t* To = T + op[j] * KT * 16;
     const uint32_t y = src[m ^ (1 << j)];
     uint32_t img = 0;
@@ -533,8 +532,8 @@ __device__ __forceinline__ uint32_t image_word(const uint32_t* T, int o,
   return acc;
 }
 
-// Any number of words (not kLock): word w of mask m's set after one
-// fire pass from `src` [M][NW].
+// Any number of words (K4, K5): word w of mask m's set after one fire
+// pass from `src` [M][NW].
 __device__ __forceinline__ uint32_t fire_word(const uint32_t* src,
                                               const TableWalk& g,
                                               const uint32_t* T,
@@ -557,15 +556,15 @@ __device__ __forceinline__ uint32_t fire_word(const uint32_t* src,
 // memory, each thread owning (mask, word) pairs and firing every
 // pending slot into its word from the pass-start set; one
 // __syncthreads_or a pass, which also tells whether the pass added a
-// config, and one for the projection, which tests emptiness. With kLock
-// a mask is one word and its images KT lookups with no branch (the
-// sentinel); else NW words and fire_word's lookups (KT unused).
+// config, and one for the projection, which tests emptiness. With
+// KT > 0 (K1, K2, K3) a mask is one word and its images KT lookups
+// (fire_tab); else (K4, K5) NW words and fire_word's lookups.
 template <int KT, bool kShared, bool kKeyed, bool kLock>
 __global__ void walk_block(TableWalk g) {
-  static_assert(!(kKeyed && kLock), "form");
+  static_assert(!(kKeyed && kLock) && (!kLock || KT > 0), "form");
   extern __shared__ uint32_t smem[];
   const Walk& a = g.a;
-  const int NW = kLock ? 1 : g.NW;
+  const int NW = KT > 0 ? 1 : g.NW;
   const int W = a.W, S = a.S, M = 1 << W, MW = M * NW;
   const int tid = threadIdx.x, nt = blockDim.x;
   const uint32_t* T = tables<kShared>(g, smem);
@@ -610,7 +609,7 @@ __global__ void walk_block(TableWalk g) {
         ck_left = a.B - 1;
       }
     }
-    constexpr int kSlots = kLock ? kMaxW : kWideMaxW;
+    constexpr int kSlots = KT > 0 ? kMaxW : kWideMaxW;
     int op[kSlots];
     const int c = slot_row<kSlots, kLock>(ops_s, k, W, a.O1, op);
     const int js = js_s[k];
@@ -621,8 +620,8 @@ __global__ void walk_block(TableWalk g) {
       int grew = 0;
       for (int i = tid; i < MW; i += nt) {
         uint32_t v;
-        if constexpr (kLock)
-          v = fire_tab<KT>(src, T, op, W, i);
+        if constexpr (KT > 0)
+          v = fire_tab<KT, kLock>(src, T, op, W, i);
         else
           v = fire_word(src, g, T, op, W, i / NW, i % NW);
         grew |= v != src[i];
@@ -662,9 +661,9 @@ __global__ void walk_block(TableWalk g) {
 
 // Shared memory one block of a walk on the tables needs, in bytes: the
 // tables when they fit, R [2][M][NW] in the block form, and a chunk of
-// the stream. reach_lane.smem_bytes (K1, K2) and reach_pallas.smem_bytes
-// (K4, K5) mirror it for routing on hosts with no card; chip_smoke.py
-// checks that they agree.
+// the stream. reach_lane.smem_bytes (K1, K2, K3) and
+// reach_pallas.smem_bytes (K4, K5) mirror it for routing on hosts with
+// no card; chip_smoke.py checks that they agree.
 inline size_t walk_smem_base(int W, int S, bool warp) {
   const size_t set = warp ? 0 : 2 * ((size_t)1 << W) * n_words(S);
   return 4 * (set + (size_t)kChunk * (W + 1));
@@ -680,19 +679,22 @@ inline size_t walk_smem(int W, int S, int O1, bool warp) {
 using TableKernel = void (*)(TableWalk);
 
 // The instance of a geometry at one word an entry, by its lookup count:
-// the warp form, else (kLock) the block form at that count.
-template <int KT, bool kShared, bool kKeyed, bool kLock>
+// the warp form, else (kNarrow) the block form at that count.
+template <int KT, bool kShared, bool kKeyed, bool kLock, bool kNarrow>
 TableKernel word_kernel(bool warp) {
-  if constexpr (kLock) {
-    if (!warp) return walk_block<KT, kShared, false, true>;
+  if constexpr (kNarrow) {
+    if (!warp) return walk_block<KT, kShared, kKeyed, kLock>;
   }
   return walk_warp<1, KT, kShared, kKeyed, kLock>;
 }
 
 // The instance of this geometry's form, table shape and table place.
-template <bool kShared, bool kKeyed, bool kLock>
+// The narrow walks (kNarrow: K1, K2, K3, at most 32 states) take both
+// forms at their lookup count; K4 and K5 take the block form at any
+// number of words.
+template <bool kShared, bool kKeyed, bool kLock, bool kNarrow>
 TableKernel table_kernel(int S, bool warp) {
-  if constexpr (!kLock) {
+  if constexpr (!kNarrow) {
     if (!warp) return walk_block<0, kShared, kKeyed, false>;
     switch (table_words(S)) {
       case 1: break;
@@ -702,18 +704,18 @@ TableKernel table_kernel(int S, bool warp) {
     }
   }
   switch (n_nibbles(S)) {
-    case 1: return word_kernel<1, kShared, kKeyed, kLock>(warp);
-    case 2: return word_kernel<2, kShared, kKeyed, kLock>(warp);
-    case 4: return word_kernel<4, kShared, kKeyed, kLock>(warp);
-    default: return word_kernel<8, kShared, kKeyed, kLock>(warp);
+    case 1: return word_kernel<1, kShared, kKeyed, kLock, kNarrow>(warp);
+    case 2: return word_kernel<2, kShared, kKeyed, kLock, kNarrow>(warp);
+    case 4: return word_kernel<4, kShared, kKeyed, kLock, kNarrow>(warp);
+    default: return word_kernel<8, kShared, kKeyed, kLock, kNarrow>(warp);
   }
 }
 
 // Build P's tables into T by one pack_tables launch, then launch `grid`
 // walks on `stream` in the given form, each block copying the tables
 // into its shared memory when they fit there. Returns the CUDA error of
-// the launches (0 when both were accepted).
-template <bool kKeyed, bool kLock>
+// the launches (0 when both were accepted). kNarrow as in table_kernel.
+template <bool kKeyed, bool kLock, bool kNarrow = kLock>
 int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
                   void* stream) {
   const Walk& a = g.a;
@@ -728,8 +730,8 @@ int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
   if (err_t != 0) return err_t;
   const TableKernel kernel =
       t_shared(a.W, a.S, a.O1, warp)
-          ? table_kernel<true, kKeyed, kLock>(a.S, warp)
-          : table_kernel<false, kKeyed, kLock>(a.S, warp);
+          ? table_kernel<true, kKeyed, kLock, kNarrow>(a.S, warp)
+          : table_kernel<false, kKeyed, kLock, kNarrow>(a.S, warp);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -742,12 +744,15 @@ int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
   return (int)cudaGetLastError();
 }
 
-// K1 and K2: the lockstep walk of `grid` = (H, E) blocks (K1: one), in
-// the warp form when warp_form(W, use_warp). dead: K1's (its walk stops
-// at its first empty return), or null (K2).
+// Shared memory of a narrow walk (K1, K2, K3) in the form that
+// warp_form(W, use_warp) picks.
 inline size_t lane_smem(int W, int S, int O1, int use_warp) {
   return walk_smem(W, S, O1, warp_form(W, use_warp));
 }
+
+// K1 and K2: the lockstep walk of `grid` = (H, E) blocks (K1: one), in
+// the warp form when warp_form(W, use_warp). dead: K1's (its walk stops
+// at its first empty return), or null (K2).
 inline int launch_walk(const Walk& a, uint32_t* T, dim3 grid, int use_warp,
                        void* stream) {
   if (a.W < 1 || a.W > kMaxW || a.S < 1 || a.S > 32 || a.O1 < 1 ||
@@ -757,191 +762,6 @@ inline int launch_walk(const Walk& a, uint32_t* T, dim3 grid, int use_warp,
   return launch_tabled<false, true>(TableWalk{a, nullptr, 0, 0, 0, a.R_pad},
                                     T, grid, warp_form(a.W, use_warp),
                                     stream);
-}
-
-
-// -- K3: the keyed walk on P's words (the first design) -------------------------
-
-// OR of P[o][s] over the set bits s of x.
-__device__ __forceinline__ uint32_t image(const uint32_t* __restrict__ Pw,
-                                          int o, int S, uint32_t x) {
-  const uint32_t* row = Pw + o * S;
-  uint32_t acc = 0;
-  while (x) {
-    acc |= row[__ffs(x) - 1];
-    x &= x - 1;
-  }
-  return acc;
-}
-
-// Convert P (f32 0/1 [O1][S][S]) to target-set words in shared memory.
-__device__ __forceinline__ void load_P(const float* __restrict__ P,
-                                       uint32_t* __restrict__ Pw, int O1,
-                                       int S) {
-  for (int i = threadIdx.x; i < O1 * S; i += blockDim.x)
-    Pw[i] = word_of(P + (size_t)i * S, S);
-}
-
-// W <= 5: one warp, lane m holds mask m's state word in a register.
-// Lanes m >= M start empty and stay empty: their partners are lanes
-// >= M too.
-__global__ void keyed_warp(Walk a) {
-  extern __shared__ uint32_t smem[];
-  const int W = a.W, S = a.S;
-  int* js_s = (int*)smem;                          // [kChunk]
-  int* ops_s = js_s + kChunk;                      // [kChunk][W]
-  uint32_t* Pw = (uint32_t*)(ops_s + kChunk * W);  // [O1][S]
-  int h, r0, r1;
-  bounds<true>(a, h, r0, r1);
-  const int m = threadIdx.x;
-  load_P(a.P, Pw, a.O1, S);
-  uint32_t v = m == 0 ? 1u : 0u;
-
-  for (int r = r0; r < r1; ++r) {
-    const int k = (r - r0) % kChunk;
-    if (k == 0) {
-      __syncwarp();
-      stage(a, h, r, r1, js_s, ops_s);
-      __syncwarp();
-    }
-    int ops[5];
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      ops[j] = j < W ? ops_s[k * W + j] : -1;
-      c += ops[j] >= 0;
-    }
-    const int js = js_s[k];
-    const int passes = c < a.n_pass ? c : a.n_pass;
-    for (int p = 0; p < passes; ++p) {
-      uint32_t acc = v;
-#pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        if (j >= W) break;
-        const uint32_t x = __shfl_xor_sync(kFull, v, 1 << j);
-        if (ops[j] >= 0 && ((m >> j) & 1)) acc |= image(Pw, ops[j], S, x);
-      }
-      v = acc;
-    }
-    if (js >= 0) {
-      const uint32_t hi = __shfl_xor_sync(kFull, v, 1 << js);
-      v = ((m >> js) & 1) ? 0u : hi;
-    }
-    if (!__any_sync(kFull, v != 0u)) {
-      if (m == 0) a.dead[blockIdx.x] = r;
-      return;
-    }
-  }
-  if (m == 0) a.dead[blockIdx.x] = -1;
-}
-
-// The set of mask m after one fire pass from `src`.
-__device__ __forceinline__ uint32_t fire(const uint32_t* __restrict__ src,
-                                         const uint32_t* __restrict__ Pw,
-                                         const int (&ops)[kMaxW], int W,
-                                         int S, int m) {
-  uint32_t acc = src[m];
-#pragma unroll
-  for (int j = 0; j < kMaxW; ++j) {
-    if (j >= W) break;
-    const int o = ops[j];
-    if (o >= 0 && ((m >> j) & 1)) acc |= image(Pw, o, S, src[m ^ (1 << j)]);
-  }
-  return acc;
-}
-
-// Any W: R double-buffered [2][M] words in shared memory, one
-// __syncthreads per pass, the projection fused into the last pass.
-__global__ void keyed_block(Walk a) {
-  extern __shared__ uint32_t smem[];
-  const int W = a.W, S = a.S, M = 1 << W;
-  uint32_t* Rw = smem;                             // [2][M]
-  int* js_s = (int*)(Rw + 2 * M);                  // [kChunk]
-  int* ops_s = js_s + kChunk;                      // [kChunk][W]
-  uint32_t* Pw = (uint32_t*)(ops_s + kChunk * W);  // [O1][S]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  int h, r0, r1;
-  bounds<true>(a, h, r0, r1);
-  load_P(a.P, Pw, a.O1, S);
-  for (int m = tid; m < M; m += nt) Rw[m] = m == 0 ? 1u : 0u;
-
-  int cur = 0;
-  for (int r = r0; r < r1; ++r) {
-    const int k = (r - r0) % kChunk;
-    if (k == 0) {
-      __syncthreads();
-      stage(a, h, r, r1, js_s, ops_s);
-      __syncthreads();
-    }
-    int ops[kMaxW];
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < kMaxW; ++j) {
-      ops[j] = j < W ? ops_s[k * W + j] : -1;
-      c += ops[j] >= 0;
-    }
-    const int passes = c < a.n_pass ? c : a.n_pass;
-    const int js = js_s[k];
-    const int bit = js >= 0 ? 1 << js : 0;
-
-    for (int p = 0; p < passes; ++p) {
-      const uint32_t* src = Rw + cur * M;
-      uint32_t* dst = Rw + (cur ^ 1) * M;
-      if (p == passes - 1 && bit) {
-        for (int m = tid; m < M; m += nt)
-          dst[m] = (m & bit) ? 0u : fire(src, Pw, ops, W, S, m | bit);
-      } else {
-        for (int m = tid; m < M; m += nt)
-          dst[m] = fire(src, Pw, ops, W, S, m);
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-    if (passes == 0 && bit) {
-      const uint32_t* src = Rw + cur * M;
-      uint32_t* dst = Rw + (cur ^ 1) * M;
-      for (int m = tid; m < M; m += nt)
-        dst[m] = (m & bit) ? 0u : src[m | bit];
-      __syncthreads();
-      cur ^= 1;
-    }
-    const uint32_t* now = Rw + cur * M;
-    int any = 0;
-    for (int m = tid; m < M; m += nt) any |= now[m] != 0u;
-    if (!__syncthreads_or(any)) {
-      if (tid == 0) a.dead[blockIdx.x] = r;
-      return;
-    }
-  }
-  if (tid == 0) a.dead[blockIdx.x] = -1;
-}
-
-// Shared memory one K3 block needs, in bytes: the layout of the two
-// kernels above, and the envelope of all three narrow walks
-// (reach_lane.lane_fits). reach_lane.keyed_smem_bytes mirrors it;
-// chip_smoke.py checks that the two agree.
-inline size_t keyed_smem(int W, int S, int O1, int use_warp) {
-  const size_t R = warp_form(W, use_warp) ? 0 : 2 * ((size_t)1 << W);
-  return 4 * (R + (size_t)kChunk * (W + 1) + (size_t)O1 * S);
-}
-
-// Launch `grid` blocks of K3 on `stream`. Returns the CUDA error of the
-// launch (0 when it was accepted).
-inline int launch_keyed(const Walk& a, dim3 grid, int use_warp,
-                        void* stream) {
-  if (a.W < 1 || a.W > kMaxW || a.S < 1 || a.S > 32 || a.O1 < 1 ||
-      a.H < 1 || a.n_pass < 0 || grid.x < 1 || grid.y < 1 ||
-      grid.y > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = keyed_smem(a.W, a.S, a.O1, use_warp);
-  auto kernel = warp_form(a.W, use_warp) ? keyed_warp : keyed_block;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((1 << a.W) + 31) / 32 * 32;
-  if (threads > 1024) threads = 1024;
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -28,21 +28,30 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    tree = os.path.abspath(argv[0] if argv else ".")
+def use_tree(tree: str):
+    """Make the checkout at ``tree`` the one whose ``chip_smoke`` and
+    ``jepsen_tpu_torch`` are imported from here on (its kernels built
+    there), and return its ``chip_smoke``."""
     sys.path.insert(0, tree)
     for name in [m for m in sys.modules if m == "chip_smoke"
                  or m.split(".")[0] == "jepsen_tpu_torch"]:
         del sys.modules[name]  # import the tree's own modules below
     os.chdir(tree)
     import chip_smoke as cs
+
+    if not cs.__file__.startswith(tree):
+        raise RuntimeError(f"chip_smoke from {cs.__file__}, not {tree}")
+    return cs
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    tree = os.path.abspath(argv[0] if argv else ".")
+    cs = use_tree(tree)
     from jepsen_tpu_torch import _build, models
     from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
     from jepsen_tpu_torch.tools import walk_split
 
-    if not cs.__file__.startswith(tree):
-        raise RuntimeError(f"chip_smoke from {cs.__file__}, not {tree}")
     t0 = time.perf_counter()
     _build.build_all()
     out = {"tree": tree, "build_s": time.perf_counter() - t0}
