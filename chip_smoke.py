@@ -35,10 +35,14 @@ user's entry points and checks the results:
   one warp's registers, or the block form), and small histories reach
   the warp form's other instances (entries of 1 to 8 words);
 - the ablation harness (``jepsen_tpu_torch.tools.ablate_lane``): its 22
-  variants of the walk's body (19 on K6, 3 on K7) on its cas-100k
-  stream, each held bit for bit against its plain version on the first
-  block of 1,024 returns, then the full ladder through the harness's
-  own function, every exact variant ending on K1's final set.
+  variants of the walk's body (19 on K6, 3 on K7), and the two kernel
+  instances no variant takes alone, on its cas-100k stream, each held
+  bit for bit against its plain version and the host replay on the first
+  block of 1,024 returns, with the form, table place and ring its launch
+  takes; the block form on a cas history of 6 processes (one case per
+  kernel instance, the projection table at its largest, both of K7's
+  dtypes); then the full ladder through the harness's own function,
+  every exact variant ending on K1's final set.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -92,14 +96,23 @@ def ptxas_kernels(text: str):
     """``(kernel, registers, spill store bytes)`` of each entry function
     in a ``ptxas -v`` log, the kernel as its name and template
     arguments."""
+    def kernel_name(mangled: str) -> str:
+        # the first length-prefixed name followed by its template
+        # arguments (I) or the end of its scope (E)
+        for m in re.finditer(r"(?=(\d+)([A-Za-z_][A-Za-z0-9_]*))", mangled):
+            n, ident = int(m.group(1)), m.group(2)
+            end = m.start() + len(m.group(1)) + n
+            if len(ident) >= n and mangled[end:end + 1] in ("I", "E"):
+                return ident[:n]
+        return mangled
+
     out = []
     for block in text.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        name = re.search(r"\d+([a-z_]+?)[IE]", mangled)
         args = ",".join(re.findall(r"L[a-z](\d+)E", mangled))
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
-        out.append((f"{name.group(1) if name else mangled}<{args}>",
+        out.append((f"{kernel_name(mangled)}<{args}>",
                     int(regs.group(1)) if regs else -1,
                     int(spill.group(1)) if spill else -1))
     return out
@@ -282,26 +295,32 @@ def check_smem_layout():
     from jepsen_tpu_torch.tools import ablate_lane as ab
 
     walk, stream = ab._walk_lib(), ab._stream_lib()
-    for W in range(1, 9):
-        for S in (1, 8, 32, 64):
+    for W in range(1, 11):
+        for S in (1, 3, 8, 16, 32, 64):
             for rep in (0, 1, 2):
-                for O1, table in ((2, 0), (23, 1), (735, 0)):
-                    got = walk.jt_ablate_walk_smem(W, S, O1, rep, table)
-                    want = ab.smem_bytes(W, S, O1, rep != 0, bool(table))
+                for O1, table in ((2, 0), (23, 1), (37, 1), (450, 0),
+                                  (735, 0), (4000, 0)):
+                    got = (walk.jt_ablate_walk_smem(W, S, O1, rep, table),
+                           walk.jt_ablate_walk_design(W, S, O1, rep, table))
+                    want = (ab.smem_bytes(W, S, O1, rep != 0, bool(table)),
+                            ab.design(W, S, O1, rep != 0, bool(table)))
                     if got != want:
                         raise AssertionError(
-                            f"ablate_walk smem layout differs at W={W} S={S} "
-                            f"O1={O1} rep={rep} table={table}: kernel {got}, "
-                            f"host {want}")
+                            f"ablate_walk layout differs at W={W} S={S} "
+                            f"O1={O1} rep={rep} table={table}: kernel "
+                            f"(bytes, design) {got}, host {want}")
                 for i8 in (0, 1):
-                    got = stream.jt_ablate_stream_smem(W, S, rep, i8)
-                    want = ab.smem_bytes(W, S, 1, rep != 0, stream=True,
-                                         g_int8=bool(i8))
+                    got = (stream.jt_ablate_stream_smem(W, S, rep, i8),
+                           stream.jt_ablate_stream_design(W, S, rep, i8))
+                    want = (ab.smem_bytes(W, S, 1, rep != 0, stream=True,
+                                          g_int8=bool(i8)),
+                            ab.design(W, S, 1, rep != 0, stream=True,
+                                      g_int8=bool(i8)))
                     if got != want:
                         raise AssertionError(
-                            f"ablate_stream smem layout differs at W={W} "
-                            f"S={S} rep={rep} int8={i8}: kernel {got}, host "
-                            f"{want}")
+                            f"ablate_stream layout differs at W={W} S={S} "
+                            f"rep={rep} int8={i8}: kernel (bytes, design) "
+                            f"{got}, host {want}")
 
 
 def same(label: str, got, want):
@@ -819,22 +838,46 @@ def phase_k5(per_key):
 
 # the ablation harness's stream: its default history (cas, 100,000 ops,
 # 5 processes, seed 42); each variant is held against its plain version
-# on the first block of ABLATE_BLOCK returns
+# on the first block of ABLATE_BLOCK returns. The block form's shape: a
+# cas history of 6 processes (W = 6), its first ABLATE_W6_RETURNS
+# returns
 ABLATE_OPS = 100_000
 ABLATE_BLOCK = 1024
+ABLATE_W6_OPS, ABLATE_W6_RETURNS = 1_000, 256
+# beyond the ladder's variants, the kernel instances that no variant
+# takes alone: the reversed bool body and the f32 table projection
+ABLATE_EXTRA = ("rev", "cnt-tree-matmulproj")
+# at W = 6, one case per kernel instance of the block form, and K7's
+ABLATE_W6_CASES = ("v2-bool-blend", "alt-p3", "rev", "bool-matmulproj",
+                   "cgate-ladder-u2", "cnt-tree-blend", "maxnc-blend",
+                   "cnt-tree-matmulproj", "bool-stream", "bool-stream-i8",
+                   "maxnc-stream")
 
 
-def phase_ablate(geom, opnds, stream: bool):
-    """K6 (``stream=False``: the 19 variants of the harness that gather
-    the fire operand in the kernel) or K7 (the 3 streamed ones) against
-    their plain versions on the first :data:`ABLATE_BLOCK` returns of the
-    harness's stream, bit for bit, with the host replay of each walk;
-    time, plain time and bound of each variant. Returns the numbers of
-    the first variant, and the largest error."""
+def ablate_case(name: str, W: int):
+    """``(fire, proj, counts, unroll, n_pass, cgate)`` of a harness
+    variant, or of one of :data:`ABLATE_EXTRA`."""
+    from jepsen_tpu_torch.tools import ablate_lane as ab
+
+    if name == "rev":
+        return ab._fire_bool_rev, "blend", False, 1, min(W, 5), ()
+    if name == "cnt-tree-matmulproj":
+        return ab._fire_counts_tree, "matmul", True, 1, min(W, 5), ()
+    return ab.spec(name, W)
+
+
+def phase_ablate(label, geom, opnds, n: int, names, stream: bool,
+                 reps: int = 5):
+    """K6 (``stream=False``: the cases that gather the fire operand in
+    the kernel) or K7 (the streamed ones) against their plain versions
+    on the first ``n`` returns of the operands, bit for bit, with the
+    host replay of each walk; each launch's form and table place (or
+    ring) from the layout rule; time, plain time and bound of each case,
+    and the device's own time of the first. Returns the numbers of the
+    first case, and the largest error."""
     from jepsen_tpu_torch.tools import ablate_lane as ab
 
     B, W, M, S, O1, _R_pad = geom
-    n = ABLATE_BLOCK
     ret, ops, P, PJ, R0 = opnds
     ret, ops = ret[:n], ops[:n]
     P_np, ret_np, ops_np = P.cpu().numpy(), ret.cpu().numpy(), \
@@ -842,44 +885,52 @@ def phase_ablate(geom, opnds, stream: bool):
     replays = {}
     out = {"max_abs_err": 0.0}
     kernel = "ablate_stream" if stream else "ablate_walk"
-    for name in ab.VARIANTS:
-        fire, proj, counts, unroll, n_pass, cgate = ab.spec(name, W)
+    for name in names:
+        fire, proj, counts, unroll, n_pass, cgate = ablate_case(name, W)
         if (proj in ab._STREAM_DTYPE) != stream:
             continue
         if stream:
-            G = ab.stream_operand(P, ops, ab._STREAM_DTYPE[proj])
+            dt = ab._STREAM_DTYPE[proj]
+            G = ab.stream_operand(P, ops, dt)
             args = (ret, G, R0, B, n_pass, fire, counts)
             kern, plain = ab.ablate_stream, ab.ablate_stream_plain
             moved = nbytes(ret, G, R0)
+            code = ab.design(W, S, O1, counts, stream=True,
+                             g_int8=dt == torch.int8)
         else:
             args = (P, ret, ops, PJ, R0, B, n_pass, fire, proj, counts,
                     unroll, cgate)
             kern, plain = ab.ablate_walk, ab.ablate_walk_plain
             moved = nbytes(ret, ops, P, R0, *((PJ,) if proj == "matmul"
                                              else ()))
+            code = ab.design(W, S, O1, counts, proj == "matmul")
         got = kern(*args)
         ref, p_ms = plain_ms(lambda: plain(*args))
-        label = f"{kernel} [{name}, first {n} returns of cas-100k]"
-        err = same(label, got, ref)
-        ms = event_ms(lambda: kern(*args), 5)
-        total = ab.passes(name, W)
+        tag = f"{kernel} [{name}, first {n} returns of {label}]"
+        err = same(tag, got, ref)
+        ms = event_ms(lambda: kern(*args), reps)
+        total = n_pass + sum(cgate)
         if total not in replays:
             replays[total] = walk_work(P_np, ret_np[:, None],
                                        ops_np[:, None], as_sets(R0[None]),
                                        total)
         work, v, _ = replays[total]
         if not np.array_equal(v, as_sets(got[1][None])):
-            raise AssertionError(f"{label} differs from the host replay")
+            raise AssertionError(f"{tag} differs from the host replay")
         bound, bound_by, detail = bound_ms(moved + nbytes(*got), work)
-        log(f"kernel {label}: W={W} S={S} O1={O1} passes<={total} "
-            f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
-            f"us_per_return={1e3 * ms / n:.6f} plain_ms={p_ms:.3f} "
-            f"bound_ms={bound:.6f} ({bound_by}; {detail}) "
-            f"alive={bool(got[1].any())}")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        dev = ""
         if "ms" not in out:
+            d = device_ms(lambda: kern(*args), reps)
+            dev = f" {dev_text(d)}"
             out.update(variant=name, ms=ms, plain_ms=p_ms, bound_ms=bound,
-                       bound_by=bound_by)
+                       bound_by=bound_by,
+                       device_ms=d["total"] if d else None)
+        log(f"kernel {tag}: W={W} S={S} O1={O1} passes<={total} "
+            f"design={ab.describe(code, counts)} bit-identical max_abs_err={err} "
+            f"kernel_ms={ms:.6f} us_per_return={1e3 * ms / n:.6f}{dev} "
+            f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
+            f"{detail}) alive={bool(got[1].any())}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -887,8 +938,9 @@ def ablate_ladder(geom, opnds, n_ret: int):
     """The harness's full ladder on its cas-100k stream through its own
     function (``ablate_lane.ladder``, two interleaved rounds), with every
     kernel count set to 0 just before and read just after: every exact
-    variant must end on K1's final set. Returns the launches by
-    kernel."""
+    variant must end on K1's final set, and each K6 launch of a bool
+    variant starts with one ``pack_tables`` launch (counted apart).
+    Returns the launches by kernel."""
     from jepsen_tpu_torch.checkers import reach_lane
     from jepsen_tpu_torch.tools import ablate_lane as ab
 
@@ -908,8 +960,11 @@ def ablate_ladder(geom, opnds, n_ret: int):
     la = launches()
     n_stream = sum(ab.VARIANTS[v][1] in ab._STREAM_DTYPE
                    for v in ab.VARIANTS)
+    n_bool = sum(not s[2] and s[1] not in ab._STREAM_DTYPE
+                 for s in ab.VARIANTS.values())
     expect("ablate ladder", la, ablate_walk=2 * (len(ab.VARIANTS) - n_stream),
-           ablate_stream=2 * n_stream, lane_walk=0, batch_walk=0)
+           ablate_stream=2 * n_stream, ablate_tables=2 * n_bool,
+           lane_walk=0, batch_walk=0)
     for name, (ms, final) in res.items():
         fin = final > 0
         match = torch.equal(fin, want)
@@ -946,6 +1001,7 @@ def launches():
             "wide_walk": reach_pallas.KERNEL_LAUNCHES,
             "wide_keyed": reach_pallas.KEYED_LAUNCHES,
             "ablate_walk": ablate_lane.ABLATE_LAUNCHES,
+            "ablate_tables": ablate_lane.ABLATE_TABLE_LAUNCHES,
             "ablate_stream": ablate_lane.STREAM_LAUNCHES}
 
 
@@ -958,6 +1014,7 @@ def zero_launches():
     reach_batch.KERNEL_LAUNCHES = 0
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
     ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
+    ablate_lane.ABLATE_TABLE_LAUNCHES = 0
 
 
 def drive(fn):
@@ -1076,9 +1133,10 @@ def main() -> int:
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
     for src in _build.sources():
         log(ptxas_summary(src, _build.build_log(src)))
-    for kern, regs, spill in ptxas_kernels(_build.build_log("keyed_walk")):
-        log(f"ptxas keyed_walk.cu {kern}: {regs} registers, spill stores "
-            f"{spill} bytes")
+    for src in ("keyed_walk", "ablate_walk", "ablate_stream"):
+        for kern, regs, spill in ptxas_kernels(_build.build_log(src)):
+            log(f"ptxas {src}.cu {kern}: {regs} registers, spill stores "
+                f"{spill} bytes")
     check_smem_layout()
 
     # -- kernels against their plain versions --------------------------
@@ -1118,8 +1176,19 @@ def main() -> int:
                                                          device="cuda")
     log(f"ablate operands (cas-100k, seed 42): {time.perf_counter() - t0:.3f}"
         f" s, geometry {ab_geom}, {ab_returns} returns")
-    k6 = phase_ablate(ab_geom, ab_opnds, stream=False)
-    k7 = phase_ablate(ab_geom, ab_opnds, stream=True)
+    cases = list(ablate_lane.VARIANTS) + list(ABLATE_EXTRA)
+    k6 = phase_ablate("cas-100k", ab_geom, ab_opnds, ABLATE_BLOCK, cases,
+                      stream=False)
+    k7 = phase_ablate("cas-100k", ab_geom, ab_opnds, ABLATE_BLOCK, cases,
+                      stream=True)
+    # the block form: W = 6, bool-matmulproj at its largest table
+    w6_geom, w6_opnds, _n = ablate_lane.operands(
+        ABLATE_W6_OPS, processes=6, B=ABLATE_W6_RETURNS, device="cuda")
+    if w6_geom[1] != 6:
+        raise AssertionError(f"ablate W=6 shape: geometry {w6_geom}")
+    for stream in (False, True):
+        phase_ablate("cas W=6", w6_geom, w6_opnds, ABLATE_W6_RETURNS,
+                     ABLATE_W6_CASES, stream, reps=2)
     log(f"ablate kernel phases (K6, K7): {time.perf_counter() - t0:.1f} s")
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 

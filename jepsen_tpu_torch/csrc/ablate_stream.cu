@@ -7,10 +7,12 @@
 // the Pallas pipeline streams it through the kernel. Here G is built by
 // one PyTorch indexing op outside the kernel, in f32 or int8 (widened
 // in the kernel, as the reference's astype does), and the kernel stages
-// G[k + 1] into shared memory with double-buffered cp.async while
-// return k's passes run: the counterpart of the Pallas pipeline. (TMA is
-// later work.) The walk body is ablate.cuh's, with the blend projection,
-// forward passes and no deep gates, as make_call_stream has.
+// it through a ring of up to kRing bulk copies (cp.async.bulk, one
+// mbarrier a stage): the counterpart of the Pallas pipeline, running up
+// to that many returns ahead of the walk. The walk body is ablate.cuh's,
+// with the blend projection, forward passes and no deep gates, as
+// make_call_stream has; the bool variants build each return's nibble
+// image tables from its landed stage.
 //
 // What bounds it on an H100: the serial chain, as for K6; the stream is
 // S*W*S values a return (1,280 bytes in f32 at S = 8, W = 5), 105 MB
@@ -21,10 +23,24 @@
 
 namespace {
 
-template <int kRep>
-int by_dtype(const Ablate& a, int g_int8, void* stream) {
-  return g_int8 ? launch<kRep, kFwd, false, 1, true, true>(a, stream)
-                : launch<kRep, kFwd, false, 1, true, false>(a, stream);
+template <int kRep, bool kI8>
+AblateKernel f32_kernel(const Ablate& a) {
+  if (!a.L.warp) return block_f32<kRep, false, 1, true, kI8>;
+  return a.S == 16 ? warp_f32<16, kRep, false, 1, true, kI8>
+                   : warp_f32<8, kRep, false, 1, true, kI8>;
+}
+
+template <bool kI8>
+AblateKernel stream_kernel(const Ablate& a, int rep) {
+  if (rep == kAdd) return f32_kernel<kAdd, kI8>(a);
+  if (rep == kMax) return f32_kernel<kMax, kI8>(a);
+  if (!a.L.warp) return block_bool<kFwd, false, 1, true, kI8>;
+  switch (a.K) {
+    case 1: return warp_bool<1, kFwd, false, 1, true, kI8>;
+    case 2: return warp_bool<2, kFwd, false, 1, true, kI8>;
+    case 4: return warp_bool<4, kFwd, false, 1, true, kI8>;
+    default: return warp_bool<8, kFwd, false, 1, true, kI8>;
+  }
 }
 
 }  // namespace
@@ -33,7 +49,14 @@ extern "C" {
 
 // Shared memory one walk needs, in bytes (rep: 0 bool, 1 add, 2 max).
 size_t jt_ablate_stream_smem(int W, int S, int rep, int g_int8) {
-  return layout(W, S, 1, rep, 0, 1, g_int8).total;
+  return stream_layout(W, S, rep, g_int8).total;
+}
+
+// The walk's design (design_code in ablate.cuh: bit 0 the warp form,
+// bit 2 the per-return tables, bit 3 bulk copies, from bit 4 the ring's
+// stages).
+int jt_ablate_stream_design(int W, int S, int rep, int g_int8) {
+  return design_code(stream_layout(W, S, rep, g_int8));
 }
 
 // Launch one walk on `stream`. Device pointers to contiguous int32
@@ -46,14 +69,30 @@ int jt_ablate_stream(const void* ret_slot, const void* G, const void* R0,
                      void* ckpt, void* final_out, int R_pad, int W, int S,
                      int B, int n_pass, int rep, int counts, int g_int8,
                      void* stream) {
-  Ablate a{(const int*)ret_slot, nullptr, nullptr, nullptr, G,
-           (const float*)R0, (float*)ckpt, (float*)final_out, R_pad, W, S,
-           1, B, n_pass, counts, 0, 0, {}};
+  Ablate a{};
+  a.ret_slot = (const int*)ret_slot;
+  a.G = G;
+  a.R0 = (const float*)R0;
+  a.ckpt = (float*)ckpt;
+  a.final_out = (float*)final_out;
+  a.R_pad = R_pad;
+  a.W = W;
+  a.S = S;
+  a.O1 = 1;
+  a.B = B;
+  a.n_pass = n_pass;
+  a.counts = counts;
   if (!valid(a, rep) || ((size_t)G & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  if (rep == kAdd) return by_dtype<kAdd>(a, g_int8, stream);
-  if (rep == kMax) return by_dtype<kMax>(a, g_int8, stream);
-  return by_dtype<kBool>(a, g_int8, stream);
+  a.K = n_nibbles(S);
+  a.L = stream_layout(W, S, rep, g_int8);
+  // the warp form's bool body always has its tables (W <= 5: they and
+  // two stages fit at every S <= 32)
+  if (a.L.warp && rep == kBool && !a.L.tables)
+    return (int)cudaErrorInvalidValue;
+  const AblateKernel kernel =
+      g_int8 ? stream_kernel<true>(a, rep) : stream_kernel<false>(a, rep);
+  return launch_ablate(kernel, a, rep, stream);
 }
 
 }  // extern "C"

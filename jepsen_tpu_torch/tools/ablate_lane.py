@@ -7,7 +7,12 @@ slot order, the projection as a bit move or a table product, unroll,
 and the fire operand streamed from device memory instead of gathered
 in the kernel. Each variant runs as one launch of a hand-written CUDA
 kernel: K6 (``csrc/ablate_walk.cu``, :func:`ablate_walk`) or, for the
-streamed variants, K7 (``csrc/ablate_stream.cu``, :func:`ablate_stream`).
+streamed variants, K7 (``csrc/ablate_stream.cu``, :func:`ablate_stream`),
+both on the body ``csrc/ablate.cuh``: the bool variants on nibble image
+tables, the set in one warp's registers up to W = 5, every variant's
+passes run exactly, K7's operand staged by a ring of bulk copies; the
+form, table place and ring follow from the geometry
+(:func:`walk_layout`, :func:`stream_layout`).
 Beside each is its plain PyTorch version (:func:`ablate_walk_plain`,
 :func:`ablate_stream_plain`), which the wrappers run for tensors on the
 CPU; on CUDA tensors they launch the kernel or raise.
@@ -48,9 +53,16 @@ _MAX_W = 16
 _MAX_GATES = 8
 _CHUNK = 256
 _SMEM_BYTES = 227 * 1024
+# the warp form's slots (M <= 32 masks, one a lane), K7's ring of bulk
+# copies and its chunk of the return stream
+_WARP_MAX_W = 5
+_RING = 8
+_STREAM_CHUNK = 128
 
 #: launches of the K6 kernel (not of its plain version) in this process
 ABLATE_LAUNCHES = 0
+#: launches of ``pack_tables`` that K6's bool walks start with, apart
+ABLATE_TABLE_LAUNCHES = 0
 #: launches of the K7 kernel in this process
 STREAM_LAUNCHES = 0
 
@@ -281,16 +293,123 @@ def _body(fire, counts: bool, n_total: int) -> Tuple[int, int, int]:
     return rep, 2, sum(revs[p % len(revs)] << p for p in range(n_total))
 
 
+def _f32_warp(W: int, S: int) -> bool:
+    """The f32 warp form's geometries: W <= 5 at S = 8 and 16 (a row of
+    S floats a lane, its loops unrolled)."""
+    return W <= _WARP_MAX_W and S in (8, 16)
+
+
+def walk_layout(W: int, S: int, O1: int, counts: bool,
+                table: bool = False) -> Tuple[bool, bool, int]:
+    """K6's form and table place, and the shared memory it takes:
+    ``(warp, tables_shared, bytes)``. It mirrors ``walk_layout`` in
+    ``csrc/ablate.cuh`` (``jt_ablate_walk_design``,
+    ``jt_ablate_walk_smem``; ``chip_smoke.py`` checks that they agree).
+    The bool body keeps P's nibble image tables; the warp form (set in
+    registers) is taken at W <= 5 when the tables fit in shared memory
+    beside the projection table and a chunk of the stream, the block form
+    (set double-buffered, one word a mask) keeps them there when they fit
+    beside its set, else reads them from device memory. The count bodies
+    keep P as f32, in the warp form at S = 8 and 16."""
+    from jepsen_tpu_torch.checkers.reach_lane import table_bytes
+
+    M = 1 << W
+    pj = 4 * (W + 1) * M * M if table else 0
+    chunk = 4 * _CHUNK * (W + 1)
+    if not counts:
+        opnd = table_bytes(S, O1)
+        warp = W <= _WARP_MAX_W and opnd + pj + chunk <= _SMEM_BYTES
+        sset = 0 if warp else 4 * 2 * M
+        shared = sset + opnd + pj + chunk <= _SMEM_BYTES
+        opnd = opnd if shared else 0
+    else:
+        opnd = 4 * O1 * S * S
+        warp, shared = _f32_warp(W, S), False
+        sset = 0 if warp else 4 * 2 * M * S
+    return warp, shared, opnd + sset + pj + chunk
+
+
+def stream_layout(W: int, S: int, counts: bool, g_int8: bool = False
+                  ) -> Tuple[bool, int, bool, bool, int]:
+    """K7's form and ring, and the shared memory it takes: ``(warp,
+    stages, tables, bulk, bytes)``. It mirrors ``stream_layout`` in
+    ``csrc/ablate.cuh`` (``jt_ablate_stream_design``,
+    ``jt_ablate_stream_smem``). The form as K6's; G is bulk-copied when a
+    return's G is a multiple of 16 bytes, else copied by the threads into
+    one stage; the bool body builds each return's nibble image tables
+    (``W·K·16`` words, a ring of two) when they fit beside two stages,
+    else takes the masked OR over the row words; then as many stages as
+    fit, up to 8."""
+    from jepsen_tpu_torch.checkers.reach_lane import n_nibbles
+
+    M = 1 << W
+    gb = S * W * S * (1 if g_int8 else 4)
+    gs = -(-gb // 16) * 16
+    warp = _f32_warp(W, S) if counts else W <= _WARP_MAX_W
+    bulk = gb % 16 == 0
+    sset = 0 if warp else 4 * 2 * M * (S if counts else 1)
+    rows = 0 if counts else 4 * W * S
+    tabs = 0 if counts else 4 * 2 * W * n_nibbles(S) * 16
+    fixed = 8 * _RING + sset + rows + 4 * _STREAM_CHUNK
+    tables = not counts and fixed + tabs + 2 * gs <= _SMEM_BYTES
+    used = fixed + (tabs if tables else 0)
+    n = _RING if bulk else 1
+    while n > 1 and used + n * gs > _SMEM_BYTES:
+        n -= 1
+    return warp, n, tables, bulk, n * gs + used
+
+
+def design(W: int, S: int, O1: int, counts: bool, table: bool = False,
+           stream: bool = False, g_int8: bool = False) -> int:
+    """The walk's design as ``design_code`` in ``csrc/ablate.cuh`` packs
+    it: bit 0 the warp form, bit 1 (K6) P's tables in shared memory, bit
+    2 (K7) per-return tables, bit 3 (K7) bulk copies, from bit 4 (K7)
+    the ring's stages."""
+    if stream:
+        warp, n, tables, bulk, _ = stream_layout(W, S, counts, g_int8)
+        return int(warp) | tables << 2 | bulk << 3 | n << 4
+    warp, shared, _ = walk_layout(W, S, O1, counts, table)
+    return int(warp) | shared << 1
+
+
+def describe(code: int, counts: bool) -> str:
+    """A :func:`design` code of a bool (``counts`` False) or f32 walk in
+    words, for logs."""
+    out = ["warp" if code & 1 else "block"]
+    if code >> 4:
+        out.append(f"ring={code >> 4} "
+                   f"{'bulk' if code & 8 else 'per-thread copy'}")
+        if not counts:
+            out.append("tables" if code & 4 else "masked-or")
+    elif not counts:
+        out.append(f"tables={'shared' if code & 2 else 'device'}")
+    else:
+        out.append("P-f32=shared")
+    return " ".join(out)
+
+
 def smem_bytes(W: int, S: int, O1: int, counts: bool, table: bool = False,
                stream: bool = False, g_int8: bool = False) -> int:
-    """Shared memory one walk takes, for the fits checks without a card.
-    It mirrors ``layout`` in ``csrc/ablate.cuh`` (exported as
-    ``jt_ablate_walk_smem`` and ``jt_ablate_stream_smem``), and
-    ``chip_smoke.py`` checks that the two agree: K7's G of two returns
-    (each 16-byte aligned), the set double-buffered (one word a mask, or
-    f32 ``[M, S]`` with ``counts``), the projection table, the fire
-    operand (K6: P as words or f32; K7: one return's G as words, or
-    widened to f32 from int8) and a chunk of the return stream."""
+    """Shared memory one walk takes: :func:`walk_layout`'s (K6) or
+    :func:`stream_layout`'s (K7) bytes."""
+    if stream:
+        return stream_layout(W, S, counts, g_int8)[4]
+    return walk_layout(W, S, O1, counts, table)[2]
+
+
+def envelope_bytes(W: int, S: int, O1: int, counts: bool,
+                   table: bool = False, stream: bool = False,
+                   g_int8: bool = False) -> int:
+    """The envelope of the two kernels, as bytes: it fixes which
+    geometries :func:`fits` and :func:`stream_fits` take, and is no
+    kernel's layout (the first body's, kept so that no variant gains or
+    loses a geometry): K7's G of two returns (each 16-byte aligned), the
+    set double-buffered (one word a mask, or f32 ``[M, S]`` with
+    ``counts``), the projection table, the fire operand (K6: P as
+    ``[O1, S]`` words or f32; K7: one return's G as words, or widened to
+    f32 from int8) and a chunk of the return stream. Every layout is
+    within it wherever it fits in one block's shared memory (tested on a
+    grid)."""
     M = 1 << W
     n = 2 * (-(-S * W * S * (1 if g_int8 else 4) // 16) * 16) if stream \
         else 0
@@ -309,13 +428,13 @@ def smem_bytes(W: int, S: int, O1: int, counts: bool, table: bool = False,
 
 def fits(W: int, M: int, S: int, O1: int, proj: str, counts: bool) -> bool:
     """Whether K6 takes this geometry: M = 2^W with 1 <= W <= 16, at
-    most 32 states for the bool body, and everything in one block's
-    shared memory — the table alone is ``(W+1)·M²·4`` bytes (24 KB at
-    W = 5, 114 KB at W = 6, too large from W = 7), the f32 set
+    most 32 states for the bool body, and :func:`envelope_bytes` within
+    one block's shared memory — the table alone is ``(W+1)·M²·4`` bytes
+    (24 KB at W = 5, 114 KB at W = 6, too large from W = 7), the f32 set
     ``2·M·S·4``."""
     return (1 <= W <= _MAX_W and M == 1 << W and S >= 1 and O1 >= 1
             and (counts or S <= 32) and proj in ("blend", "matmul")
-            and smem_bytes(W, S, O1, counts, proj == "matmul")
+            and envelope_bytes(W, S, O1, counts, proj == "matmul")
             <= _SMEM_BYTES)
 
 
@@ -328,12 +447,14 @@ def _walk_lib():
     if _WALK_LIB is None:
         from jepsen_tpu_torch import _build
         lib = _build.load("ablate_walk")
-        lib.jt_ablate_walk.argtypes = [ctypes.c_void_p] * 7 + \
+        lib.jt_ablate_walk.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] + \
             [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.jt_ablate_walk.restype = ctypes.c_int
         lib.jt_ablate_walk_smem.argtypes = [ctypes.c_int] * 5
         lib.jt_ablate_walk_smem.restype = ctypes.c_size_t
+        lib.jt_ablate_walk_design.argtypes = [ctypes.c_int] * 5
+        lib.jt_ablate_walk_design.restype = ctypes.c_int
         _WALK_LIB = lib
     return _WALK_LIB
 
@@ -348,14 +469,17 @@ def _stream_lib():
         lib.jt_ablate_stream.restype = ctypes.c_int
         lib.jt_ablate_stream_smem.argtypes = [ctypes.c_int] * 4
         lib.jt_ablate_stream_smem.restype = ctypes.c_size_t
+        lib.jt_ablate_stream_design.argtypes = [ctypes.c_int] * 4
+        lib.jt_ablate_stream_design.restype = ctypes.c_int
         _STREAM_LIB = lib
     return _STREAM_LIB
 
 
 def _ablate_walk_cuda(P, ret_slot, slot_ops, PJ, R0, B: int, n_pass: int,
                       fire, proj: str, counts: bool, unroll: int, cgate):
-    global ABLATE_LAUNCHES
-    from jepsen_tpu_torch.checkers.reach_lane import _check_operands
+    global ABLATE_LAUNCHES, ABLATE_TABLE_LAUNCHES
+    from jepsen_tpu_torch.checkers.reach_lane import (_check_operands,
+                                                      tables_scratch)
 
     _walk_shapes("ablate_walk", P, ret_slot, slot_ops, R0, B, PJ)
     _check_operands("ablate_walk", R0.device,
@@ -382,18 +506,22 @@ def _ablate_walk_cuda(P, ret_slot, slot_ops, PJ, R0, B: int, n_pass: int,
     ckpt = torch.empty((R_pad // B, M, S), dtype=torch.float32,
                        device=R0.device)
     final = torch.empty((M, S), dtype=torch.float32, device=R0.device)
+    # the bool body's scratch for P's tables, which it builds first
+    T = tables_scratch(O1, S, R0.device) if rep == 0 else None
     garr = (ctypes.c_int * _MAX_GATES)(*gates)
     with torch.cuda.device(R0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_ablate_walk(
             ret_slot.data_ptr(), slot_ops.data_ptr(), P.data_ptr(),
-            PJ.data_ptr(), R0.data_ptr(), ckpt.data_ptr(), final.data_ptr(),
+            None if T is None else T.data_ptr(), PJ.data_ptr(),
+            R0.data_ptr(), ckpt.data_ptr(), final.data_ptr(),
             R_pad, W, S, O1, B, n_pass, garr, len(gates), rep, order,
             rev_mask, int(proj == "matmul"), int(counts), unroll, stream)
     if err != 0:
         raise RuntimeError(f"ablate_walk kernel launch failed: CUDA error "
                            f"{err}")
     ABLATE_LAUNCHES += 1
+    ABLATE_TABLE_LAUNCHES += T is not None
     return ckpt, final
 
 
@@ -472,12 +600,12 @@ def ablate_stream_plain(ret_slot: torch.Tensor, G: torch.Tensor,
 def stream_fits(W: int, M: int, S: int, counts: bool,
                 g_dtype: torch.dtype = torch.float32) -> bool:
     """Whether K7 takes this geometry: as :func:`fits`, with two
-    returns' G staged in shared memory instead of P."""
+    returns' G in :func:`envelope_bytes` instead of P."""
     return (1 <= W <= _MAX_W and M == 1 << W and S >= 1
             and (counts or S <= 32)
             and g_dtype in (torch.float32, torch.int8)
-            and smem_bytes(W, S, 1, counts, stream=True,
-                           g_int8=g_dtype == torch.int8) <= _SMEM_BYTES)
+            and envelope_bytes(W, S, 1, counts, stream=True,
+                               g_int8=g_dtype == torch.int8) <= _SMEM_BYTES)
 
 
 def _ablate_stream_cuda(ret_slot, G, R0, B: int, n_pass: int, fire,
@@ -693,11 +821,12 @@ _NOT_PORTED = {
     "bodies": "--bodies sweeps the word-packed post-hoc walk against the "
               "dense one and records the winner in the autotune table; the "
               "word-packed bodies and the table are not ported yet (ROADMAP "
-              "queue 1, item 5: reach_word.py and checkers/autotune.py)",
+              "queue 1, item 'Word-packed bodies': reach_word.py and "
+              "checkers/autotune.py)",
     "pipeline": "--pipeline sweeps the serve-lane in-flight depth over "
                 "reach.stage_check_many; it is not ported yet (ROADMAP "
-                "queue 1, items 1-2: native host prep and the lockstep "
-                "batch routes with stage_check_many)",
+                "queue 1, items 'Host prep' and 'Lockstep batch routes', "
+                "with stage_check_many)",
 }
 
 
