@@ -20,12 +20,23 @@ user's entry points and checks the results:
   or, for a many-op alphabet at 32 states, read from device memory;
   each K1 launch is held against its plain version in its dead return
   too;
+- the C++ host prep (``native/preproc.cpp``, built by ``g++``): its slot
+  assignment and returns view against the plain Python scans, array for
+  array, at cas-100k and cas-1M;
 - ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
-  50 ops and on 200 keys of 1,000 ops (one K3 launch each), against the
-  CPU run; K3 walks P's nibble image tables as K1 and K2 do, in the warp
-  form and in the block form (held bit for bit against its plain
-  version and the host replay at W = 4, 6 and 8 and at the long keys,
-  and timed beside K5 on the same keys);
+  50 ops and on 200 keys of 1,000 ops (the lockstep lane: one union
+  prep, a K2 launch a group of up to 32 keys, K1 for each failed key),
+  and on one key of 30,000 ops (the native keyed lane, one K3 launch),
+  each against the CPU run; K2 at the lockstep group's geometry against
+  its plain version, and both lanes' walks after one shared union prep
+  (the lockstep scheduler, and K3), which must agree key for key; K3 walks P's nibble image tables as K1 and K2 do,
+  in the warp form and in the block form (held bit for bit against its
+  plain version and the host replay at W = 4, 6 and 8 and at the long
+  keys, and timed beside K5 on the same keys);
+- ``reach.check_batch`` on 32 cas-100k histories from
+  ``fixtures.gen_packed`` (one K2 launch) and on 8 cas-30k histories, two
+  corrupted, each history's result against its own ``check_packed`` on
+  the card;
 - more than 32 states: a 100,000-op cas history over 40 values and a
   100,000-op multi-register history (one K4 launch each), the corrupted
   cas one against the CPU run, and 2,000 keys over 40 values (one K5
@@ -33,7 +44,9 @@ user's entry points and checks the results:
   first (held bit for bit against their plain version on both
   alphabets), each of their launches logs the form it took (the set in
   one warp's registers, or the block form), and small histories reach
-  the warp form's other instances (entries of 1 to 8 words);
+  the warp form's other instances (entries of 1 to 8 words); the wide
+  independent shape takes the native keyed lane, its union outside K2's
+  envelope;
 - the ablation harness (``jepsen_tpu_torch.tools.ablate_lane``): its 22
   variants of the walk's body (19 on K6, 3 on K7), and the two kernel
   instances no variant takes alone, on its cas-100k stream, each held
@@ -51,12 +64,13 @@ kernels (K3, K5, ``pack_tables``) also the device's own kernel records
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last three lines are one JSON object of per-kernel
-numbers, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+numbers (``launches``: summed over every drive of the main path), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -79,6 +93,12 @@ INT32_PEAK = 132 * 64 * 1.98e9
 # key 7 on is corrupted
 N_KEYS, OPS_PER_KEY, KEY_PROCS = 2_000, 50, 4
 BAD_KEYS = tuple(range(7, N_KEYS, 100))
+# one live key (the native keyed lane on K3)
+ONE_KEY_OPS = 30_000
+# check_batch: the bench's batch rung (32 cas-100k histories from
+# fixtures.gen_packed), and 8 cas-30k histories, two corrupted
+BATCH_N = 32
+SMALL_BATCH_N, SMALL_BATCH_BAD = 8, (2, 5)
 
 
 def log(*a):
@@ -606,6 +626,194 @@ def phase_k3(label, per_key, n: int = 20, k5: bool = False):
     return out
 
 
+def phase_native(histories):
+    """The C++ host prep against its plain Python scans on each ``(label,
+    ops)``: the slot assignment and the returns view of the history's
+    event stream, array for array, with the time of each."""
+    from jepsen_tpu_torch import history, models
+    from jepsen_tpu_torch.checkers import events as ev
+    from jepsen_tpu_torch.checkers import preproc_native, reach
+
+    for label, h in histories:
+        packed = history.pack(h)
+        memo = reach._cached_memo(models.cas_register(), packed, 100_000)
+        t0 = time.perf_counter()
+        st = ev.build(packed, memo, max_slots=20)
+        build_s = time.perf_counter() - t0
+        n = st.n_entries + st.n_dropped_crashed
+        t0 = time.perf_counter()
+        got = preproc_native.assign_slots(st.kind, st.entry, n, 20)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = ev.assign_slots_plain(st.kind, st.entry, 20)
+        plain_s = time.perf_counter() - t0
+        if not (np.array_equal(got[0], want[0]) and got[1] == want[1]
+                == st.W):
+            raise AssertionError(f"assign_slots [{label}] differs from its "
+                                 f"plain version")
+        t0 = time.perf_counter()
+        rv = ev.returns_view(st)
+        rv_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rv_plain = ev.returns_view_plain(st)
+        rv_plain_s = time.perf_counter() - t0
+        for f in ("ret_slot", "slot_ops", "ret_event", "ret_entry"):
+            if not np.array_equal(getattr(rv, f), getattr(rv_plain, f)):
+                raise AssertionError(f"returns_view [{label}] {f} differs "
+                                     f"from its plain version")
+        log(f"native prep [{label}] events={st.n_events} W={st.W} returns="
+            f"{rv.n_returns}: equal to the plain scans; events.build "
+            f"{build_s:.6f} s (assign_slots native {native_s:.6f} s, plain "
+            f"{plain_s:.6f} s), returns_view native {rv_s:.6f} s, plain "
+            f"{rv_plain_s:.6f} s")
+
+
+def union_operands(per_key):
+    """The union prep of these keys' histories, as ``check_many`` builds
+    it: ``(packed, live, stage A, (P, W, M, ret, ops, key_W, key_R,
+    offsets))``."""
+    from jepsen_tpu_torch import history, models
+    from jepsen_tpu_torch.checkers import reach
+
+    packed = [history.pack(h) for h in per_key]
+    live = list(range(len(packed)))
+    sa = reach._union_stage_a(models.cas_register(), packed, live, 100_000)
+    return packed, live, sa, reach._union_prep(sa, 20)
+
+
+def phase_k2_lockstep(label, per_key):
+    """K2 at the lockstep lane's group geometry (the first group
+    ``plan_buckets`` makes of these keys, E = 1, the lane's block)
+    against its plain version on the same CUDA tensors, bit for bit, with
+    the host replay; the wrapper's time and the device's own."""
+    from jepsen_tpu_torch.checkers import reach, reach_batch
+
+    _packed, _live, _sa, u = union_operands(per_key)
+    P, W, M, ret, ops, _kW, key_R, off = u
+    g = reach_batch.plan_buckets(key_R, group=reach._BATCH_GROUP)[0]
+    prep = reach_batch.prepare_returns_batch(
+        P, reach._flat_lanes(ret, off, g), reach._flat_lanes(ops, off, g), M)
+    B, W, M, S, H, O1, R_pad = prep.geom
+    args = tuple(torch.as_tensor(a, device="cuda") for a in prep.host)
+    n_pass = min(W, reach_batch._FAST_PASSES)
+    got = reach_batch.batch_walk(*args, B, n_pass)
+    ref, p_ms = plain_ms(lambda: reach_batch.batch_walk_plain(*args, B,
+                                                              n_pass))
+    err = same(f"batch_walk [lockstep group, {label}]", got, ref)
+    ms = event_ms(lambda: reach_batch.batch_walk(*args, B, n_pass), 20)
+    dev = device_ms(lambda: reach_batch.batch_walk(*args, B, n_pass), 20)
+    work, v, _ = walk_work(P, args[2].cpu().numpy(),
+                           args[1].cpu().numpy().reshape(R_pad, H, W),
+                           as_sets(lane_sets(args[3], H, 1)), n_pass)
+    if not np.array_equal(v, as_sets(lane_sets(got[1], H, 1))):
+        raise AssertionError(f"batch_walk [lockstep group, {label}] differs "
+                             f"from the host replay")
+    bound, bound_by, detail = bound_ms(nbytes(*args, *got), work)
+    log(f"kernel batch_walk [lockstep group, {label}] H={H} E=1 W={W} "
+        f"S={S} O1={O1} B={B} R_pad={R_pad} returns="
+        f"{sum(prep.R_lens)} (longest {max(prep.R_lens)}): bit-identical "
+        f"max_abs_err={err} wrapper event_ms={ms:.6f} {dev_text(dev)} "
+        f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; {detail})")
+    return {"ms": dev["total"] if dev else ms, "event_ms": ms}
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def planned_groups(per_key) -> int:
+    """The lockstep groups ``plan_buckets`` makes of these keys' union
+    prep: the K2 launches their ``independent`` check needs."""
+    from jepsen_tpu_torch.checkers import reach, reach_batch
+
+    key_R = union_operands(per_key)[3][6]
+    return len(reach_batch.plan_buckets(key_R, group=reach._BATCH_GROUP))
+
+
+def phase_lanes(label, per_key, reps: int = 3):
+    """Both union lanes after one shared union prep: the lockstep lane's
+    walk (every group) and the native keyed lane's (one K3 launch), each
+    timed ``reps`` times by the host clock around a synchronised run;
+    the two dead vectors must agree key for key."""
+    from jepsen_tpu_torch.checkers import reach, reach_batch, reach_lane
+
+    _packed, live, sa, u = union_operands(per_key)
+    P, W, M, ret, ops, _kW, key_R, off = u
+    groups = reach_batch.plan_buckets(key_R, group=reach._BATCH_GROUP)
+    key_flat = np.repeat(np.arange(len(live), dtype=np.int32), key_R)
+    times = {"lockstep": [], "keyed": []}
+    deads = {}
+    for _ in range(reps):
+        diag = {}
+        deads["lockstep"], t = timed(
+            lambda: reach._dispatch_lockstep_groups(
+                P, ret, ops, off, groups, M, len(live), diag,
+                device="cuda"))
+        times["lockstep"].append(t)
+        d, t = timed(lambda: reach_lane.walk_returns_keyed(
+            P, ret, ops, key_flat, len(live), M, device="cuda"))
+        deads["keyed"] = np.where(d >= 0, d - off[:-1], -1)
+        times["keyed"].append(t)
+    if not np.array_equal(deads["lockstep"], deads["keyed"]):
+        raise AssertionError(f"lanes [{label}]: dead vectors differ")
+    log(f"lanes [{label}] after one union prep (W={W} S={sa.S_pad} "
+        f"groups={len(groups)} pack_efficiency={diag['pack_efficiency']}): "
+        f"lockstep " + ", ".join(f"{t:.6f}" for t in times["lockstep"]) +
+        " s; native keyed (K3) " + ", ".join(f"{t:.6f}" for t in
+                                            times["keyed"]) +
+        f" s; dead vectors identical "
+        f"({int((deads['lockstep'] >= 0).sum())} dead)")
+    return {k: min(v) for k, v in times.items()}
+
+
+RESULT_KEYS = ("valid", "op", "dead-event", "final-configs", "previous-ok")
+
+
+def check_batch_phase(label, packed, n_ops, **launches):
+    """One ``reach.check_batch`` over ``packed`` on the card (every count
+    zeroed first): each history's result must equal its own
+    ``check_packed`` on the card, and each kernel launch as ``launches``
+    says (``batch_walk="groups"``: one K2 launch a group). Logs wall
+    time, aggregate ops/s, groups and pad efficiency."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import reach
+
+    model = models.cas_register()
+    diag = {}
+    res, dt, la, spans, ledger = drive(
+        lambda: reach.check_batch(model, packed, diag=diag))
+    fallbacks = [r for r in ledger if r["event"] == "fallback"]
+    if fallbacks:
+        raise AssertionError(f"{label}: fallbacks {fallbacks}")
+    if launches.get("batch_walk") == "groups":
+        launches["batch_walk"] = len(diag["groups"])
+    expect(label, la, **launches)
+    t0 = time.perf_counter()
+    for i, p in enumerate(packed):
+        want = reach.check_packed(model, p)
+        for key in RESULT_KEYS:
+            if res[i].get(key) != want.get(key):
+                raise AssertionError(f"{label} history {i}: {key} differs "
+                                     f"batch={res[i].get(key)} "
+                                     f"check_packed={want.get(key)}")
+    one_s = time.perf_counter() - t0
+    groups = [(g["H"], g["W"], g["B"], g["R_pad"]) for g in diag["groups"]]
+    log(f"check_batch [{label}]: {dt:.4f} s = {n_ops / dt:.1f} ops/s "
+        f"({len(packed)} histories, {n_ops} ops), valid "
+        f"{sum(r['valid'] is True for r in res)}, groups (H, W, B, R_pad) "
+        f"{groups}, pack_efficiency {diag['pack_efficiency']}, prep "
+        f"{diag['prep_s']} s, dispatch {diag['dispatch_s']} s, fetch "
+        f"{diag['fetch_s']} s; "
+        f"{split(dt, spans)}; launches {la}; each history equals its "
+        f"check_packed on the card ({one_s:.3f} s for all)")
+    return la
+
+
 # the wide shapes: a cas register over 40 values (41 states, S_pad 64)
 # and a multi-register of 3 keys over 3 values (64 states)
 WIDE_CAS = dict(values=40)
@@ -1017,11 +1225,16 @@ def zero_launches():
     ablate_lane.ABLATE_TABLE_LAUNCHES = 0
 
 
+# each kernel's launches summed over every drive of the main path
+MAIN_PATH_LAUNCHES = {}
+
+
 def drive(fn):
     """Run one check of the main path with every kernel count set to 0
-    just before and read just after. Returns the result, its wall
-    seconds, the launches by kernel, the span seconds by name (summed)
-    and the decision ledger."""
+    just before and read just after (and added to
+    :data:`MAIN_PATH_LAUNCHES`). Returns the result, its wall seconds,
+    the launches by kernel, the span seconds by name (summed) and the
+    decision ledger."""
     from jepsen_tpu_torch import obs
 
     zero_launches()
@@ -1031,6 +1244,8 @@ def drive(fn):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts = launches()
+    for name, n in counts.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
     spans = {}
     for s in cap.spans:
         spans[s["name"]] = spans.get(s["name"], 0.0) + s["dur"] / 1e6
@@ -1090,8 +1305,8 @@ def check_keyed(label, h, n_keys, bad, cause, **launches):
     t0 = time.perf_counter()
     ref = check("cpu")
     cpu_s = time.perf_counter() - t0
-    if sorted(res["failures"]) != list(bad) or res["valid"] is not \
-            False or res["key-count"] != n_keys:
+    if sorted(res["failures"]) != sorted(bad) or res["valid"] is not \
+            (not bad) or res["key-count"] != n_keys:
         raise AssertionError(f"{label}: failures {res['failures']}")
     for key in ("valid", "failures", "key-count"):
         if res[key] != ref[key]:
@@ -1121,7 +1336,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from jepsen_tpu_torch import Linearizable, _build, models
+    from jepsen_tpu_torch import (Linearizable, _build, _native, fixtures,
+                                  history, models)
     from jepsen_tpu_torch.checkers import reach_lane
 
     name = torch.cuda.get_device_name(0)
@@ -1131,6 +1347,9 @@ def main() -> int:
 
     build_s = _build.build_all()
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
+    native_s = _native.build()
+    log(f"build: {native_s:.3f} s for the host library "
+        f"{os.path.relpath(_native.library_path())} (g++ {' '.join(_native.FLAGS)})")
     for src in _build.sources():
         log(ptxas_summary(src, _build.build_log(src)))
     for src in ("keyed_walk", "ablate_walk", "ablate_stream"):
@@ -1145,8 +1364,14 @@ def main() -> int:
     P, rs, M = history_operands(h100k, models.cas_register())
     k2 = phase_k2(P, rs, M)
     t0 = time.perf_counter()
+    big = gen("cas", 1_000_000, 5, 1)
+    gen_s = time.perf_counter() - t0
+    phase_native([("cas-100k", h100k), ("cas-1M", big)])
+    t0 = time.perf_counter()
     h_ind, per_key = keyed_histories()
     gen_ind_s = time.perf_counter() - t0
+    k2_lock = phase_k2_lockstep(f"independent {N_KEYS} keys x "
+                                f"{OPS_PER_KEY} ops", per_key)
     k3 = phase_k3(f"independent {N_KEYS} keys x {OPS_PER_KEY} ops", per_key,
                   k5=True)
     for procs in (6, 8):
@@ -1156,6 +1381,9 @@ def main() -> int:
                  keyed_histories(processes=procs)[1], k5=True)
     h_long, per_key_long = keyed_histories(LONG_KEYS, LONG_OPS, LONG_BAD)
     phase_k3(f"long keys {LONG_KEYS} x {LONG_OPS} ops", per_key_long, n=10)
+    lanes = {label: phase_lanes(label, pk) for label, pk in (
+        (f"independent {N_KEYS} keys x {OPS_PER_KEY} ops", per_key),
+        (f"long keys {LONG_KEYS} x {LONG_OPS} ops", per_key_long))}
     wide = gen("cas", 100_000, 5, 0, **WIDE_CAS)
     P_w, rs_w, _M_w = history_operands(wide, models.cas_register())
     P_m, rs_m, _ = history_operands(
@@ -1197,7 +1425,6 @@ def main() -> int:
     if res["valid"] is not True or res["engine"] != "reach-chunklock":
         raise AssertionError(f"valid cas-100k: {res}")
     expect("valid cas-100k", la, batch_walk=2, lane_walk=0, keyed_walk=0)
-    k2_launches = la["batch_walk"]
     log(f"main path valid cas-100k: {res['engine']} valid={res['valid']} "
         f"chunks={res['chunks']} basis-max={res['basis-max']} "
         f"rescues={res['rescues']} {dt:.4f} s = {100_000 / dt:.1f} ops/s; "
@@ -1244,9 +1471,6 @@ def main() -> int:
         raise AssertionError(f"corrupted cas-100k split: {st}")
     log(f"walk split corrupted cas-100k: {json.dumps(st)}")
 
-    t0 = time.perf_counter()
-    big = gen("cas", 1_000_000, 5, 1)
-    gen_s = time.perf_counter() - t0
     res, dt, la, spans, _ = drive(lambda: linearizable(big))
     if res["valid"] is not True or res["engine"] != "reach-chunklock":
         raise AssertionError(f"cas-1M: {res}")
@@ -1262,25 +1486,50 @@ def main() -> int:
     if res["valid"] is not True or res["engine"] != "reach-lane":
         raise AssertionError(f"sub-floor cas-30k: {res}")
     expect("sub-floor cas-30k", la, lane_walk=1, batch_walk=0, keyed_walk=0)
-    k1_launches = la["lane_walk"]
     log(f"main path sub-floor cas-30k: {res['engine']} "
         f"valid={res['valid']} {dt:.4f} s = {30_000 / dt:.1f} ops/s; "
         f"{split(dt, spans)}; launches {la}")
 
-    la = check_keyed(f"independent cas {N_KEYS} keys x {OPS_PER_KEY} ops",
-                     h_ind, N_KEYS, BAD_KEYS, "keyed", keyed_walk=1,
-                     batch_walk=0)
-    k3_launches = la["keyed_walk"]
+    # the narrow independent shapes take the lockstep lane on K2: one
+    # launch a planned group (W <= 8: no exact rescue), K1 twice a failed
+    # key (its dead lane's refinement and its witness prefix)
+    check_keyed(f"independent cas {N_KEYS} keys x {OPS_PER_KEY} ops", h_ind,
+                N_KEYS, BAD_KEYS, "lockstep",
+                batch_walk=planned_groups(per_key), keyed_walk=0,
+                lane_walk=2 * len(BAD_KEYS))
     log(f"independent history generation {gen_ind_s:.2f} s not counted")
     check_keyed(f"long keys {LONG_KEYS} x {LONG_OPS} ops", h_long, LONG_KEYS,
-                LONG_BAD, "keyed", keyed_walk=1, batch_walk=0)
+                LONG_BAD, "lockstep",
+                batch_walk=planned_groups(per_key_long), keyed_walk=0,
+                lane_walk=2 * len(LONG_BAD))
+    # one live key is no lockstep batch: the native keyed lane on K3
+    h_one, _ = keyed_histories(1, ONE_KEY_OPS, (0,))
+    check_keyed(f"one key x {ONE_KEY_OPS} ops", h_one, 1, (0,), "keyed",
+                keyed_walk=1, batch_walk=0, lane_walk=1)
+
+    # -- check_batch: several whole histories on the lockstep lane -------
+    t0 = time.perf_counter()
+    batch = [fixtures.gen_packed("cas", n_ops=100_000, processes=5,
+                                 seed=1000 + i) for i in range(BATCH_N)]
+    log(f"check_batch histories: {BATCH_N} x gen_packed cas-100k in "
+        f"{time.perf_counter() - t0:.3f} s, not counted")
+    check_batch_phase(f"{BATCH_N} x cas-100k", batch, BATCH_N * 100_000,
+                      batch_walk="groups", lane_walk=0, keyed_walk=0)
+    small_batch = [
+        history.pack(gen("cas", 30_000, 5, 2000 + i, corrupt=True))
+        if i in SMALL_BATCH_BAD else
+        fixtures.gen_packed("cas", n_ops=30_000, processes=5, seed=2000 + i)
+        for i in range(SMALL_BATCH_N)]
+    check_batch_phase(f"{SMALL_BATCH_N} x cas-30k, {len(SMALL_BATCH_BAD)} "
+                      f"corrupted", small_batch, SMALL_BATCH_N * 30_000,
+                      batch_walk="groups", keyed_walk=0,
+                      lane_walk=2 * len(SMALL_BATCH_BAD))
 
     # -- the wide main path: more than 32 states, K4 and K5 -------------
     def check_multi(h, device=None):
         return Linearizable(models.multi_register(),
                             device=device).check(None, h)
 
-    k4_launches = None
     for label, h, check in (("wide cas-100k", wide, linearizable),
                             ("multi-register-100k", multi, check_multi)):
         res, dt, la, spans, _ = drive(lambda: check(h))
@@ -1288,7 +1537,6 @@ def main() -> int:
             raise AssertionError(f"valid {label}: {res}")
         expect(label, la, wide_walk=1, lane_walk=0, batch_walk=0,
                keyed_walk=0, wide_keyed=0)
-        k4_launches = k4_launches or la["wide_walk"]
         S_pad = max(2, 1 << (res["states"] - 1).bit_length())
         log(f"main path valid {label}: {res['engine']} valid={res['valid']} "
             f"states={res['states']} slots={res['slots']} form="
@@ -1316,30 +1564,34 @@ def main() -> int:
         f"witness prefix), {cpu_s:.3f} s on cpu; verdict, op, dead event "
         f"and witness agree")
 
-    # every key has at most 32 states of its own: K1 re-walks each failed
-    # key's witness prefix in the key's own geometry
-    la = check_keyed(f"wide independent cas {N_KEYS} keys x {OPS_PER_KEY} "
-                     f"ops over 40 values", h_wide_ind, N_KEYS, BAD_KEYS,
-                     "keyed-wide", wide_keyed=1, keyed_walk=0, batch_walk=0,
-                     wide_walk=0, lane_walk=len(BAD_KEYS))
-    k5_launches = la["wide_keyed"]
+    # the union's 41 states are outside K2's envelope: the native keyed
+    # lane on K5; every key has at most 32 states of its own, so K1
+    # re-walks each failed key's witness prefix in the key's own geometry
+    check_keyed(f"wide independent cas {N_KEYS} keys x {OPS_PER_KEY} "
+                f"ops over 40 values", h_wide_ind, N_KEYS, BAD_KEYS,
+                "keyed-wide", wide_keyed=1, keyed_walk=0, batch_walk=0,
+                wide_walk=0, lane_walk=len(BAD_KEYS))
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
     k6_launches, k7_launches = la["ablate_walk"], la["ablate_stream"]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"main-path launches, summed over every drive: {MAIN_PATH_LAUNCHES}")
+    log(f"K2 at the lockstep group geometry: {k2_lock}; both lanes' walks "
+        f"(fastest of each): {json.dumps(lanes)}")
+    total = MAIN_PATH_LAUNCHES
     entries = [
         ("lane_walk", "lane_walk.cu", "jepsen_tpu/checkers/reach_lane.py:201",
-         k1_launches, k1),
+         total["lane_walk"], k1),
         ("batch_walk", "batch_walk.cu",
-         "jepsen_tpu/checkers/reach_batch.py:336", k2_launches, k2),
+         "jepsen_tpu/checkers/reach_batch.py:336", total["batch_walk"], k2),
         ("keyed_walk", "keyed_walk.cu",
-         "jepsen_tpu/checkers/reach_lane.py:339", k3_launches, k3),
+         "jepsen_tpu/checkers/reach_lane.py:339", total["keyed_walk"], k3),
         ("wide_walk", "wide_walk.cu",
-         "jepsen_tpu/checkers/reach_pallas.py:167", k4_launches, k4),
+         "jepsen_tpu/checkers/reach_pallas.py:167", total["wide_walk"], k4),
         ("wide_keyed", "wide_keyed.cu",
-         "jepsen_tpu/checkers/reach_pallas.py:374", k5_launches, k5),
+         "jepsen_tpu/checkers/reach_pallas.py:374", total["wide_keyed"], k5),
         ("ablate_walk", "ablate_walk.cu", "tools/ablate_lane.py:147",
          k6_launches, k6),
         ("ablate_stream", "ablate_stream.cu", "tools/ablate_lane.py:262",

@@ -2,11 +2,16 @@
 
 - :mod:`.facade` — the composable ``Checker`` API and the ``auto`` chain.
 - :mod:`.reach` — the dense-reachability search (host prep, routing,
-  torch walks, witness).
+  torch walks, witness); ``check_many`` and ``check_batch`` for many
+  histories at once.
+- :mod:`.reach_batch` — the lockstep walk of many histories (K2) and its
+  split dispatch; :mod:`.dispatch_core` — the lockstep schedulers'
+  dispatch and collect state.
 - :mod:`.reach_lane` — the single-history walk as one CUDA kernel, with
   its plain PyTorch version.
 - :mod:`.reach_pallas` — the walks of more than 32 states (one history,
   and many keys), as CUDA kernels with their plain versions.
 - :mod:`.wgl_ref` — the Python Wing-Gong-Lowe oracle.
-- :mod:`.events` — host-side slot/event-stream preprocessing.
+- :mod:`.events` — host-side slot/event-stream preprocessing, on the C++
+  scans of :mod:`.preproc_native` (``native/preproc.cpp``).
 """

@@ -24,10 +24,11 @@ from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
+from jepsen_tpu_torch.checkers import preproc_native
 from jepsen_tpu_torch.history import PackedHistory
 from jepsen_tpu_torch.models.memo import Memo
 
@@ -73,7 +74,8 @@ def build(packed: PackedHistory, memo: Memo, *,
     ``max_slots`` ops are ever pending at once.
 
     Event-array construction is vectorized NumPy; the inherently
-    sequential lowest-free-slot assignment is a Python heap scan."""
+    sequential lowest-free-slot assignment runs in C++
+    (:func:`preproc_native.assign_slots`)."""
     n = packed.n
     crashed = np.asarray(packed.crashed, bool)
     if drop_noop_crashed and n:
@@ -99,28 +101,39 @@ def build(packed: PackedHistory, memo: Memo, *,
     opid = np.where(kind == KIND_INVOKE,
                     packed.op_id[entry].astype(np.int32),
                     np.int32(-1)).astype(np.int32)
-    slot = np.zeros(E, np.int32)
+    slot, hi = preproc_native.assign_slots(kind, entry, n, max_slots)
+    if hi < 0:
+        raise ConcurrencyOverflow(
+            f"history needs >{max_slots} pending-op slots")
+    return EventStream(kind=kind, slot=slot, opid=opid, entry=entry,
+                       W=int(hi), n_events=E, n_entries=n - dropped,
+                       n_dropped_crashed=dropped)
+
+
+def assign_slots_plain(kind: np.ndarray, entry: np.ndarray,
+                       max_slots: int) -> Tuple[np.ndarray, int]:
+    """The scan of :func:`preproc_native.assign_slots` as a Python heap
+    loop, its plain version: ``(slot[E], W)``, ``W = -1`` past
+    ``max_slots``."""
+    slot = np.zeros(len(kind), np.int32)
     free: list = []             # min-heap: reuse lowest slots first
     hi = 0                      # next never-used slot
     slot_of = {}
-    for e in range(E):
+    for e in range(len(kind)):
         i = int(entry[e])
         if kind[e] == KIND_INVOKE:
             s = heapq.heappop(free) if free else hi
             if s == hi:
                 hi += 1
                 if hi > max_slots:
-                    raise ConcurrencyOverflow(
-                        f"history needs >{max_slots} pending-op slots")
+                    return slot, -1
             slot_of[i] = s
             slot[e] = s
         else:
             s = slot_of.pop(i)
             slot[e] = s
             heapq.heappush(free, s)
-    return EventStream(kind=kind, slot=slot, opid=opid, entry=entry,
-                       W=int(hi), n_events=E, n_entries=n - dropped,
-                       n_dropped_crashed=dropped)
+    return slot, hi
 
 
 def pad(stream: EventStream, E: int, W: Optional[int] = None) -> EventStream:
@@ -168,7 +181,19 @@ class ReturnStream:
 
 def returns_view(stream: EventStream) -> ReturnStream:
     """Project an event stream to its return events with per-return
-    pending-op snapshots."""
+    pending-op snapshots (the C++ scan,
+    :func:`preproc_native.returns_view`)."""
+    W = max(stream.W, 1)
+    ret_slot, slot_ops, ret_event, ret_entry, R = \
+        preproc_native.returns_view(stream.kind, stream.slot, stream.opid,
+                                    stream.entry, W, stream.n_events)
+    return ReturnStream(ret_slot=ret_slot, slot_ops=slot_ops,
+                        ret_event=ret_event, ret_entry=ret_entry,
+                        W=W, n_returns=R)
+
+
+def returns_view_plain(stream: EventStream) -> ReturnStream:
+    """:func:`returns_view` as a Python loop, its plain version."""
     W = max(stream.W, 1)
     n_ret = int(np.sum(stream.kind[:stream.n_events] == KIND_RETURN))
     ret_slot = np.full(n_ret, -1, np.int32)

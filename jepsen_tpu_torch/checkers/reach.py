@@ -30,9 +30,17 @@ kernels take it; else the lane kernel when R and P fit one block's
 shared memory (:func:`reach_lane.lane_fits`); else the wide kernel K4,
 whose sets span words, when its set fits (:func:`reach_pallas.fits`);
 else the torch returns walk; else, when the per-return matrix form does
-not fit, the torch event walk (:func:`_walk`). :func:`check_many`
-checks many histories (the ``independent`` checker's keys) with one
-launch of a keyed kernel: K3, or K5 above 32 states.
+not fit, the torch event walk (:func:`_walk`).
+
+Many histories share one union prep (one memo over the union of their
+op alphabets, and one native call that builds every history's return
+stream): :func:`check_many` (the ``independent`` checker's keys) takes
+the lockstep lane on K2 (length-bucketed groups of up to 32 histories,
+each one K2 launch staged while the one before it walks), else the
+native keyed lane (one launch of K3, or K5 above 32 states), else the
+keyed kernels over each key's own prep, else each history through
+:func:`check_packed`. :func:`check_batch` runs several whole histories
+through the lockstep lane.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import events as ev
 from jepsen_tpu_torch.checkers import (
-    reach_chunklock, reach_lane, reach_pallas)
+    dispatch_core, preproc_native, reach_batch, reach_chunklock, reach_lane,
+    reach_pallas)
 from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
     Memo, StateExplosion, memo as build_memo, memo_ops)
@@ -717,20 +726,394 @@ def _check_many_keyed(operands, rss, preps, live, results, packed_list,
     return results
 
 
+# -- many histories: the union prep and the lockstep lane --------------------
+
+class _UnionPrepA:
+    """Stage A of the union prep, built once per batch: the memo over the
+    union of the live histories' op alphabets, its no-op classification
+    and ``S_pad``, and each live history's packed arrays with op ids in
+    the union alphabet, which stage B (:func:`_union_pack_group`) packs."""
+    __slots__ = ("memo_u", "S_pad", "noop_op", "opids", "invs", "rets",
+                 "crs", "_P", "pack_s")
+
+    def __init__(self, memo_u, S_pad, noop_op, opids, invs, rets, crs):
+        self.memo_u = memo_u
+        self.S_pad = S_pad
+        self.noop_op = noop_op
+        self.opids = opids
+        self.invs = invs
+        self.rets = rets
+        self.crs = crs
+        self._P = None
+        # stage B's wall seconds over this batch, the scheduler's prep
+        # base
+        self.pack_s = 0.0
+
+    def P(self) -> np.ndarray:
+        """The union transition tensor, built on first use."""
+        if self._P is None:
+            self._P = _build_P(self.memo_u, self.S_pad)
+        return self._P
+
+    def drop_per_key(self) -> np.ndarray:
+        """Each live history's crashed entries dropped as union no-ops."""
+        return np.array([int((c & self.noop_op[o]).sum())
+                         for o, c in zip(self.opids, self.crs)], np.int64)
+
+
+def _union_stage_a(model: Model, packed_list: Sequence[h.PackedHistory],
+                   live: Sequence[int],
+                   max_states: int) -> Optional[_UnionPrepA]:
+    """Stage A, or None when the union alphabet explodes or an op is
+    unhashable."""
+    try:
+        memo_u, luts = _union_alphabet(model, packed_list, live, max_states)
+    except (StateExplosion, TypeError):
+        return None
+    tbl = memo_u.table
+    states = np.arange(tbl.shape[0], dtype=tbl.dtype)[:, None]
+    noop_op = np.all((tbl == states) | (tbl == -1), axis=0)
+    ps = [packed_list[i] for i in live]
+    return _UnionPrepA(memo_u, max(2, _next_pow2(memo_u.n_states)),
+                       noop_op, [luts[i][p.op_id] for i, p in zip(live, ps)],
+                       [p.inv_ev for p in ps], [p.ret_ev for p in ps],
+                       [np.asarray(p.crashed, bool) for p in ps])
+
+
+def _union_pack_group(sa: _UnionPrepA, sel: Sequence[int], max_slots: int):
+    """Stage B: the native packing (:func:`preproc_native.build_keyed`)
+    of the live histories at positions ``sel``. Returns
+    ``(ret_flat, ops_flat, key_W, key_R, offsets, W)``, or None when a
+    history needs more than ``max_slots`` slots under the union memo's
+    coarser no-op classification (union no-ops are per-history no-ops,
+    not always the reverse, so a history can overflow here and fit its
+    own prep, which raises on a genuine overflow)."""
+    t0 = _time.monotonic()
+    offs = np.zeros(len(sel) + 1, np.int64)
+    np.cumsum([len(sa.opids[k]) for k in sel], out=offs[1:])
+    built = preproc_native.build_keyed(
+        offs, np.concatenate([sa.invs[k] for k in sel]),
+        np.concatenate([sa.rets[k] for k in sel]),
+        np.concatenate([sa.opids[k] for k in sel]),
+        np.concatenate([sa.crs[k] for k in sel]), sa.noop_op, max_slots,
+        max_slots)
+    sa.pack_s += _time.monotonic() - t0
+    ret_flat, ops_wide, _pend, key_W, key_R, _ret_entry, _R = built
+    if (key_W < 0).any():
+        return None
+    W = max(int(key_W.max()), 1)
+    offsets = np.concatenate([[0], np.cumsum(key_R)])
+    return (ret_flat, np.ascontiguousarray(ops_wide[:, :W]), key_W, key_R,
+            offsets, W)
+
+
+def _union_prep(sa: _UnionPrepA, max_slots: int):
+    """Stage B over every live history at once, with the union tensor P:
+    ``(P, W, M, ret_flat, ops_flat, key_W, key_R, offsets)``, or None
+    (:func:`_union_pack_group`)."""
+    g = _union_pack_group(sa, range(len(sa.opids)), max_slots)
+    if g is None:
+        return None
+    ret_flat, ops_flat, key_W, key_R, offsets, W = g
+    return sa.P(), W, 1 << W, ret_flat, ops_flat, key_W, key_R, offsets
+
+
+def _union_stage_a_shared(model: Model, packed_list, live, max_states: int,
+                          u_box: Optional[dict]) -> Optional[_UnionPrepA]:
+    """One :func:`_union_stage_a` a ``check_many`` call, shared by the
+    lockstep and native keyed lanes through ``u_box`` (a failed one
+    too)."""
+    if u_box is not None and "sa" in u_box:
+        return u_box["sa"]
+    with obs.span("reach.prep", histories=len(live), union=True):
+        sa = _union_stage_a(model, packed_list, live, max_states)
+    if u_box is not None:
+        u_box["sa"] = sa
+    return sa
+
+
+def _union_prep_shared(sa: _UnionPrepA, max_slots: int,
+                       u_box: Optional[dict]):
+    """One :func:`_union_prep` a ``check_many`` call, shared as
+    :func:`_union_stage_a_shared` is."""
+    if u_box is not None and "u" in u_box:
+        return u_box["u"]
+    with obs.span("reach.prep", histories=len(sa.opids), union=True,
+                  stage="B"):
+        u = _union_prep(sa, max_slots)
+    if u_box is not None:
+        u_box["u"] = u
+    return u
+
+
+def _union_skip(sa: _UnionPrepA, W: int, max_dense: int,
+                fits) -> Optional[str]:
+    """Why a union lane does not take the union geometry at ``W`` slots
+    (None: it does): the dense budget, the fast path's budgets, or
+    ``fits(S_pad, M, n_ops)``, the lane's kernel envelope."""
+    M = 1 << W
+    if sa.S_pad * M > max_dense:
+        return "max-dense"
+    if not (_fast_ok(sa.S_pad, W, M, sa.memo_u.n_ops)
+            and fits(sa.S_pad, M, sa.memo_u.n_ops)):
+        return "geometry"
+    return None
+
+
+def _union_valid_result(engine: str, p: h.PackedHistory, dropped: int,
+                        key_R_k: int, key_W_k: int, n_states: int,
+                        elapsed: float) -> Dict[str, Any]:
+    """A valid verdict in the union geometry: the union's states, the
+    history's own slots and events under the union's no-op drops."""
+    return {"valid": True, "engine": engine,
+            "events": (p.n - dropped) + key_R_k,
+            "slots": key_W_k, "states": n_states,
+            "dropped-crashed-noops": dropped, "time-s": elapsed}
+
+
+def _union_results_parts(engine: str, model: Model,
+                         packed_list: Sequence[h.PackedHistory],
+                         live: Sequence[int], dead_local: np.ndarray,
+                         memo_u: Memo, key_W, key_R,
+                         drop_per_key: np.ndarray, elapsed: float,
+                         max_states: int, max_slots: int, max_dense: int,
+                         device) -> List[Dict[str, Any]]:
+    """Per-history results from union-geometry verdicts: ``dead_local[k]``
+    is live history k's dead return index (-1: linearizable). A valid
+    history is answered from the union accounting; a failed one is
+    decoded in its own geometry, with the witness re-walked on
+    ``device`` (:func:`_lane_verdict`)."""
+    results: List[Optional[Dict[str, Any]]] = [
+        {"valid": True, "engine": engine, "events": 0, "time-s": 0.0}
+        if (p.n == 0 or p.n_ok == 0) else None for p in packed_list]
+    for k, i in enumerate(live):
+        p = packed_list[i]
+        if int(dead_local[k]) < 0:
+            results[i] = _union_valid_result(
+                engine, p, int(drop_per_key[k]), int(key_R[k]),
+                int(key_W[k]), memo_u.n_states, elapsed)
+            continue
+        memo_k, stream_k, _T, S_k, M_k = _prep(
+            model, p, max_states=max_states, max_slots=max_slots,
+            max_dense=max_dense)
+        rs_k = ev.returns_view(stream_k)
+        results[i] = _lane_verdict(
+            engine, int(dead_local[k]), elapsed, stream_k, memo_k, p, rs_k,
+            _build_P(memo_k, S_k), S_k, M_k, max(stream_k.W, 1), device)
+    return results  # type: ignore[return-value]
+
+
+def _union_results(engine: str, model: Model, packed_list, live,
+                   dead_local: np.ndarray, sa: _UnionPrepA, key_W, key_R,
+                   t0: float, max_states: int, max_slots: int,
+                   max_dense: int, device) -> List[Dict[str, Any]]:
+    """:func:`_union_results_parts` from stage A's accounting."""
+    return _union_results_parts(
+        engine, model, packed_list, live, dead_local, sa.memo_u, key_W,
+        key_R, sa.drop_per_key(), _time.monotonic() - t0, max_states,
+        max_slots, max_dense, device)
+
+
+def _lockstep_accounting(gdiags: List[dict], prep_s: float,
+                         dispatch_s: float, fetch_s: float,
+                         diag: Optional[dict]) -> None:
+    """The scheduler's tail: the groups' packing (real against padded
+    returns) into the ``obs`` counters, and with ``diag`` the groups and
+    the prep, dispatch and fetch wall."""
+    real = sum(d["real_returns"] for d in gdiags)
+    padded = sum(d["padded_returns"] for d in gdiags)
+    obs.count("lockstep.groups", len(gdiags))
+    obs.count("lockstep.real_returns", real)
+    obs.count("lockstep.padded_returns", padded)
+    if diag is not None:
+        diag.update(
+            groups=gdiags, real_returns=real, padded_returns=padded,
+            pack_efficiency=round(real / max(padded, 1), 4),
+            prep_s=round(prep_s, 6), dispatch_s=round(dispatch_s, 6),
+            fetch_s=round(fetch_s, 6))
+
+
+def _flat_lanes(flat: np.ndarray, offsets, keys):
+    """The rows of ``keys`` in a flat keyed array, one array a key."""
+    return [flat[offsets[k]:offsets[k + 1]] for k in keys]
+
+
+def _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets, groups,
+                              M: int, n_live: int,
+                              diag: Optional[dict] = None,
+                              prep_base_s: float = 0.0,
+                              device=None) -> np.ndarray:
+    """The lockstep scheduler: each group of ``groups`` (positions on the
+    live axis, :func:`reach_batch.plan_buckets`) is marshalled, staged on
+    the card and collected in order, with group g+1 staged before group
+    g is collected, so the host marshals a group while the card walks
+    the one before. Returns each live history's dead return index (-1:
+    linearizable)."""
+    dead = np.full(n_live, -1, np.int64)
+    st = dispatch_core.DispatchState(dead, device)
+    prep_s, dispatch_s = prep_base_s, 0.0
+    gdiags: List[dict] = []
+    for g in groups:
+        t0 = _time.monotonic()
+        with obs.span("lockstep.prep", lanes=len(g)):
+            prep = reach_batch.prepare_returns_batch(
+                P, _flat_lanes(ret_flat, offsets, g),
+                _flat_lanes(ops_flat, offsets, g), M)
+        t1 = _time.monotonic()
+        prep_s += t1 - t0
+        gdiags.append(st.stage(g, prep))
+        dispatch_s += _time.monotonic() - t1
+        st.collect(st.depth)
+    st.collect(0)
+    _lockstep_accounting(gdiags, prep_s, dispatch_s, st.fetch_s, diag)
+    return dead
+
+
+# histories a lockstep group: one K2 launch walks up to 32 lanes
+_BATCH_GROUP = 32
+
+
+def _check_many_lockstep(model: Model,
+                         packed_list: Sequence[h.PackedHistory],
+                         live: Sequence[int], *, max_states: int,
+                         max_slots: int, max_dense: int, t0: float,
+                         diag: Optional[dict], u_box: Optional[dict],
+                         device) -> Optional[List[Dict[str, Any]]]:
+    """The lockstep lane on K2: one union prep, the live histories packed
+    into length buckets (:func:`reach_batch.plan_buckets`) of at most
+    :data:`_BATCH_GROUP` lanes, each group one K2 launch staged while the
+    one before it walks (:func:`_dispatch_lockstep_groups`). Returns the
+    results, or None when the lane declines, with the cause recorded:
+    fewer than two live histories, a union alphabet that explodes or is
+    unhashable, a history over ``max_slots`` under the union's no-op
+    classification, or a union geometry outside K2's envelope or the
+    budgets. A fault in the lane propagates."""
+    def skip(cause: str) -> None:
+        obs.decision("reach-lockstep", "skipped", cause=cause,
+                     histories=len(packed_list))
+
+    if len(live) < 2:
+        return skip("histories")
+    sa = _union_stage_a_shared(model, packed_list, live, max_states, u_box)
+    if sa is None:
+        return skip("union")
+    u = _union_prep_shared(sa, max_slots, u_box)
+    if u is None:
+        return skip("slots")
+    P, W, M, ret_flat, ops_flat, key_W, key_R, offsets = u
+    cause = _union_skip(sa, W, max_dense, reach_batch.fits)
+    if cause is not None:
+        return skip(cause)
+    groups = reach_batch.plan_buckets(key_R, group=_BATCH_GROUP)
+    with obs.span("reach.walk", engine="reach-lockstep",
+                  histories=len(live)):
+        dead = _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets,
+                                         groups, M, len(live), diag,
+                                         sa.pack_s, device)
+    return _union_results("reach-lockstep", model, packed_list, live, dead,
+                          sa, key_W, key_R, t0, max_states, max_slots,
+                          max_dense, device)
+
+
+def _check_many_native(model: Model, packed_list: Sequence[h.PackedHistory],
+                       live: Sequence[int], *, max_states: int,
+                       max_slots: int, max_dense: int, t0: float,
+                       u_box: Optional[dict], device):
+    """The native keyed lane: one union prep (shared with the lockstep
+    lane through ``u_box``), then one keyed launch over every key's
+    stream: K3 when the union geometry fits
+    :func:`reach_lane.keyed_fits`, else K5 when it fits
+    :func:`reach_pallas.fits`. Returns ``(results, cause)``, the cause
+    ``"keyed"`` or ``"keyed-wide"``, or None when the lane declines
+    (cause recorded, as the lockstep lane's). A fault propagates."""
+    def skip(cause: str) -> None:
+        obs.decision("reach-native-keyed", "skipped", cause=cause,
+                     histories=len(packed_list))
+
+    sa = _union_stage_a_shared(model, packed_list, live, max_states, u_box)
+    if sa is None:
+        return skip("union")
+    u = _union_prep_shared(sa, max_slots, u_box)
+    if u is None:
+        return skip("slots")
+    P, W, M, ret_flat, ops_flat, key_W, key_R, offsets = u
+    cause = _union_skip(sa, W, max_dense,
+                        lambda *g: _keyed_kernel(*g) is not None)
+    if cause is not None:
+        return skip(cause)
+    cause = _keyed_kernel(sa.S_pad, M, sa.memo_u.n_ops)
+    walker = reach_lane if cause == "keyed" else reach_pallas
+    key_flat = np.repeat(np.arange(len(live), dtype=np.int32), key_R)
+    with obs.span("reach.walk", engine="reach-keyed",
+                  returns=int(ret_flat.shape[0]), keys=len(live)):
+        dead = walker.walk_returns_keyed(P, ret_flat, ops_flat, key_flat,
+                                         len(live), M, device=device)
+    dead_local = np.where(dead >= 0, dead - offsets[:-1], -1)
+    return _union_results("reach-keyed", model, packed_list, live,
+                          dead_local, sa, key_W, key_R, t0, max_states,
+                          max_slots, max_dense, device), cause
+
+
+def check_batch(model: Model, packed_list: Sequence[h.PackedHistory], *,
+                max_states: int = 100_000, max_slots: int = 20,
+                max_dense: int = 1 << 22, diag: Optional[dict] = None,
+                device=None) -> List[Dict[str, Any]]:
+    """Check several whole histories at once on ``device`` (default: the
+    card) through the lockstep lane on K2 (:func:`_check_many_lockstep`):
+    up to 32 histories advance together, one return index a step.
+    For a run that produced several histories (several test iterations,
+    or a history per node). When the lane declines, each history goes
+    through :func:`check_packed`, recorded as the
+    ``reach-lockstep``/``no-union-prep`` fallback. Verdicts and witnesses
+    are those of :func:`check_packed`; a valid history reports the union
+    geometry's ``states``. ``diag`` (a dict) receives the groups, their
+    packing and the scheduler's wall times."""
+    dev = _device.resolve(device)
+    t0 = _time.monotonic()
+    results: List[Optional[Dict[str, Any]]] = [
+        {"valid": True, "engine": "reach-lockstep", "events": 0,
+         "time-s": 0.0} if (p.n == 0 or p.n_ok == 0) else None
+        for p in packed_list]
+    live = [i for i, r in enumerate(results) if r is None]
+    if not live:
+        return results  # type: ignore[return-value]
+    out = _check_many_lockstep(
+        model, packed_list, live, max_states=max_states,
+        max_slots=max_slots, max_dense=max_dense, t0=t0, diag=diag,
+        u_box=None, device=dev)
+    if out is not None:
+        return out
+    obs.engine_fallback("reach-lockstep", "no-union-prep",
+                        histories=len(live))
+    for i in live:
+        results[i] = check_packed(model, packed_list[i],
+                                  max_states=max_states,
+                                  max_slots=max_slots, max_dense=max_dense,
+                                  device=dev)
+    return results  # type: ignore[return-value]
+
+
 def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
                max_states: int = 100_000, max_slots: int = 20,
                max_dense: int = 1 << 22, should_abort=None,
+               diag: Optional[dict] = None,
                device=None) -> List[Dict[str, Any]]:
     """Batched per-key checking on ``device`` (default: the card), the
     ``independent`` checker's hot path; results align with
-    ``packed_list``. Route order: the reference's lockstep and native
-    keyed lanes (recorded as not ported: both need its native union
-    prep); a keyed kernel over all keys at once, K3 when the union
-    alphabet fits it, else K5 (:func:`reach_pallas.fits`); else each
-    history through :func:`check_packed`
-    (the reference's vmapped batch is not ported). ``should_abort`` is
-    consulted once, before the dispatch; when it fires every history
-    reports ``valid == "unknown"``. Raises :class:`DenseOverflow`,
+    ``packed_list``. Route order, each lane chosen from the geometry
+    before it launches, and each recording why it declines: the lockstep
+    lane on K2 (:func:`_check_many_lockstep`, route cause ``lockstep``:
+    groups of at most 32 keys; ``diag``, a dict, receives the groups,
+    their packing and the scheduler's wall times); the native
+    keyed lane (:func:`_check_many_native`, one
+    union prep and one launch of K3, cause ``keyed``, or K5,
+    ``keyed-wide``); the keyed kernels over each key's own prep
+    (:func:`_keyed_operands`, for a key that overflows ``max_slots``
+    only under the union's no-op classification); else each history
+    through :func:`check_packed` (the reference's vmapped batch is not
+    ported). A fault in a lane propagates. ``should_abort`` is consulted
+    once, before anything runs; when it fires every history reports
+    ``valid == "unknown"``. Raises :class:`DenseOverflow`,
     :class:`~jepsen_tpu_torch.checkers.events.ConcurrencyOverflow` or
     :class:`~jepsen_tpu_torch.models.memo.StateExplosion` when a
     history does not fit the dense engine."""
@@ -740,14 +1123,28 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
     if should_abort is not None and should_abort():
         return [{"valid": "unknown", "cause": "aborted",
                  "engine": "reach-batch"} for _ in packed_list]
-    for stage in ("reach-lockstep", "reach-native-keyed"):
-        obs.decision(stage, "skipped", cause="not-ported", histories=n)
+    live = [i for i, p in enumerate(packed_list) if p.n and p.n_ok]
+    lane_kw = dict(max_states=max_states, max_slots=max_slots,
+                   max_dense=max_dense, t0=t0, device=dev)
+    u_box: dict = {}            # one union prep shared by both lanes
+    if live:
+        out = _check_many_lockstep(model, packed_list, live, diag=diag,
+                                   u_box=u_box, **lane_kw)
+        if out is not None:
+            obs.decision("reach-many", "route", cause="lockstep",
+                         histories=n)
+            return out
+        native = _check_many_native(model, packed_list, live, u_box=u_box,
+                                    **lane_kw)
+        if native is not None:
+            out, cause = native
+            obs.decision("reach-many", "route", cause=cause, histories=n)
+            return out
     with obs.span("reach.prep", histories=n):
         preps = [None if p.n == 0 or p.n_ok == 0 else
                  _prep(model, p, max_states=max_states,
                        max_slots=max_slots, max_dense=max_dense)
                  for p in packed_list]
-    live = [i for i, p in enumerate(preps) if p is not None]
     results: List[Optional[Dict[str, Any]]] = [
         None if p is not None else
         {"valid": True, "engine": "reach-batch", "events": 0, "time-s": 0.0}

@@ -1,6 +1,8 @@
 """Lockstep batch walk: H independent return streams advance through
 the dense-reachability returns walk together, one return index per
-step — the engine under chunk-lockstep (:mod:`.reach_chunklock`).
+step — the engine under chunk-lockstep (:mod:`.reach_chunklock`) and
+under the lockstep lane of :func:`reach.check_many` and
+:func:`reach.check_batch`.
 
 :func:`batch_walk` runs the whole walk as one launch of the
 hand-written CUDA kernel in ``csrc/batch_walk.cu`` (counterpart of the
@@ -11,24 +13,29 @@ columns ``h·S .. h·S+S-1`` and, within a lane, seed group e owns rows
 block; on CPU tensors :func:`batch_walk_plain` runs the same walk in
 PyTorch ops, following the reference's gate literally.
 
-:func:`walk_returns_batch` is the host side, as the reference's
-blocking dispatch and collect: the capped ladder, the exact ``W``-pass
-rescue when a lane dies, and each dead lane located at its first empty
-block checkpoint and refined by :func:`reach_lane._refine_dead`, one K1
-launch over the dying block.
+:func:`plan_buckets` packs a ragged batch (the ``independent`` keys,
+or :func:`reach.check_batch`'s histories) into groups of lanes of like
+length; each group is marshalled on the host
+(:func:`prepare_returns_batch`), copied and queued as one K2 launch
+with nothing fetched (:func:`dispatch_prepared`), and collected
+(:func:`collect_returns_batch`) as the reference's split dispatch: the
+capped ladder, the exact ``W``-pass rescue when a lane dies, and each
+dead lane located at its first empty block checkpoint and refined by
+:func:`reach_lane._refine_dead`, one K1 launch over the dying block.
 Verdicts and dead indices are those of H single-history walks.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from jepsen_tpu_torch import device as _device
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import reach_lane
-from jepsen_tpu_torch.checkers.reach_lane import _BLOCK, _FAST_PASSES
+from jepsen_tpu_torch.checkers.reach_lane import _FAST_PASSES
 
 #: launches of the CUDA kernel (not of the plain version) in this process
 KERNEL_LAUNCHES = 0
@@ -40,6 +47,10 @@ def group_geom(R_max: int, B: int) -> int:
     from jepsen_tpu_torch.checkers.reach import _bucket
 
     return max(B, _bucket(-(-max(int(R_max), 1) // B) * B, B))
+
+
+#: K2's envelope: the narrow walks' (K1, K3), :func:`reach_lane.lane_fits`
+fits = reach_lane.lane_fits
 
 
 def batch_walk_plain(P: torch.Tensor, slot_ops: torch.Tensor,
@@ -150,20 +161,83 @@ def batch_walk(P: torch.Tensor, slot_ops: torch.Tensor,
     raise ValueError(f"batch_walk: unsupported device {R0.device}")
 
 
-def pack_batch_operands(P: np.ndarray, ret_slots: List[np.ndarray],
-                        slot_ops: List[np.ndarray], M: int, *,
-                        B: int = _BLOCK, device=None):
-    """Marshal H return streams into the lockstep layout on ``device``:
-    all padded with identity steps (slot -1) to one bucketed ``R_pad``
-    and interleaved return-major, ``slot_ops[(r·H + h)·W + j]`` and
+# the checkpoint block of the lockstep groups (the independent keys and
+# check_batch's histories), and plan_buckets' floor: a group walks whole
+# blocks, so a small block keeps the padding of short keys small (a
+# group of 47-return keys walks 64 steps, not 1,024); K2 takes any block
+LOCK_BLOCK = 64
+# the bytes a group's block checkpoints may take on the card: past them
+# the block doubles (a long, wide group)
+_CKPT_BYTES = 1 << 28
+
+
+def lock_block(R_max: int, M: int, HS: int) -> int:
+    """The checkpoint block of a lockstep group whose longest stream has
+    ``R_max`` returns and whose sets are ``[M, HS]`` f32:
+    :data:`LOCK_BLOCK`, doubled while the checkpoints would pass
+    :data:`_CKPT_BYTES`."""
+    B = LOCK_BLOCK
+    while B < R_max and -(-R_max // B) * M * HS * 4 > _CKPT_BYTES:
+        B *= 2
+    return B
+
+
+def plan_buckets(R_lens, *, group: int = 32) -> List[List[int]]:
+    """Length-bucketed lane packing: partition a ragged batch of return
+    streams into lockstep groups of at most ``group`` lanes such that no
+    stream walks more than about twice its own length. Streams go to
+    power-of-two length buckets, each bucket chunked longest first; the
+    lengths up to :data:`LOCK_BLOCK`, the block every group pads to,
+    share one floor bucket. Groups come longest bucket first. Returns a
+    partition of ``range(len(R_lens))``."""
+    order = sorted(range(len(R_lens)), key=lambda i: (-int(R_lens[i]), i))
+    buckets: dict = {}
+    for i in order:
+        eff = max(int(R_lens[i]), LOCK_BLOCK, 1)
+        buckets.setdefault((eff - 1).bit_length(), []).append(i)
+    groups: List[List[int]] = []
+    for key in sorted(buckets, reverse=True):
+        idxs = buckets[key]
+        for j in range(0, len(idxs), group):
+            groups.append(idxs[j:j + group])
+    return groups
+
+
+def group_diag(geom, R_lens) -> dict:
+    """One lockstep group's geometry and packing: real returns against
+    the ``H · R_pad`` steps its lanes walk."""
+    B, W, M, S, H, O1, R_pad = geom
+    return {"H": H, "B": B, "W": W, "S": S, "R_pad": R_pad,
+            "real_returns": int(sum(int(r) for r in R_lens)),
+            "padded_returns": H * R_pad}
+
+
+class BatchPrepared:
+    """A group's operands marshalled on the host: ``geom`` is ``(B, W, M,
+    S, H, O1, R_pad)``, ``host`` the arrays ``(P, slot_ops, ret_slot_rh,
+    R0)`` of :func:`batch_walk`, ``R_lens`` each lane's real returns."""
+    __slots__ = ("geom", "host", "R_lens")
+
+    def __init__(self, geom, host, R_lens):
+        self.geom = geom
+        self.host = host
+        self.R_lens = R_lens
+
+
+def prepare_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
+                          slot_ops: List[np.ndarray], M: int, *,
+                          B: Optional[int] = None) -> BatchPrepared:
+    """Marshal H return streams into the lockstep layout on the host: all
+    padded with identity steps (slot -1) to one bucketed ``R_pad`` and
+    interleaved return-major, ``slot_ops[(r·H + h)·W + j]`` and
     ``ret_slot_rh[r, h]``; each lane seeded one-hot at mask 0, state 0.
-    Returns ``(geom, args, R_lens)``: ``geom`` is
-    ``(B, W, M, S, H, O1, R_pad)`` and ``args`` feed :func:`batch_walk`."""
-    dev = _device.resolve(device)
+    ``B`` defaults to :func:`lock_block`."""
     O1, S, _ = P.shape
     H = len(ret_slots)
     W = max(int(so.shape[1]) for so in slot_ops)
     R_max = max(1, max(int(r.shape[0]) for r in ret_slots))
+    if B is None:
+        B = lock_block(R_max, M, H * S)
     R_pad = group_geom(R_max, B)
     rs_rh = np.full((R_pad, H), -1, np.int32)
     ops_rhw = np.full((R_pad, H, W), -1, np.int32)
@@ -173,50 +247,84 @@ def pack_batch_operands(P: np.ndarray, ret_slots: List[np.ndarray],
         ops_rhw[:n, h, :slot_ops[h].shape[1]] = slot_ops[h]
     R0 = np.zeros((M, H * S), np.float32)
     R0[0, ::S] = 1.0                         # mask 0, state 0 per lane
-    args = tuple(torch.as_tensor(a, device=dev) for a in (
-        np.ascontiguousarray(P, np.float32), ops_rhw.reshape(-1), rs_rh,
-        R0))
-    geom = (B, W, M, S, H, O1, R_pad)
-    return geom, args, [int(r.shape[0]) for r in ret_slots]
+    host = (np.ascontiguousarray(P, np.float32), ops_rhw.reshape(-1), rs_rh,
+            R0)
+    return BatchPrepared((B, W, M, S, H, O1, R_pad), host,
+                         [int(r.shape[0]) for r in ret_slots])
 
 
-def walk_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
-                       slot_ops: List[np.ndarray], M: int, *,
-                       B: int = _BLOCK, device=None) -> np.ndarray:
-    """Walk H independent return streams in lockstep on ``device``
-    (default: the card); returns ``dead[H]``, per stream the first
-    return index at which its config set emptied, or -1 if
-    linearizable. The capped ladder runs first (a surviving lane is
-    valid); when a lane dies and ``W`` is past the cap, the exact
-    ``W``-pass walk decides; each dead lane is located at its first
-    empty block checkpoint, and one K1 launch over the block before it
-    gives the exact return."""
-    geom, args, R_lens = pack_batch_operands(P, ret_slots, slot_ops, M,
-                                             B=B, device=device)
-    B, W, M, S, H, O1, R_pad = geom
-    n_fast = min(W, _FAST_PASSES)
+class BatchInflight:
+    """A group whose walk is queued and not fetched: the operands on the
+    card, the capped walk's outputs, each lane's alive bit reduced on the
+    card, and an event recorded after them (None on the CPU, where
+    everything has run). Produced by :func:`dispatch_prepared`, consumed
+    by :func:`collect_returns_batch`."""
+    __slots__ = ("prep", "args", "ckpt", "final", "alive", "event")
 
-    def alive_of(final):
-        return (final.view(M, H, S) > 0.5).any(2).any(0).cpu().numpy()
+    def __init__(self, prep, args, ckpt, final, alive, event):
+        self.prep = prep
+        self.args = args
+        self.ckpt = ckpt
+        self.final = final
+        self.alive = alive
+        self.event = event
 
-    ckpt, final = batch_walk(*args, B, n_fast)
-    alive = alive_of(final)                      # the one round trip
-    if not alive.all() and n_fast < W:
+
+def _alive_lanes(final: torch.Tensor, H: int, S: int) -> torch.Tensor:
+    """Each lane's alive bit, on the set's device."""
+    return (final.view(-1, H, S) > 0.5).any(2).any(0)
+
+
+def dispatch_prepared(prep: BatchPrepared, *, device=None) -> BatchInflight:
+    """Copy a prepared group to ``device`` (default: the card) and queue
+    its capped walk, one K2 launch, on the current stream; nothing is
+    fetched and nothing waits. Pair with :func:`collect_returns_batch`."""
+    dev = _device.resolve(device)
+    B, W, M, S, H, O1, R_pad = prep.geom
+    args = tuple(torch.as_tensor(a, device=dev) for a in prep.host)
+    ckpt, final = batch_walk(*args, B, min(W, _FAST_PASSES))
+    alive = _alive_lanes(final, H, S)
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return BatchInflight(prep, args, ckpt, final, alive, event)
+
+
+def collect_returns_batch(fl: BatchInflight) -> np.ndarray:
+    """Wait for a queued group and return ``dead[H]``: per stream the
+    first return index at which its config set emptied, or -1 if
+    linearizable. The capped walk's alive bits come first (a surviving
+    lane is valid); when a lane dies and ``W`` is past the cap, the exact
+    ``W``-pass walk decides; each dead lane is located at its first empty
+    block checkpoint, and one K1 launch over the block before it gives
+    the exact return."""
+    B, W, M, S, H, O1, R_pad = fl.prep.geom
+    if fl.event is not None:
+        fl.event.synchronize()
+    alive = fl.alive.cpu().numpy()               # the one round trip
+    ckpt = fl.ckpt
+    if not alive.all() and min(W, _FAST_PASSES) < W:
         # capped-ladder deaths may be false: decide with the exact walk
-        ckpt, final = batch_walk(*args, B, W)
-        alive = alive_of(final)
+        obs.count("lockstep.exact_rescue")
+        ckpt, final = batch_walk(*fl.args, B, W)
+        alive = _alive_lanes(final, H, S).cpu().numpy()
     dead = np.full(H, -1, np.int64)
     if alive.all():
         return dead
-    P_t, ops_t, rs_t, _R0 = args
+    lanes = np.nonzero(~alive)[0]
     n_blocks = R_pad // B
     ck = ckpt.view(n_blocks, M, H, S)
-    for h in np.nonzero(~alive)[0]:
-        occ = (ck[:, :, h] > 0.5).reshape(n_blocks, -1).any(1).cpu().numpy()
-        first_empty = int(np.argmin(occ)) if not occ.all() else n_blocks
+    occ = (ck[:, :, torch.as_tensor(lanes, device=ck.device)] > 0.5) \
+        .any(3).any(1).cpu().numpy()              # [blocks, dead lanes]
+    _P, ops_host, rs_host, _R0 = fl.prep.host
+    ops_rhw = ops_host.reshape(R_pad, H, W)
+    for i, h in enumerate(lanes):
+        first_empty = int(np.argmin(occ[:, i])) if not occ[:, i].all() \
+            else n_blocks
         blk = max(0, first_empty - 1)
         dead[h] = reach_lane._refine_dead(
-            P_t, W, rs_t[:, h].cpu().numpy(),
-            ops_t.view(R_pad, H, W)[:, h].cpu().numpy(), ck[blk, :, h],
-            blk * B, min(B, max(1, R_lens[h] - blk * B)), B)
+            fl.args[0], W, rs_host[:, h], ops_rhw[:, h], ck[blk, :, h],
+            blk * B, min(B, max(1, fl.prep.R_lens[h] - blk * B)), B)
     return dead
+

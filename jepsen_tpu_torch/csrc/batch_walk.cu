@@ -1,6 +1,7 @@
 // K2: H independent returns walks in lockstep, each lane's rows split
 // into E seed groups — the kernel of chunk-lockstep's two phases
-// (reach_chunklock.py) and of walk_returns_batch (reach_batch.py).
+// (reach_chunklock.py) and of the lockstep lane's groups
+// (dispatch_prepared in reach_batch.py).
 //
 // Replaces the Pallas lockstep batch kernel of the reference package
 // (jepsen_tpu/checkers/reach_batch.py, _batch_call / _make_batch_kernel,

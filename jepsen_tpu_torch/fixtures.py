@@ -158,6 +158,86 @@ _SIM_KINDS = {
 }
 
 
+class _LazyEntries:
+    """Tuple-like view that builds :class:`jepsen_tpu_torch.history.Entry`
+    objects on demand: a many-million-op benchmark input must not
+    materialize an object per op (entries are read only to report a
+    failure)."""
+
+    def __init__(self, inv_ev, ret_ev, op_id, proc, ops):
+        self._inv, self._ret = inv_ev, ret_ev
+        self._oid, self._proc, self._ops = op_id, proc, ops
+
+    def __len__(self) -> int:
+        return len(self._inv)
+
+    def __getitem__(self, i: int):
+        from jepsen_tpu_torch.history import Entry
+
+        tmpl = self._ops[int(self._oid[i])]
+        op = tmpl.with_(process=int(self._proc[i]),
+                        index=int(self._inv[i]), time=int(self._inv[i]))
+        return Entry(eid=int(i), op=op, inv_ev=int(self._inv[i]),
+                     ret_ev=int(self._ret[i]), crashed=False)
+
+
+def gen_packed(kind: str = "cas", n_ops: int = 100, processes: int = 5,
+               values: int = 5, seed: Optional[int] = None):
+    """Benchmark-history generator: the tick-loop simulation of
+    :func:`gen_history` (register and cas kinds, no crashes) run in C++
+    (``native/preproc.cpp`` ``jt_gen_history``), emitting a
+    :class:`~jepsen_tpu_torch.history.PackedHistory` directly, with lazily
+    built entries. Linearizable by construction, as :func:`gen_history`'s
+    output; failed CAS attempts are stripped as the analysis does. Other
+    kinds pack :func:`gen_history`'s output.
+
+    For a given seed the history differs from :func:`gen_history`'s (a
+    different generator: same distribution, not the same stream); it is
+    the reference package's ``gen_packed`` history, array for array."""
+    import numpy as np
+
+    from jepsen_tpu_torch import history as h
+    from jepsen_tpu_torch.checkers import preproc_native
+    from jepsen_tpu_torch.util import hashable
+
+    kinds = {"register": 0, "cas": 1}
+    if kind not in kinds:
+        return h.pack(gen_history(kind, n_ops=n_ops, processes=processes,
+                                  values=values, seed=seed))
+    if seed is None:
+        # as gen_history(seed=None): fresh randomness on every call
+        seed = random.SystemRandom().randrange(1 << 31)
+    inv_ev, ret_ev, opid_raw, proc, count = preproc_native.gen_history(
+        seed, n_ops, processes, values, kinds[kind])
+    order = np.argsort(inv_ev, kind="stable")  # entries by invocation
+    inv_ev, ret_ev = inv_ev[order], ret_ev[order]
+    opid_raw, proc = opid_raw[order], proc[order]
+    # dense alphabet over the identities present
+    V = values
+    present, op_id = np.unique(opid_raw, return_inverse=True)
+    ops = []
+    for enc in present.tolist():
+        if enc == 0:
+            f, v = "read", None
+        elif enc <= V:
+            f, v = "read", enc - 1
+        elif enc <= 2 * V:
+            f, v = "write", enc - 1 - V
+        else:
+            a, b = divmod(enc - 1 - 2 * V, V)
+            f, v = "cas", [a, b]
+        ops.append(invoke(0, f, v))
+    inf_ev = 2 * n_ops + 2          # > any event rank (2 per op at most)
+    entries = _LazyEntries(inv_ev, ret_ev, op_id.astype(np.int32), proc,
+                           ops)
+    return h.PackedHistory(
+        n=count, inv_ev=inv_ev, ret_ev=ret_ev,
+        op_id=np.ascontiguousarray(op_id, np.int32),
+        crashed=np.zeros(count, bool), inf_ev=inf_ev,
+        distinct_ops=tuple(ops), entries=entries,  # type: ignore[arg-type]
+        op_keys=tuple((op.f, hashable(op.value)) for op in ops))
+
+
 def model_for(kind: str) -> m.Model:
     return {
         "register": m.register(),

@@ -5,8 +5,9 @@ the inner checker on each sub-history, and merges.
 
 When the inner checker is ``Linearizable`` (``auto`` or ``reach``), all
 keys go to the card at once (:func:`jepsen_tpu_torch.checkers.reach.check_many`:
-one launch of the keyed kernel walks every key's returns); the upstream
-runs per-key Knossos analyses on a thread pool.
+one union prep, then groups of keys walked in lockstep, a launch a
+group, or one launch of a keyed kernel over every key's returns); the
+upstream runs per-key Knossos analyses on a thread pool.
 """
 from __future__ import annotations
 

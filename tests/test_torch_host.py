@@ -166,9 +166,12 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 17                   # every module imported
+    assert len(imported) >= 20                   # every module imported
     assert {"jepsen_tpu_torch.checkers.reach_batch",
             "jepsen_tpu_torch.checkers.reach_chunklock",
+            "jepsen_tpu_torch.checkers.preproc_native",
+            "jepsen_tpu_torch.checkers.dispatch_core",
+            "jepsen_tpu_torch._native",
             "jepsen_tpu_torch.independent",
             "jepsen_tpu_torch.tools.ablate_lane"} <= imported
 

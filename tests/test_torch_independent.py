@@ -6,9 +6,14 @@ The reference's Pallas keyed kernel runs in interpret mode; the port's
 which the CUDA kernel is held against on the card by ``chip_smoke.py``.
 The checker comparison runs the same multi-key histories through
 ``independent.checker(linearizable(...))`` in both packages; on the CPU
-the reference checks the keys with its vmapped batch, the port with the
-keyed walk. Verdicts, failing keys, failing ops, dead events and
-witnesses must be equal exactly.
+the reference checks the keys with its vmapped batch, the port with its
+lockstep lane (K2's plain version), its native keyed lane or the keyed
+walk. Verdicts, failing keys, failing ops, dead events and witnesses
+must be equal exactly. A union lane answers a valid key in the union
+geometry (the union's states, the key's slots and events under the
+union's no-op drops): every key's result of such a route is also held
+against the reference's own ``_union_results_parts`` on the port's dead
+vector.
 """
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from jepsen_tpu.history import pack
 from jepsen_tpu_torch import Linearizable, independent, obs
 from jepsen_tpu_torch import fixtures as fx_pt
 from jepsen_tpu_torch.checkers import reach as reach_pt
+from jepsen_tpu_torch.checkers import reach_batch as rb_pt
 from jepsen_tpu_torch.checkers import reach_lane as lane_pt
 from jepsen_tpu_torch.checkers import reach_pallas as pallas_pt
 
@@ -106,8 +112,34 @@ def test_keyed_runs_are_checked():
         lane_pt.walk_returns_keyed(P, ret, ops, key, 2, M, device="cpu")
 
 
+def _ref_union_results(kind, history, r_pt, engine):
+    """The reference's ``_union_results_parts`` over the keys of
+    ``history`` (packed as the independent checker packs them), on the
+    dead vector of the port's results ``r_pt`` (a failed key's
+    ``max-linearized`` is its dead return): ``{key: result}``."""
+    model = fx_ref.model_for(kind)
+    subs = ind_ref.split_history(history)
+    keys = sorted(subs, key=repr)
+    packed = [pack(subs[k]) for k in keys]
+    live = [i for i, p in enumerate(packed) if p.n and p.n_ok]
+    sa = reach_ref._union_stage_a(model, packed, live, 100_000)
+    _r, _o, key_W, key_R, _off, _W = reach_ref._union_pack_group(
+        sa, range(len(live)), 20)
+    dead = np.array([-1 if r_pt["results"][keys[i]]["valid"] else
+                     r_pt["results"][keys[i]]["max-linearized"]
+                     for i in live])
+    out = reach_ref._union_results_parts(
+        engine, model, packed, live, dead, sa.memo_u, key_W, key_R,
+        sa.drop_per_key(), 0.0, 100_000, 20, 1 << 22)
+    return dict(zip(keys, out))
+
+
 def _check_both(kind, n_keys, n_ops, processes, bad, crash_p=0.0,
-                algorithm="auto"):
+                algorithm="auto", union=None):
+    """Both packages' independent checks of one keyed history. With
+    ``union`` (the engine of a union lane) every key's result is also the
+    reference's union accounting, and only its verdict fields are held
+    against the reference's check."""
     h1 = _keyed_history(fx_ref, kind, n_keys, n_ops, processes, bad,
                         crash_p)
     h2 = _keyed_history(fx_pt, kind, n_keys, n_ops, processes, bad,
@@ -122,9 +154,19 @@ def _check_both(kind, n_keys, n_ops, processes, bad, crash_p=0.0,
     for k in ("valid", "failures", "key-count"):
         assert r_pt[k] == r_ref[k], k
     assert set(r_pt["results"]) == set(r_ref["results"])
+    fields = PER_KEY
+    if union is not None:
+        fields = tuple(x for x in PER_KEY
+                       if x not in ("events", "slots", "states"))
+        for key, a in _ref_union_results(kind, h1, r_pt, union).items():
+            b = r_pt["results"][key]
+            diff = {x: (a.get(x), b.get(x)) for x in
+                    PER_KEY + ("engine", "dropped-crashed-noops")
+                    if a.get(x) != b.get(x)}
+            assert not diff, (key, diff)
     for key, a in r_ref["results"].items():
         b = r_pt["results"][key]
-        diff = {x: (a.get(x), b.get(x)) for x in PER_KEY
+        diff = {x: (a.get(x), b.get(x)) for x in fields
                 if a.get(x) != b.get(x)}
         assert not diff, (key, diff)
     return r_pt, cap
@@ -142,21 +184,24 @@ def test_independent_matches_reference(monkeypatch, kind, n_keys, processes,
     is kept out so both number the states the same way, which the
     witnesses' order of ``final-configs`` depends on."""
     monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
-    r_pt, cap = _check_both(kind, n_keys, 40, processes, bad, crash_p)
+    r_pt, cap = _check_both(kind, n_keys, 40, processes, bad, crash_p,
+                            union="reach-lockstep")
     assert r_pt["valid"] is (not bad)
     assert [r.get("cause") for r in cap.ledger
-            if r["event"] == "route"] == ["keyed"]
+            if r["event"] == "route"] == ["lockstep"]
     assert {r["engine"] for r in r_pt["results"].values()} == \
-        {"reach-keyed"}
+        {"reach-lockstep"}
     for key in r_pt["failures"]:
         assert r_pt["results"][key]["final-configs"]
 
 
 def test_reach_algorithm_and_per_history_route(monkeypatch):
     """With ``algorithm="reach"`` the batch stays on the dense engine;
-    when the union alphabet fits no keyed kernel, every key goes through
-    the single-history check, with the same results."""
+    when the union alphabet fits neither the lockstep kernel nor a keyed
+    one, every key goes through the single-history check, with the same
+    results."""
     monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    monkeypatch.setattr(rb_pt, "fits", lambda *a: False)
     monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
     monkeypatch.setattr(pallas_pt, "fits", lambda *a: False)
     r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4}, algorithm="reach")
@@ -166,16 +211,20 @@ def test_reach_algorithm_and_per_history_route(monkeypatch):
     assert {r["engine"] for r in r_pt["results"].values()} == \
         {"reach-lane"}
     skipped = {r["stage"]: r["cause"] for r in cap.skipped()}
+    assert skipped["reach-lockstep"] == "geometry"
+    assert skipped["reach-native-keyed"] == "geometry"
     assert skipped["reach-keyed"] == "DenseOverflow"
     assert skipped["reach-vmapped"] == "not-ported"
 
 
 def test_wide_keyed_route(monkeypatch):
-    """When K3 does not take the union alphabet, K5 does (route cause
-    ``keyed-wide``), with the reference's results for every key."""
+    """When neither K2 nor K3 takes the union alphabet, K5 does, through
+    the native keyed lane (route cause ``keyed-wide``), with the
+    reference's results for every key."""
     monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    monkeypatch.setattr(rb_pt, "fits", lambda *a: False)
     monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
-    r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4})
+    r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4}, union="reach-keyed")
     assert [r.get("cause") for r in cap.ledger if r["event"] == "route"
             and r["stage"] == "reach-many"] == ["keyed-wide"]
     assert {r["engine"] for r in r_pt["results"].values()} == \

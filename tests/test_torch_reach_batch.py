@@ -56,6 +56,20 @@ def _hists(kind, sizes, corrupt=(), processes=4):
     return out
 
 
+def _pack(P, rs, ops, M):
+    """The lockstep layout at block ``B`` on the CPU: ``(geom, args)``,
+    ``args`` the operands of ``batch_walk``."""
+    prep = rb_pt.prepare_returns_batch(P, rs, ops, M, B=B)
+    return prep.geom, tuple(torch.as_tensor(a) for a in prep.host)
+
+
+def _walk_dead(P, rs, ops, M):
+    """Each stream's dead return through the split dispatch at block
+    ``B``: marshal, queue, collect."""
+    return rb_pt.collect_returns_batch(rb_pt.dispatch_prepared(
+        rb_pt.prepare_returns_batch(P, rs, ops, M, B=B), device="cpu"))
+
+
 def _reference_walk(args, n_pass, Mp):
     P, ops, rs, R0 = (a.numpy() for a in args)
     R_pad, H = rs.shape
@@ -77,8 +91,7 @@ def test_plain_matches_pallas_interpret(kind, sizes, corrupt, n_pass):
     """ckpt and final of ``batch_walk_plain`` equal the reference kernel's
     ``_batch_call(B=32, ..., interpret=True, dtype="float32")``."""
     P, rs, ops, M = _operands(kind, _hists(kind, sizes, corrupt))
-    geom, args, _ = rb_pt.pack_batch_operands(P, rs, ops, M, B=B,
-                                              device="cpu")
+    geom, args = _pack(P, rs, ops, M)
     W, R_pad = geom[1], geom[6]
     n_pass = W if n_pass is None else n_pass
     ck, fin = rb_pt.batch_walk(*args, B, n_pass)
@@ -94,8 +107,7 @@ def test_plain_matches_pallas_interpret_seed_groups(e_pad, density):
     with arbitrary sets; fire and projection stay inside each group of
     M rows."""
     P, rs, ops, M = _operands("cas", _hists("cas", (70, 110, 50)))
-    _geom, args, _ = rb_pt.pack_batch_operands(P, rs, ops, M, B=B,
-                                               device="cpu")
+    _geom, args = _pack(P, rs, ops, M)
     H, S = len(rs), P.shape[1]
     R0 = np.random.default_rng(e_pad).random((e_pad * M, H * S)) < density
     args = args[:3] + (torch.as_tensor(R0.astype(np.float32)),)
@@ -115,7 +127,7 @@ def test_walk_returns_batch_matches_reference(kind, sizes, corrupt):
     """Per-lane dead indices equal the reference's lockstep walk."""
     P, rs, ops, M = _operands(kind, _hists(kind, sizes, corrupt))
     d_ref = rb_ref.walk_returns_batch(P, rs, ops, M, interpret=True)
-    d_pt = rb_pt.walk_returns_batch(P, rs, ops, M, B=B, device="cpu")
+    d_pt = _walk_dead(P, rs, ops, M)
     np.testing.assert_array_equal(d_pt, d_ref)
     assert (d_ref >= 0).sum() == len(corrupt)
 
@@ -145,13 +157,12 @@ def test_capped_ladder_rescue(monkeypatch):
              fx_ref.gen_history("cas", n_ops=50, processes=3, seed=4)]
     P, rs, ops, M = _operands("cas", hists)
     assert M >= 16
-    geom, args, _ = rb_pt.pack_batch_operands(P, rs, ops, M, B=B,
-                                              device="cpu")
+    geom, args = _pack(P, rs, ops, M)
     _, capped = rb_pt.batch_walk(*args, B, 2)
     S = P.shape[1]
     assert not capped.view(M, 3, S)[:, 0].any()    # the capped walk dies
     d_ref = rb_ref.walk_returns_batch(P, rs, ops, M, interpret=True)
-    d_pt = rb_pt.walk_returns_batch(P, rs, ops, M, B=B, device="cpu")
+    d_pt = _walk_dead(P, rs, ops, M)
     np.testing.assert_array_equal(d_pt, d_ref)
     assert d_pt[0] == -1 and d_pt[1] >= 0 and d_pt[2] == -1
 
@@ -175,7 +186,7 @@ def test_refinement_is_one_k1_launch_a_dead_lane(monkeypatch):
     P, rs, ops, M = _operands("cas", _hists("cas", (90, 60, 120, 40),
                                             (0, 2)))
     d_ref = rb_ref.walk_returns_batch(P, rs, ops, M, interpret=True)
-    d_pt = rb_pt.walk_returns_batch(P, rs, ops, M, B=B, device="cpu")
+    d_pt = _walk_dead(P, rs, ops, M)
     np.testing.assert_array_equal(d_pt, d_ref)
     assert (d_pt >= 0).sum() == 2 and len(walks) == 2
 
@@ -268,8 +279,7 @@ def test_table_walk_matches_batch_walk_plain(kind, sizes, corrupt, n_pass,
     hists = [fx_ref.corrupt(h, seed=s) if s in corrupt else h
              for s, h in enumerate(hists)]
     P, rs, ops, M = _operands(kind, hists)
-    _geom, args, _ = rb_pt.pack_batch_operands(P, rs, ops, M, B=B,
-                                               device="cpu")
+    _geom, args = _pack(P, rs, ops, M)
     H, S, W = len(rs), P.shape[1], int(ops[0].shape[1])
     if e_pad > 1:
         R0 = np.random.default_rng(e_pad).random((e_pad * M, H * S)) < 0.3

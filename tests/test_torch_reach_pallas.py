@@ -7,8 +7,11 @@ which the CUDA kernels are held against bit for bit on the card by
 ``chip_smoke.py``. Every comparison is exact: the config sets are 0/1
 and the indices integers. Then the routes: ``Linearizable`` on histories
 with more than 32 states takes K4, and the ``independent`` checker on
-keys whose union alphabet has more than 32 states takes K5; verdicts,
-failing ops, dead events and witnesses equal the reference facade's.
+keys whose union alphabet has more than 32 states takes K5, through the
+native keyed lane; verdicts, failing ops, dead events and witnesses
+equal the reference facade's, and every key's result (a valid key's in
+the union geometry) equals the reference's ``_union_results_parts`` on
+the port's dead vector.
 """
 import numpy as np
 import pytest
@@ -271,7 +274,30 @@ def test_wide_walk_aborts_between_segments(monkeypatch):
     assert res == {"valid": "unknown", "cause": "aborted", "engine": "reach"}
 
 
+def _ref_union_results(history, r_pt):
+    """The reference's ``_union_results_parts`` (engine ``reach-keyed``)
+    over the keys of ``history``, packed as the independent checker packs
+    them, on the dead vector of the port's results (a failed key's
+    ``max-linearized`` is its dead return): ``{key: result}``."""
+    model = m_ref.cas_register()
+    subs = ind_ref.split_history(history)
+    keys = sorted(subs, key=repr)
+    packed = [h_ref.pack(subs[k]) for k in keys]
+    live = list(range(len(packed)))
+    sa = reach_ref._union_stage_a(model, packed, live, 100_000)
+    _r, _o, key_W, key_R, _off, _W = reach_ref._union_pack_group(
+        sa, live, 20)
+    dead = np.array([-1 if r_pt["results"][k]["valid"] else
+                     r_pt["results"][k]["max-linearized"] for k in keys])
+    out = reach_ref._union_results_parts(
+        "reach-keyed", model, packed, live, dead, sa.memo_u, key_W, key_R,
+        sa.drop_per_key(), 0.0, 100_000, 20, 1 << 22)
+    return dict(zip(keys, out))
+
+
 def _check_independent(kw, n_keys, bad):
+    """Both packages' independent checks: the verdict fields against the
+    reference's check, every field against its union accounting."""
     h1 = _keyed_history(fx_ref, n_keys, kw, bad)
     h2 = _keyed_history(fx_pt, n_keys, kw, bad)
     reach_ref._MEMO_CACHE.clear()
@@ -282,10 +308,17 @@ def _check_independent(kw, n_keys, bad):
             m_pt.cas_register(), device="cpu")).check(None, h2)
     for k in ("valid", "failures", "key-count"):
         assert r_pt[k] == r_ref[k], k
+    verdict = tuple(x for x in KEYS if x not in ("events", "slots",
+                                                 "states"))
+    union = _ref_union_results(h1, r_pt)
     for key, a in r_ref["results"].items():
         b = r_pt["results"][key]
-        diff = {x: (a.get(x), b.get(x)) for x in KEYS
+        diff = {x: (a.get(x), b.get(x)) for x in verdict
                 if a.get(x) != b.get(x)}
+        assert not diff, (key, diff)
+        diff = {x: (union[key].get(x), b.get(x))
+                for x in KEYS + ("engine", "dropped-crashed-noops")
+                if union[key].get(x) != b.get(x)}
         assert not diff, (key, diff)
     return r_pt, cap
 
@@ -296,8 +329,9 @@ def _check_independent(kw, n_keys, bad):
     # is re-walked by K4 in the key's own geometry
     (dict(n_ops=300, processes=5, values=40), 3, {1})])
 def test_independent_wide_matches_reference(monkeypatch, kw, n_keys, bad):
-    """A union alphabet above 32 states takes K5 (route cause
-    ``keyed-wide``); every key's result equals the reference's."""
+    """A union alphabet above 32 states is outside K2's envelope and
+    takes K5 through the native keyed lane (route cause ``keyed-wide``);
+    every key's result equals the reference's."""
     monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
     r_pt, cap = _check_independent(kw, n_keys, bad)
     assert r_pt["valid"] is False and set(r_pt["failures"]) == bad
