@@ -38,7 +38,8 @@ user's entry points and checks the results:
   corrupted, each history's result against its own ``check_packed`` on
   the card;
 - more than 32 states: a 100,000-op cas history over 40 values and a
-  100,000-op multi-register history (one K4 launch each), the corrupted
+  100,000-op multi-register history (``algorithm="reach"``, the dense
+  engine alone; one K4 launch each), the corrupted
   cas one against the CPU run, and 2,000 keys over 40 values (one K5
   launch) against the CPU run; K4 and K5 build P's nibble image tables
   first (held bit for bit against their plain version on both
@@ -55,7 +56,23 @@ user's entry points and checks the results:
   takes; the block form on a cas history of 6 processes (one case per
   kernel instance, the projection table at its largest, both of K7's
   dtypes); then the full ladder through the harness's own function,
-  every exact variant ending on K1's final set.
+  every exact variant ending on K1's final set;
+- the ``auto`` chain past the dense engine (:func:`phase_chain`), each
+  check against the port's own CPU run and the expected verdict: the
+  C++ WGL search on a 5,000-op register history with 129 crashed ops
+  (75 pending at once); the frontier's dense-product quotient under a
+  tight config budget on a 2,000-op one (W = 33) and its corrupted twin
+  (dead event 562, with the witness); the reference's scaling row
+  through the quotient and through the sparse rows (capacity 2,048),
+  and its corrupted twin; the sparse-live quotient walk on bursts of
+  same-value and of distinct writes; ``Linearizable(multi_register())``
+  on a 20,000-op history over 8 keys × 5 values (the per-key
+  decomposition on the lockstep lane, K2, with K1 for the failed keys)
+  and its corrupted twin, and a transactional history through the
+  restricted product (K4); then a probe of the frontier alone, bounded
+  by a 60 s time limit, on the corrupted twin of the 5,000-op history.
+  Each prints its wall time, the stage selected, the returns walked,
+  host reads a return, ms a return and ``frontier-cap``.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -1331,6 +1348,247 @@ def linearizable(h, device=None):
     return Linearizable(models.cas_register(), device=device).check(None, h)
 
 
+# -- the auto chain past the dense engine ------------------------------------
+
+# where the chain phases run their checks (the CPU runs are their
+# reference)
+CARD = "cuda"
+CHAIN_KEYS = ("valid", "engine", "op", "dead-event", "max-linearized",
+              "previous-ok", "final-configs", "quotient", "product-space",
+              "frontier-cap", "key-count", "failures", "key")
+
+
+def chain_drive(fn):
+    """:func:`drive` with the walks' counters: ``(res, dt, launches,
+    spans, ledger, counters)``."""
+    from jepsen_tpu_torch import obs
+
+    with obs.capture() as cap:
+        res, dt, la, spans, ledger = drive(fn)
+    return res, dt, la, spans, ledger, cap.counters
+
+
+def walk_line(dt, spans, counters) -> str:
+    """Returns walked, host reads a return and milliseconds a return of
+    the frontier's and the quotient's walks in one check."""
+    out = [f"wall {dt:.4f} s"]
+    for mod in ("reach_q", "frontier"):
+        n = counters.get(f"{mod}.returns", 0)
+        if not n:
+            continue
+        walk = spans.get(f"{mod}.walk", 0.0)
+        out.append(f"{mod}: returns {n}, syncs/return "
+                   f"{counters.get(f'{mod}.syncs', 0) / n:.3f}, walk "
+                   f"{walk:.4f} s = {1e3 * walk / n:.4f} ms/return")
+    return "; ".join(out)
+
+
+def expect_any(label, counts, *names):
+    """At least one launch of one of the named kernels."""
+    if sum(counts[n] for n in names) < 1:
+        raise AssertionError(f"{label}: none of {names} launched: {counts}")
+
+
+def same_result(label, got, want, keys=CHAIN_KEYS):
+    for key in keys:
+        if got.get(key) != want.get(key):
+            raise AssertionError(f"{label}: {key} differs cuda="
+                                 f"{got.get(key)} cpu={want.get(key)}")
+
+
+def chain_check(label, fn, expect_valid, expect_engine, **launches):
+    """One check of the chain on the card (``fn(device)``), held against
+    the same check on the CPU and against the expected verdict and
+    engine; each named kernel launched as ``launches`` says. Returns
+    the card's result and its launches by kernel."""
+    res, dt, la, spans, ledger, counters = chain_drive(lambda: fn(CARD))
+    expect(label, la, **launches)
+    t0 = time.perf_counter()
+    ref = fn("cpu")
+    cpu_s = time.perf_counter() - t0
+    same_result(label, res, ref)
+    if res["valid"] is not expect_valid or res.get("engine") != \
+            expect_engine:
+        raise AssertionError(f"{label}: {res.get('valid')} by "
+                             f"{res.get('engine')}")
+    if expect_valid is False and not (res.get("op") and (
+            res.get("final-configs") or res.get("key-result"))):
+        raise AssertionError(f"{label}: no failing op or witness")
+    sel = [r["stage"] for r in ledger if r["event"] == "selected"]
+    log(f"chain {label}: {res.get('engine')} valid={res['valid']} "
+        f"dead-event={res.get('dead-event')} frontier-cap="
+        f"{res.get('frontier-cap')} product-space="
+        f"{res.get('product-space')} selected {sel}; "
+        f"{walk_line(dt, spans, counters)}; launches "
+        f"{ {k: v for k, v in la.items() if v} }; {cpu_s:.3f} s on cpu, "
+        f"agrees")
+    return res, la
+
+
+def burst(ops, peak=13, corrupt=False, seed=2):
+    """A burst of ``peak`` concurrent distinct-value writes (the
+    reference's sparse-live test shape)."""
+    import random
+
+    invoke, ok, _info = ops
+    rng = random.Random(seed)
+    h = [invoke(600 + g, "write", 40 + g) for g in range(3)]
+    for i in range(40):
+        v = rng.randrange(3)
+        h += [invoke(i % 3, "write", v), ok(i % 3, "write", v)]
+    h += [invoke(1000 + p, "write", 10 + p) for p in range(peak)]
+    h += [ok(1000 + p, "write", 10 + p) for p in range(peak)]
+    return h + [invoke(0, "read"),
+                ok(0, "read", 7777 if corrupt else 10 + peak - 1)]
+
+
+def same_op_burst(ops, peak=26, rounds=3, crash_k=6, seed=9):
+    """``peak`` concurrent same-value live writes a round, ``crash_k``
+    crashed writes on top (the live epochs' test shape)."""
+    import random
+
+    invoke, ok, info = ops
+    rng = random.Random(seed)
+    h = []
+    for k in range(crash_k):
+        h += [invoke(2000 + k, "write", 7), info(2000 + k, "write", 7)]
+    for r in range(rounds):
+        procs = [3000 + 100 * r + p for p in range(peak)]
+        h += [invoke(p, "write", 5) for p in procs]
+        rng.shuffle(procs)
+        h += [ok(p, "write", 5) for p in procs]
+        h += [invoke(0, "read"), ok(0, "read", 5)]
+    return h + [invoke(1, "read"), ok(1, "read", 5)]
+
+
+def tx_history(ops, n=120, values=30):
+    """Two-key transactional reads and single-key writes (the restricted
+    product's test shape); valid."""
+    import random
+
+    invoke, ok, _info = ops
+    rng = random.Random(3)
+    h, state = [], {"x": 0, "y": 0}
+    for i in range(n):
+        p = i % 3
+        if rng.random() < 0.7:
+            k = rng.choice(["x", "y"])
+            v = rng.randrange(values)
+            h += [invoke(p, "write", {k: v}), ok(p, "write", {k: v})]
+            state[k] = v
+        else:
+            vals = dict(state)
+            h += [invoke(p, "read", {k: None for k in vals}),
+                  ok(p, "read", vals)]
+    return h
+
+
+def quotient_check(h, device, **kw):
+    """``reach_q.check_quotient`` on a register(0) history."""
+    from jepsen_tpu_torch import history, models
+    from jepsen_tpu_torch.checkers import events as ev
+    from jepsen_tpu_torch.checkers import reach_q
+    from jepsen_tpu_torch.models.memo import memo_ops
+
+    packed = history.pack(history.index(h))
+    memo = memo_ops(models.register(0), tuple(packed.distinct_ops),
+                    max_states=100_000)
+    stream = ev.build(packed, memo, max_slots=128)
+    return reach_q.check_quotient(memo, stream, packed, device=device, **kw)
+
+
+def phase_chain():
+    """The ``auto`` chain past the dense engine on the card: the C++ WGL
+    search, the frontier (the dense-product quotient, the sparse-live
+    quotient and the sparse rows), the per-key decomposition on the
+    keyed lanes and the restricted product, each against the port's CPU
+    run and the expected verdict; then a probe of the frontier alone on
+    a history nothing has decided, bounded by its own time limit."""
+    from jepsen_tpu_torch import Linearizable, fixtures, history, models, op
+    from jepsen_tpu_torch.checkers import frontier
+
+    t_phase = time.perf_counter()
+    ops = (op.invoke, op.ok, op.info)
+
+    def lin(model, h, **opts):
+        return lambda dev: Linearizable(model, device=dev,
+                                        opts=opts).check(None, h)
+
+    # W = 75, 129 crashed ops: the dense engine declines, C++ WGL decides
+    w75 = gen("register", 5000, 10, 3, crash_p=0.01, values=2)
+    chain_check("W=75 register-5000 (crashed ops)",
+                lin(models.register(), w75), True, "wgl-native-fallback",
+                batch_walk=0, lane_walk=0)
+    # W = 33 under a tight config budget: the frontier's dense-product
+    # quotient decides, valid, then corrupted (dead event 562)
+    w33 = gen("register", 2000, 5, 5, crash_p=0.02, values=3)
+    chain_check("W=33 register-2000, max_configs 1000",
+                lin(models.register(), w33, max_configs=1000), True,
+                "frontier-fallback")
+    w33_bad = fixtures.corrupt(w33, seed=1)
+    res, _ = chain_check("corrupted W=33 register-2000, max_configs 1000",
+                         lin(models.register(), w33_bad, max_configs=1000),
+                         False, "frontier-fallback")
+    if res["dead-event"] != 562:
+        raise AssertionError(f"corrupted W=33: dead event "
+                             f"{res['dead-event']}, want 562")
+    # the reference's scaling row: the dense product, then the rows
+    row = gen("register", 1200, 4, 11, crash_p=0.01, values=2)
+    row_bad = fixtures.corrupt(row, seed=1)
+    for label, h, valid in (("scaling row", row, True),
+                            ("corrupted scaling row", row_bad, False)):
+        for quotient in (True, False):
+            def fr(dev, h=h, quotient=quotient):
+                return frontier.check(models.register(), h, frontier0=512,
+                                      quotient=quotient, device=dev)
+            res, _ = chain_check(f"{label} register-1200, "
+                                 f"quotient={quotient}", fr, valid,
+                                 "frontier")
+            if valid and quotient and res["product-space"] != [4, 16, 63]:
+                raise AssertionError(f"{label}: {res['product-space']}")
+            if valid and not quotient and res["frontier-cap"] != 2048:
+                raise AssertionError(f"{label}: {res['frontier-cap']}")
+    # the sparse-live quotient walk
+    for label, h, kw, valid in (
+            ("same-op bursts 26 x 3, 6 crashed", same_op_burst(ops),
+             dict(max_dense=1 << 10), True),
+            ("burst of 13", burst(ops), dict(max_dense=1 << 18), True),
+            ("corrupted burst of 13", burst(ops, corrupt=True),
+             dict(max_dense=1 << 18), False)):
+        def q(dev, h=h, kw=kw):
+            return quotient_check(h, dev, **kw)
+        res, _ = chain_check(f"sparse-live {label}", q, valid, None)
+        if res["walk"] != "sparse-live":
+            raise AssertionError(f"{label}: walk {res['walk']}")
+    # multi-register: the per-key decomposition on the keyed lanes
+    multi8 = gen("multi", 20_000, 5, 3, keys=8, values=5)
+    for label, h, valid in (("8 keys x 5 values", multi8, True),
+                            ("corrupted 8 keys x 5 values",
+                             fixtures.corrupt(multi8, seed=3), False)):
+        res, _ = chain_check(f"multi-register-20000 {label}",
+                             lin(models.multi_register(), h), valid,
+                             "decompose", batch_walk=None)
+    tx = history.index(tx_history(ops))
+    res, la = chain_check("transactional x/y, 30 values, max_states 300",
+                          lin(models.multi_register({"x": 0, "y": 0}), tx,
+                              max_states=300), True, "decompose-product")
+    expect_any("restricted product", la, "lane_walk", "wide_walk")
+    # a probe: the frontier alone on the corrupted W = 75 twin
+    w75_bad = fixtures.corrupt(w75, seed=1)
+    res, dt, la, spans, _, counters = chain_drive(
+        lambda: frontier.check(models.register(), w75_bad, time_limit=60,
+                               device=CARD))
+    if res["valid"] is True or (res["valid"] == "unknown"
+                                and res.get("cause") != "timeout"):
+        raise AssertionError(f"probe corrupted W=75: {res}")
+    log(f"probe frontier corrupted W=75 register-5000, time_limit 60: "
+        f"valid={res['valid']} cause={res.get('cause')} dead-event="
+        f"{res.get('dead-event')} quotient={res.get('quotient')} "
+        f"product-space={res.get('product-space')}; "
+        f"{walk_line(dt, spans, counters)}")
+    log(f"chain phases: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1347,9 +1605,11 @@ def main() -> int:
 
     build_s = _build.build_all()
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
-    native_s = _native.build()
-    log(f"build: {native_s:.3f} s for the host library "
-        f"{os.path.relpath(_native.library_path())} (g++ {' '.join(_native.FLAGS)})")
+    for lib in _native.LIBRARIES:
+        native_s = _native.build(lib)
+        log(f"build: {native_s:.3f} s for the host library "
+            f"{os.path.relpath(_native.library_path(lib))} "
+            f"(g++ {' '.join(_native.FLAGS)})")
     for src in _build.sources():
         log(ptxas_summary(src, _build.build_log(src)))
     for src in ("keyed_walk", "ablate_walk", "ablate_stream"):
@@ -1526,8 +1786,10 @@ def main() -> int:
                       lane_walk=2 * len(SMALL_BATCH_BAD))
 
     # -- the wide main path: more than 32 states, K4 and K5 -------------
+    # the dense engine alone: under "auto" a history of single-key
+    # multi-register ops is split per key first (phase_chain drives that)
     def check_multi(h, device=None):
-        return Linearizable(models.multi_register(),
+        return Linearizable(models.multi_register(), algorithm="reach",
                             device=device).check(None, h)
 
     for label, h, check in (("wide cas-100k", wide, linearizable),
@@ -1571,6 +1833,9 @@ def main() -> int:
                 f"ops over 40 values", h_wide_ind, N_KEYS, BAD_KEYS,
                 "keyed-wide", wide_keyed=1, keyed_walk=0, batch_walk=0,
                 wide_walk=0, lane_walk=len(BAD_KEYS))
+
+    # -- the auto chain past the dense engine ---------------------------
+    phase_chain()
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)

@@ -68,18 +68,29 @@ class Linearizable(Checker):
     ``algorithm``:
 
     - ``"auto"`` (default): the dense-reachability engine on the card,
-      then the stages of the reference's chain as they are ported, then
-      the Python oracle (:func:`auto_check_packed`).
+      then the C++ WGL search, then the sparse frontier (its crashed-op
+      quotient first), then for multi-register models the restricted
+      product and the transactional screen, then the Python oracle
+      (:func:`auto_check_packed`). For ``MultiRegister`` the per-key
+      decomposition runs first.
     - ``"reach"`` — the dense engine alone
       (:mod:`jepsen_tpu_torch.checkers.reach`).
     - ``"chunklock"`` — the chunk-lockstep engine alone
       (:mod:`jepsen_tpu_torch.checkers.reach_chunklock`), with its
       ``n_chunks``, ``e_pad`` and ``suffix`` options.
+    - ``"frontier"`` — the sparse frontier engine
+      (:mod:`jepsen_tpu_torch.checkers.frontier`), with its
+      ``frontier0`` and ``max_frontier`` options.
+    - ``"decompose"`` — the per-key split of single-key multi-register
+      histories into a batched register check
+      (:mod:`jepsen_tpu_torch.checkers.decompose`).
+    - ``"wgl-native"`` — the C++ WGL search
+      (:mod:`jepsen_tpu_torch.checkers.wgl_native`).
     - ``"wgl-cpu"`` — the Python oracle
       (:mod:`jepsen_tpu_torch.checkers.wgl_ref`).
 
-    ``device`` (or ``opts["device"]``) names where the dense engine runs:
-    the card by default; ``"cpu"`` runs the plain PyTorch versions.
+    ``device`` (or ``opts["device"]``) names where the device engines
+    run: the card by default; ``"cpu"`` runs the plain PyTorch versions.
     """
     model: Optional[Model] = None
     algorithm: str = "auto"
@@ -103,6 +114,22 @@ class Linearizable(Checker):
             from jepsen_tpu_torch.checkers import reach_chunklock
             return reach_chunklock.check_packed(
                 model, h.pack(history), **_engine_kw(kw, _CHUNKLOCK_KW))
+        if algorithm == "frontier":
+            from jepsen_tpu_torch.checkers import frontier
+            return frontier.check(model, history,
+                                  **_engine_kw(kw, _FRONTIER_KW))
+        if algorithm == "decompose":
+            from jepsen_tpu_torch.checkers import decompose
+            res = decompose.check(model, history,
+                                  **_engine_kw(kw, _DECOMPOSE_KW))
+            if res is None:
+                return {"valid": "unknown", "cause": "not-decomposable",
+                        "engine": "decompose"}
+            return res
+        if algorithm == "wgl-native":
+            from jepsen_tpu_torch.checkers import wgl_native
+            return wgl_native.check(model, history,
+                                    **_engine_kw(kw, _NATIVE_KW))
         if algorithm == "wgl-cpu":
             return wgl_ref.check(model, history, **_engine_kw(kw, _WGL_KW))
         if algorithm == "auto":
@@ -110,10 +137,21 @@ class Linearizable(Checker):
             with obs.span("facade.pack", ops=len(history)):
                 packed = h.pack(history)
             if isinstance(model, _models.MultiRegister):
-                # the reference first splits single-key multi-register
-                # histories per key (P-compositionality)
-                obs.decision("decompose", "skipped", cause="not-ported",
-                             ops=packed.n)
+                # P-compositionality (Herlihy & Wing locality): a history
+                # of single-key ops splits into per-key register
+                # histories, one batched device call. A decomposed
+                # "unknown" is returned as it is: the monolithic product
+                # space is strictly harder
+                from jepsen_tpu_torch.checkers import decompose
+                with obs.span("facade.decompose", ops=packed.n):
+                    res = decompose.check_packed(
+                        model, packed, **_engine_kw(kw, _DECOMPOSE_KW))
+                if res is not None:
+                    obs.engine_selected(res.get("engine", "decompose"),
+                                        ops=packed.n, valid=res.get("valid"))
+                    return res
+                obs.decision("decompose", "skipped",
+                             cause="not-decomposable", ops=packed.n)
             return auto_check_packed(model, packed, kw)
         raise NotImplementedError(f"algorithm {algorithm!r} not ported")
 
@@ -126,22 +164,30 @@ def linearizable(model: Optional[Model] = None,
 def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
     """The ``auto`` chain at the packed level, first conclusive verdict
     wins: dense engine on ``kw["device"]`` (default: the card) → C++ WGL
-    → sparse frontier → restricted product / transactional screen
-    (multi-register models) → Python oracle. Stages not ported yet are
-    recorded as ``obs.decision(stage, "skipped", cause="not-ported")``.
+    → sparse frontier (its crashed-op quotient first) → restricted
+    product / transactional screen (multi-register models) → Python
+    oracle. Shared by :class:`Linearizable` and the per-key fallback of
+    :mod:`jepsen_tpu_torch.checkers.decompose`.
 
-    A ``time_limit`` in ``kw`` budgets the chain as a whole. Every stage
-    transition lands in the engine-decision ledger: exactly one
+    Only a capacity decline moves the chain on (``DenseOverflow``,
+    ``StateExplosion``, ``ConcurrencyOverflow``, ``FrontierOverflow``,
+    or a stage's ``unknown``); any other error propagates.
+
+    A ``time_limit`` in ``kw`` budgets the chain as a whole: each
+    wall-clock-limited stage receives only the time remaining, and the
+    device stages poll the deadline through their abort hooks. Every
+    stage transition lands in the engine-decision ledger: exactly one
     ``"selected"`` record per call and one ``"fallback"`` record per
     abandoned stage."""
     import time as _time
 
     from jepsen_tpu_torch import models as _models
-    from jepsen_tpu_torch.checkers import reach, wgl_ref
+    from jepsen_tpu_torch.checkers import frontier, reach, wgl_native, wgl_ref
     from jepsen_tpu_torch.checkers.events import ConcurrencyOverflow
     from jepsen_tpu_torch.models.memo import StateExplosion
 
-    dev = _device.resolve(kw.get("device"))
+    kw = dict(kw)
+    kw["device"] = _device.resolve(kw.get("device"))
     geom = {"ops": packed.n, "ok-ops": packed.n_ok}
     t_stage = _time.monotonic()
 
@@ -160,10 +206,6 @@ def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
                                             6))
         t_stage = _time.monotonic()
 
-    def _skipped(stage: str) -> None:
-        obs.count(f"engine.skipped.{stage}.not-ported")
-        obs.decision(stage, "skipped", cause="not-ported", **geom)
-
     tl = kw.get("time_limit")
     deadline = _time.monotonic() + tl if tl else None
 
@@ -175,28 +217,86 @@ def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
             ekw["time_limit"] = max(1e-3, deadline - _time.monotonic())
         return ekw
 
-    ekw = _engine_kw(kw, _REACH_KW)
-    ekw["device"] = dev
-    if deadline is not None:
-        # the dense stage honours the chain budget through its abort hook
-        user_abort = ekw.get("should_abort")
-        ekw["should_abort"] = ((lambda: user_abort() or _spent())
-                               if user_abort is not None else _spent)
+    def _with_deadline_abort(ekw: Dict[str, Any]) -> Dict[str, Any]:
+        """Compose the chain deadline into a stage's should_abort hook
+        (for stages budgeted by abort polling, not time_limit)."""
+        if deadline is not None:
+            user_abort = ekw.get("should_abort")
+            ekw["should_abort"] = (
+                (lambda: user_abort() or _spent())
+                if user_abort is not None else _spent)
+        return ekw
+
+    exploded = False                # product-space memo blow-ups seen
     try:
+        ekw = _with_deadline_abort(_engine_kw(kw, _REACH_KW))
         with obs.span("facade.reach", **geom):
             res = reach.check_packed(model, packed, **ekw)
         if res.get("valid") in (True, False):
             return _selected(res, "reach")
         _fellback("reach", f"unknown:{res.get('cause', '?')}")
-    except (reach.DenseOverflow, StateExplosion,
-            ConcurrencyOverflow) as e:
+    except (reach.DenseOverflow, StateExplosion) as e:
+        exploded = True
+        _fellback("reach", type(e).__name__)
+    except ConcurrencyOverflow as e:
         _fellback("reach", type(e).__name__)
     if not _spent():
-        _skipped("wgl-native")
-        _skipped("frontier")
+        try:
+            with obs.span("facade.wgl-native", **geom):
+                res = wgl_native.check_packed(
+                    model, packed, **_budgeted(_engine_kw(kw, _NATIVE_KW)))
+            if res.get("valid") in (True, False):
+                res["engine"] = "wgl-native-fallback"
+                return _selected(res, "wgl-native-fallback")
+            _fellback("wgl-native", f"unknown:{res.get('cause', '?')}")
+        except StateExplosion as e:
+            exploded = True         # un-memoizable / product blow-up
+            _fellback("wgl-native", type(e).__name__)
+    if not _spent():
+        try:
+            # the crashed-op quotient can survive crash-heavy histories
+            # that explode the exact C++ search
+            with obs.span("facade.frontier", **geom):
+                res = frontier.check_packed(
+                    model, packed,
+                    **_budgeted(_engine_kw(kw, _FRONTIER_KW)))
+            if res.get("valid") in (True, False):
+                res["engine"] = "frontier-fallback"
+                return _selected(res, "frontier-fallback")
+            _fellback("frontier", f"unknown:{res.get('cause', '?')}")
+        except (frontier.FrontierOverflow, ConcurrencyOverflow,
+                StateExplosion) as e:
+            _fellback("frontier", type(e).__name__)
     if isinstance(model, _models.MultiRegister):
-        _skipped("restricted-product")
-        _skipped("transactional-screen")
+        # multi-key transactional histories on an exploding product
+        # space: first the restricted product (per-key value closures
+        # bound the jointly reachable product states; an exact verdict
+        # by the dense engine over them)
+        from jepsen_tpu_torch.checkers import decompose
+        if not _spent():
+            try:
+                rp = decompose.check_restricted_product(
+                    model, packed,
+                    **_with_deadline_abort(_engine_kw(kw, _REACH_KW)))
+                if rp is not None and rp.get("valid") in (True, False):
+                    return _selected(rp, "restricted-product")
+            except (StateExplosion, reach.DenseOverflow,
+                    ConcurrencyOverflow) as e:
+                _fellback("restricted-product", type(e).__name__)
+        # then the sound per-key projection screen: an invalid
+        # projection proves non-linearizability; all-valid projections
+        # give an explicit "unknown" with its reason, returned when the
+        # memoized engines already refused the product space
+        try:
+            tx = decompose.check_transactional(
+                model, packed, **_budgeted(_engine_kw(kw, _DECOMPOSE_KW)))
+        except (StateExplosion, reach.DenseOverflow,
+                ConcurrencyOverflow) as e:
+            tx = None
+            _fellback("transactional-screen", type(e).__name__)
+        if tx is not None and (tx.get("valid") is False or exploded
+                               or _spent()):
+            return _selected(tx, "transactional-screen")
     if _spent():
         obs.decision("auto-chain", "timeout", **geom)
         return {"valid": "unknown", "cause": "timeout",
@@ -258,6 +358,11 @@ _REACH_MANY_KW = _REACH_KW          # check_many takes the same options
 _CHUNKLOCK_KW = ("max_states", "max_slots", "max_dense", "n_chunks",
                  "e_pad", "suffix", "device")
 _WGL_KW = ("time_limit", "max_configs", "strategy", "should_abort")
+_NATIVE_KW = ("time_limit", "max_configs", "max_states", "abort_flag")
+_FRONTIER_KW = ("max_states", "frontier0", "max_frontier", "time_limit",
+                "should_abort", "device")
+_DECOMPOSE_KW = _REACH_KW + ("time_limit", "max_configs", "frontier0",
+                             "max_frontier")
 
 
 def _engine_kw(kw: Mapping, allowed: Sequence[str]) -> Dict[str, Any]:

@@ -171,6 +171,10 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.checkers.reach_chunklock",
             "jepsen_tpu_torch.checkers.preproc_native",
             "jepsen_tpu_torch.checkers.dispatch_core",
+            "jepsen_tpu_torch.checkers.wgl_native",
+            "jepsen_tpu_torch.checkers.reach_q",
+            "jepsen_tpu_torch.checkers.frontier",
+            "jepsen_tpu_torch.checkers.decompose",
             "jepsen_tpu_torch._native",
             "jepsen_tpu_torch.independent",
             "jepsen_tpu_torch.tools.ablate_lane"} <= imported

@@ -29,7 +29,9 @@ from jepsen_tpu.checkers import reach as reach_ref
 from jepsen_tpu.checkers import reach_pallas as pallas_ref
 from jepsen_tpu_torch import Linearizable, independent, obs
 from jepsen_tpu_torch import fixtures as fx_pt
+from jepsen_tpu_torch import history as h_pt
 from jepsen_tpu_torch import models as m_pt
+from jepsen_tpu_torch.checkers import facade as fa_pt
 from jepsen_tpu_torch.checkers import reach as reach_pt
 from jepsen_tpu_torch.checkers import reach_lane as lane_pt
 from jepsen_tpu_torch.checkers import reach_pallas as pallas_pt
@@ -208,7 +210,8 @@ def test_keyed_walk_matches_reference(monkeypatch, block):
 
 def _ref_check(kind, history):
     """The reference facade's verdict (multi-register models straight to
-    its ``auto`` chain: the per-key decomposition is not ported)."""
+    its ``auto`` chain, past the per-key decomposition both packages try
+    first, so that the dense engine's route decides)."""
     reach_ref._MEMO_CACHE.clear()
     model = getattr(m_ref, MODEL[kind])()
     if kind == "multi":
@@ -234,9 +237,13 @@ def test_linearizable_wide_matches_reference(kind, kw, seed, corrupt):
     h1 = _history(fx_ref, kind, kw, seed, corrupt)
     h2 = _history(fx_pt, kind, kw, seed, corrupt)
     r_ref = _ref_check(kind, h1)
+    model = getattr(m_pt, MODEL[kind])()
     with obs.capture() as cap:
-        r_pt = Linearizable(getattr(m_pt, MODEL[kind])(),
-                            device="cpu").check(None, h2)
+        if kind == "multi":
+            r_pt = fa_pt.auto_check_packed(model, h_pt.pack(h2),
+                                           {"device": "cpu"})
+        else:
+            r_pt = Linearizable(model, device="cpu").check(None, h2)
     _same(r_ref, r_pt)
     assert r_pt["valid"] is (not corrupt)
     assert r_pt["engine"] == "reach-pallas" and r_pt["states"] > 32
