@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
-K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``), holds each
+K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``, K8
+``txn_closure``), holds each
 kernel bit for bit against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path through the
 user's entry points and checks the results:
@@ -72,7 +73,19 @@ user's entry points and checks the results:
   restricted product (K4); then a probe of the frontier alone, bounded
   by a 60 s time limit, on the corrupted twin of the 5,000-op history.
   Each prints its wall time, the stage selected, the returns walked,
-  host reads a return, ms a return and ``frontier-cap``.
+  host reads a return, ms a return and ``frontier-cap``;
+- the transactional checker (:func:`phase_txn`): K8, one squaring of the
+  word-packed closure, bit for bit against its plain version at (K, Np)
+  from (3, 32) to (4, 8,192), beside one ``torch.bmm`` squaring in each
+  exact precision (fp32, TF32, bf16, fp16; the fastest is the kernels
+  line's ``library_ms``); the reference bench's closure-bound graphs
+  (n = 1,024 and 8,192) through the K8 ladder, the f32 cross-check and
+  the host SCC; ``txn.check_history`` on the reference bench's
+  100,000-txn rung (one G-single block) against the host SCC and the
+  port's CPU run, on a 6,000-txn history with a write skew at every
+  consistency level (``txn-lattice-mxu``, K = 4, Np = 8,192; 13 K8
+  launches) against the host lattice and the f32 cross-check, and on
+  every injected block.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -1219,6 +1232,7 @@ def launches():
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
     from jepsen_tpu_torch.checkers import reach_pallas
     from jepsen_tpu_torch.tools import ablate_lane
+    from jepsen_tpu_torch.txn import cycles
 
     return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
             "batch_walk": reach_batch.KERNEL_LAUNCHES,
@@ -1227,19 +1241,22 @@ def launches():
             "wide_keyed": reach_pallas.KEYED_LAUNCHES,
             "ablate_walk": ablate_lane.ABLATE_LAUNCHES,
             "ablate_tables": ablate_lane.ABLATE_TABLE_LAUNCHES,
-            "ablate_stream": ablate_lane.STREAM_LAUNCHES}
+            "ablate_stream": ablate_lane.STREAM_LAUNCHES,
+            "txn_closure": cycles.KERNEL_LAUNCHES}
 
 
 def zero_launches():
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
     from jepsen_tpu_torch.checkers import reach_pallas
     from jepsen_tpu_torch.tools import ablate_lane
+    from jepsen_tpu_torch.txn import cycles
 
     reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
     reach_batch.KERNEL_LAUNCHES = 0
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
     ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
     ablate_lane.ABLATE_TABLE_LAUNCHES = 0
+    cycles.KERNEL_LAUNCHES = 0
 
 
 # each kernel's launches summed over every drive of the main path
@@ -1589,6 +1606,306 @@ def phase_chain():
     log(f"chain phases: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the transactional checker: K8 and the txn main path ---------------------
+
+# K8 against its plain version: one squaring at each (K, Np), on seeded
+# random graphs of 2 and 8 edges a node
+TXN_STEP_SHAPES = ((3, 32), (3, 1_024), (4, 1_024), (3, 8_192), (4, 8_192))
+TXN_STEP_DEGREES = (2, 8)
+# the reference bench's closure probe (bench.py _closure_kernel_probe:
+# n = 1,024, 2n edges, seed 42) and the same recipe at the envelope
+TXN_CLOSURE_NS = (1_024, 8_192)
+# the reference bench's transactional rung (bench.py txn_probe at its
+# default seed), and the lattice at the dense envelope
+TXN_BENCH = dict(n_txns=100_000, keys=6, processes=8, key_rotate=32,
+                 seed=42)
+TXN_LATTICE = dict(n_txns=6_000, keys=6, processes=8, key_rotate=32,
+                   seed=42)
+TXN_LATTICE_NP = 8_192
+# the kernels line's K8 row: the lattice's shape, the largest the main
+# path gives K8
+TXN_KERNEL_SHAPE = (4, 8_192)
+# the host route never trims, so its results have no core-txns
+TXN_RESULT_KEYS = ("valid", "anomalies", "anomaly", "witness", "booleans",
+                   "edge-counts", "txns", "edges", "infer", "failed-txns",
+                   "coverage")
+TXN_LATTICE_KEYS = ("valid", "holds", "levels", "weakest-violated",
+                    "witness", "anomalies", "session-violations")
+
+
+def txn_words(K, Np, degree, seed):
+    """K nested random lanes of ``degree`` edges a node (numpy, seeded):
+    the masks ``bool[K, Np, Np]`` on the card and their row- and
+    transpose-packed words ``int32[K, Np, Np/32]``."""
+    from jepsen_tpu_torch.txn import cycles
+
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((K, Np, Np), bool)
+    for b in range(K):
+        e = degree * Np // K
+        masks[b:, rng.integers(0, Np, e), rng.integers(0, Np, e)] = True
+    masks = torch.from_numpy(masks).cuda()
+    return (masks,) + cycles.pack_lanes(masks)
+
+
+def txn_step_bound(K, Np):
+    """K8's bound for one squaring: K·Np²·NW 32-bit operations (``acc |=
+    a & b`` is one three-input logic instruction a word pair), and the
+    two packings read and written once."""
+    NW = Np // 32
+    return bound_ms(4 * K * Np * NW * 4, K * Np * Np * NW)
+
+
+# the library's one-call squaring, ``where(bmm(C, C) > 0, 1, C)``, in each
+# exact precision: 0/1 inputs and non-negative sums, so ``> 0`` is exact
+# in any of them (a sum of ones never rounds to zero)
+TXN_LIBRARY_DTYPES = (("fp32", torch.float32, False),
+                      ("tf32", torch.float32, True),
+                      ("bf16", torch.bfloat16, False),
+                      ("fp16", torch.float16, False))
+
+
+def txn_library_ms(masks, reps):
+    """One squaring by ``torch.bmm`` in each of
+    :data:`TXN_LIBRARY_DTYPES`: ms by name. Each one's ``> 0`` must equal
+    the fp32 one's."""
+    times, want = {}, None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, dtype, allow in TXN_LIBRARY_DTYPES:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            A = masks.to(dtype)
+            got = torch.bmm(A, A) > 0
+            if want is None:
+                want = got
+            elif not torch.equal(got, want):
+                raise AssertionError(f"bmm in {name} differs from fp32")
+            times[name] = event_ms(
+                lambda: torch.where(torch.bmm(A, A) > 0, 1.0, A), reps)
+            del A, got
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return times
+
+
+def txn_closure_graph(n, seed=42):
+    """The reference bench's closure-bound graph: ``2n`` random edges of
+    random type, self-loops dropped (``bench.py:824-831``)."""
+    from jepsen_tpu_torch.txn.infer import DepGraph
+
+    r = np.random.default_rng(seed)
+    e = n * 2
+    src = r.integers(0, n, e).astype(np.int32)
+    dst = r.integers(0, n, e).astype(np.int32)
+    keep = src != dst
+    return DepGraph(n=n, src=src[keep], dst=dst[keep],
+                    et=r.integers(0, 3, int(keep.sum())).astype(np.int8),
+                    txns=tuple(range(n)))
+
+
+def txn_split(spans, stage):
+    """A txn check's spans: collect, infer, its cycle stage and, inside
+    that, the closure's mask build, packing and ladder."""
+    return ", ".join(f"{name} {spans.get(name, 0.0):.4f} s" for name in (
+        "txn.collect", "txn.infer", stage, "txn.closure.masks",
+        "txn.closure.pack", "txn.closure.ladder"))
+
+
+def same_txn(label, got, want, keys):
+    for key in keys:
+        if got.get(key) != want.get(key):
+            raise AssertionError(f"{label}: {key} differs: "
+                                 f"{got.get(key)!r} against "
+                                 f"{want.get(key)!r}")
+
+
+def phase_txn():
+    """The transactional checker on the card: K8 bit for bit against its
+    plain version at every shape, beside the library's squaring; the
+    closure-bound graphs through the K8 ladder, the f32 cross-check and
+    the host SCC; the reference bench's
+    100,000-txn rung and a lattice check at the dense envelope through
+    ``txn.check_history``, each against the host reference (and the
+    rung against the port's CPU run); every injected block. Returns K8's
+    numbers for the kernels line."""
+    from jepsen_tpu_torch import device, fixtures, history, txn
+    from jepsen_tpu_torch.txn import cycles, host_ref, infer, ops
+
+    t_phase = time.perf_counter()
+    cuda = device.default_device()
+    # the f32 cross-check runs in full float32 (the default; TF32 would be
+    # exact too: 0/1 inputs, counts below 2^24); the library is timed in
+    # every exact precision (txn_library_ms)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for K, Np in TXN_STEP_SHAPES:
+        for degree in TXN_STEP_DEGREES:
+            masks, Cw, CwT = txn_words(K, Np, degree, seed=K * Np + degree)
+            got = cycles.square_step(Cw, CwT)
+            want = cycles.square_step_plain(Cw, CwT)
+            _, p_ms = plain_ms(lambda: cycles.square_step_plain(Cw, CwT))
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                      zip(got, want))
+            if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K8 at K={K} Np={Np} degree {degree}: "
+                                     f"differs from its plain version")
+            if degree != TXN_STEP_DEGREES[0]:
+                continue
+            reps = 20 if Np <= 1_024 else 5
+            ms = event_ms(lambda: cycles.square_step(Cw, CwT), reps)
+            dev = device_ms(lambda: cycles.square_step(Cw, CwT), reps)
+            libs = txn_library_ms(masks, reps)
+            lib_name = min(libs, key=libs.get)
+            b_ms, b_by, b_txt = txn_step_bound(K, Np)
+            dms = dev["total"] if dev else None
+            log(f"K8 txn_closure step K={K} Np={Np}: bit-identical to its "
+                f"plain version at {TXN_STEP_DEGREES} edges a node; "
+                f"event_ms={ms:.6f} device_ms="
+                f"{'not measured' if dms is None else f'{dms:.6f}'} "
+                f"plain_ms={p_ms:.3f} bound_ms={b_ms:.6f} ({b_by}; {b_txt}) "
+                f"= {ms / b_ms:.2f}x the bound; bmm step "
+                + ", ".join(f"{k} {v:.6f} ms" for k, v in libs.items())
+                + f" (fastest {lib_name}: K8 {libs[lib_name] / ms:.2f}x "
+                f"its speed)")
+            out[(K, Np)] = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                            "plain_ms": p_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": libs[lib_name]}
+            del Cw, CwT, got, want
+        del masks
+    step_s = time.perf_counter() - t_phase
+
+    # -- closure-bound graphs: the K8 ladder, the f32 cross-check, the host
+    for n in TXN_CLOSURE_NS:
+        g = txn_closure_graph(n)
+        Np = cycles._pad_n_words(n)
+        masks, rw = cycles._masks(g, Np, cuda)
+        Cw0, CwT0 = cycles.pack_lanes(masks)
+        Arw = cycles.pack_rows_torch(rw)
+        A, Af = masks.float(), rw.float()
+
+        def ladder():
+            Cw, CwT = Cw0, CwT0
+            for _ in range(cycles.n_iter(Np)):
+                Cw, CwT = cycles.square_step(Cw, CwT)
+            return cycles.word_verdict(Cw, CwT, Arw, (1,))
+
+        cycles.KERNEL_LAUNCHES = 0
+        word = ladder().cpu().numpy()
+        launched = cycles.KERNEL_LAUNCHES
+        f32 = cycles.f32_verdict(A, Af, (1,)).cpu().numpy()
+        t0 = time.perf_counter()
+        host = host_ref.classify_booleans(g)
+        host_s = time.perf_counter() - t0
+        keys = ("cyc_ww", "cyc_wwwr", "cyc_full", "gsingle")
+        if [bool(x) for x in word] != [host[k] for k in keys] or \
+                [bool(x) for x in f32] != [host[k] for k in keys]:
+            raise AssertionError(f"closure n={n}: word {word} f32 {f32} "
+                                 f"host {host}")
+        reps = 3 if n > 1_024 else 10
+        # the ladder by CUDA events (its launches and the verdict's torch
+        # ops, host work included); the device's own time of one
+        # squaring (device_ms averages each kernel's records, so it
+        # times a function that launches each kernel once)
+        l_ms = event_ms(ladder, reps)
+        s_ms = event_ms(lambda: cycles.square_step(Cw0, CwT0), reps)
+        s_dev = device_ms(lambda: cycles.square_step(Cw0, CwT0), reps)
+        f_ms = event_ms(lambda: cycles.f32_verdict(A, Af, (1,)), 2)
+        b_ms, b_by, _ = txn_step_bound(3, Np)
+        k = cycles.n_iter(Np)
+        log(f"closure-bound n={n} ({g.e} edges, Np={Np}, {k} squarings): "
+            f"booleans {host} from the K8 ladder, the f32 cross-check and "
+            f"the host SCC ({host_s:.3f} s); K8 ladder event_ms={l_ms:.6f}; "
+            f"one squaring event_ms={s_ms:.6f} {dev_text(s_dev)}"
+            + (f", x{k} = {k * s_dev['total']:.6f} ms" if s_dev else "")
+            + f"; f32 body {f_ms:.6f} ms; bound {b_ms:.6f} ms a squaring "
+            f"({b_by}), {b_ms * k:.6f} ms the ladder; K8 launches "
+            f"{launched}")
+        del masks, rw, Cw0, CwT0, A, Af
+
+    # -- the reference bench's 100,000-txn rung ------------------------------
+    t0 = time.perf_counter()
+    h = fixtures.gen_txn_history(**TXN_BENCH)
+    h = history.index(h + [op.with_(index=-1) for op in
+                           fixtures.txn_anomaly_block("G-single")])
+    gen_s = time.perf_counter() - t0
+    res, dt, la, spans, _ = drive(lambda: txn.check_history(h))
+    expect("txn bench rung", la, txn_closure=None)
+    t0 = time.perf_counter()
+    host = txn.check_history(h, force_host=True)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = txn.check_history(h, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_txn("txn bench rung, host", res, host, TXN_RESULT_KEYS)
+    same_txn("txn bench rung, cpu", res, cpu,
+             TXN_RESULT_KEYS + ("engine", "core-txns"))
+    if res["engine"] != "txn-mxu" or "G-single" not in res["anomalies"]:
+        raise AssertionError(f"txn bench rung: {res['engine']} "
+                             f"{res['anomalies']}")
+    log(f"main path txn bench rung ({res['txns']} txns, {res['edges']} "
+        f"edges {res['edge-counts']}, core {res.get('core-txns')}): "
+        f"{res['engine']} {res['anomalies']} {dt:.4f} s = "
+        f"{res['txns'] / dt:.1f} txns/s ({txn_split(spans, 'txn.cycles')}); "
+        f"host SCC {host_s:.3f} s, "
+        f"cpu {cpu_s:.3f} s, both agree; generation {gen_s:.2f} s not "
+        f"counted; launches {la['txn_closure']}")
+
+    # -- the lattice at the dense envelope --------------------------------
+    h = fixtures.gen_txn_history(**TXN_LATTICE)
+    h = history.index(h + [op.with_(index=-1) for op in
+                           fixtures.txn_anomaly_block("write-skew")])
+    res, dt, la, spans, _ = drive(
+        lambda: txn.check_history(h, consistency="all"))
+    Np = cycles._pad_n(res["txns"])
+    expect("txn lattice", la, txn_closure=cycles.n_iter(Np))
+    if res["engine"] != "txn-lattice-mxu" or Np != TXN_LATTICE_NP:
+        raise AssertionError(f"txn lattice: {res['engine']} at Np={Np}")
+    t0 = time.perf_counter()
+    host = txn.check_history(h, consistency="all", force_host=True)
+    host_s = time.perf_counter() - t0
+    same_txn("txn lattice, host", res, host, TXN_LATTICE_KEYS)
+    # the f32 cross-check on the same lanes (witnesses never depend on
+    # the body, so its six booleans are what it can change)
+    txns, fails = ops.collect(h)
+    graph = infer.infer(txns, fails)
+    cm = cycles.commit_mask(np.asarray([t.index for t in txns], np.int64),
+                            np.asarray([t.end for t in txns], np.int64), cuda)
+    masks, rw = cycles._lattice_masks(graph, Np, cm, cuda)
+    f32, f32_ms = plain_ms(lambda: cycles._f32_booleans(
+        masks, rw, cycles.LATTICE_CONTRACTS))
+    del masks, rw
+    f32 = {k: bool(f32[i]) for i, k in enumerate(cycles.LATTICE_KEYS)}
+    if f32 != res["booleans"]:
+        raise AssertionError(f"txn lattice: f32 booleans {f32} against "
+                             f"{res['booleans']}")
+    log(f"main path txn lattice ({res['txns']} txns, K=4, Np={Np}): "
+        f"{res['engine']} weakest-violated {res['weakest-violated']} "
+        f"{dt:.4f} s ({txn_split(spans, 'txn.lattice')}); host lattice "
+        f"{host_s:.4f} s (card {host_s / dt:.2f}x its speed), the f32 "
+        f"ladder on the same lanes {f32_ms:.3f} ms; all agree; launches "
+        f"{la['txn_closure']}")
+
+    # -- every injected block, on the card and on the host ---------------
+    base = fixtures.gen_txn_history(30, keys=2, seed=5)
+    for kind in fixtures.TXN_ANOMALY_KINDS + fixtures.TXN_LATTICE_KINDS:
+        h = base + [op.with_(index=-1) for op in
+                    fixtures.txn_anomaly_block(kind)]
+        for kw in ({}, {"consistency": "all"}):
+            res, _dt, la, _s, _ = drive(lambda: txn.check_history(h, **kw))
+            expect(f"txn block {kind}", la, txn_closure=None)
+            host = txn.check_history(h, force_host=True, **kw)
+            same_txn(f"txn block {kind} {kw}", res, host,
+                     TXN_RESULT_KEYS + TXN_LATTICE_KEYS)
+            if res["valid"] is not False:
+                raise AssertionError(f"txn block {kind}: {res['valid']}")
+    log(f"txn injected blocks "
+        f"{fixtures.TXN_ANOMALY_KINDS + fixtures.TXN_LATTICE_KINDS}: the "
+        f"card's results equal the host's, serializable and lattice")
+    log(f"txn phase: {time.perf_counter() - t_phase:.1f} s (K8 steps "
+        f"{step_s:.1f} s)")
+    return out[TXN_KERNEL_SHAPE]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1837,6 +2154,9 @@ def main() -> int:
     # -- the auto chain past the dense engine ---------------------------
     phase_chain()
 
+    # -- the transactional checker: K8 and its main path ----------------
+    k8 = phase_txn()
+
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
     k6_launches, k7_launches = la["ablate_walk"], la["ablate_stream"]
@@ -1861,13 +2181,15 @@ def main() -> int:
          k6_launches, k6),
         ("ablate_stream", "ablate_stream.cu", "tools/ablate_lane.py:262",
          k7_launches, k7),
+        ("txn_closure", "txn_closure.cu", "jepsen_tpu/txn/cycles.py:198",
+         total["txn_closure"], k8),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"jepsen_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
         for kname, src, replaces, n, k in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""jepsen_tpu_torch — the linearizability checker on PyTorch and CUDA.
+"""jepsen_tpu_torch — the linearizability and transactional checkers on
+PyTorch and CUDA.
 
 A port of the ``jepsen_tpu`` package to one NVIDIA H100: the dense
-reachability walks run as hand-written CUDA kernels (``csrc/*.cu``),
-built by ``nvcc`` at first use. Entry points run on the card unless the
+reachability walks and the transactional closure's squaring
+(``jepsen_tpu_torch.txn``) run as hand-written CUDA kernels
+(``csrc/*.cu``), built by ``nvcc`` at first use. Entry points run on the card unless the
 caller passes ``device="cpu"``; they never fall back to the CPU by
 themselves.
 

@@ -308,6 +308,28 @@ def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
     return _selected(res, "wgl-cpu-fallback")
 
 
+def auto_check_txn(history: Sequence[Op],
+                   kw: Optional[Mapping] = None) -> Dict[str, Any]:
+    """The transactional (Elle-style) route: list-append dependency
+    inference and cycle search on the closure (:mod:`jepsen_tpu_torch.txn`,
+    on ``kw["device"]``, default the card), the host SCC reference by
+    decision. Exactly one ``"selected"`` ledger record per call names the
+    engine that produced the verdict, as :func:`auto_check_packed` does."""
+    import time as _time
+
+    from jepsen_tpu_torch import txn as txn_mod
+
+    ekw = _engine_kw(kw or {}, _TXN_KW)
+    t0 = _time.monotonic()
+    with obs.span("facade.txn", ops=len(history)):
+        res = txn_mod.check_history(history, **ekw)
+    obs.engine_selected(res.get("engine", "txn"), txns=res.get("txns"),
+                        edges=res.get("edges"),
+                        valid=res.get("valid"),
+                        elapsed_s=round(_time.monotonic() - t0, 6))
+    return res
+
+
 def auto_check_many_packed(model: Model, packed_list,
                            kw: Mapping) -> List[Dict[str, Any]]:
     """The ``auto`` chain for many packed histories at once (the
@@ -363,7 +385,32 @@ _FRONTIER_KW = ("max_states", "frontier0", "max_frontier", "time_limit",
                 "should_abort", "device")
 _DECOMPOSE_KW = _REACH_KW + ("time_limit", "max_configs", "frontier0",
                              "max_frontier")
+_TXN_KW = ("device", "max_dense_txns", "force_host", "consistency")
 
 
 def _engine_kw(kw: Mapping, allowed: Sequence[str]) -> Dict[str, Any]:
     return {k: v for k, v in kw.items() if k in allowed}
+
+
+@dataclass
+class Compose(Checker):
+    """Run several named checkers; valid iff all are (upstream
+    ``jepsen.checker/compose``)."""
+    checkers: Dict[str, Checker]
+    name = "compose"
+
+    def check(self, test, history, opts=None):
+        results = {name: check_safe(c, test, history, opts)
+                   for name, c in self.checkers.items()}
+        valids = [r.get("valid") for r in results.values()]
+        if all(v is True for v in valids):
+            valid: Any = True
+        elif any(v is False for v in valids):
+            valid = False
+        else:
+            valid = "unknown"
+        return {"valid": valid, "results": results}
+
+
+def compose(checkers: Dict[str, Checker]) -> Compose:
+    return Compose(checkers)

@@ -238,6 +238,188 @@ def gen_packed(kind: str = "cas", n_ops: int = 100, processes: int = 5,
         op_keys=tuple((op.f, hashable(op.value)) for op in ops))
 
 
+def gen_txn_history(n_txns: int = 50, keys: int = 3, processes: int = 5,
+                    max_len: int = 4, read_p: float = 0.5,
+                    crash_p: float = 0.0, key_rotate: int = 0,
+                    seed: Optional[int] = None) -> List[Op]:
+    """Generate a serializable-by-construction list-append txn history:
+    the same tick simulation as :func:`gen_history`, committing each
+    whole transaction atomically against live per-key lists at a random
+    instant between invocation and response (so SOME serial order — the
+    commit order — explains every read). Appends are per-key unique
+    (Elle's traceability precondition). With ``crash_p`` a txn may end
+    ``info``, committed or not — both crashed-op branches.
+
+    ``key_rotate`` retires a key after that many appends and swaps in a
+    fresh one (how real Jepsen list-append workloads bound list
+    growth): without it every read copies an ever-growing list and a
+    100k-txn history costs O(n^2) to build and to check. The bench
+    rung uses rotation; small differential trials don't need it."""
+    rng = random.Random(seed)
+    key_names = [f"t{i}" for i in range(keys)]
+    lists: Dict[str, list] = {k: [] for k in key_names}
+    next_v: Dict[str, int] = {k: 0 for k in key_names}
+    n_retired = 0
+
+    def _maybe_rotate(k: str) -> None:
+        nonlocal n_retired
+        if key_rotate and len(lists[k]) >= key_rotate \
+                and k in key_names:
+            n_retired += 1
+            fresh = f"t{keys + n_retired - 1}r"
+            key_names[key_names.index(k)] = fresh
+            lists[fresh] = []
+            next_v[fresh] = 0
+    pending: List[Optional[list]] = [None] * processes  # [micros, committed, result]
+    history: List[Op] = []
+    invoked = 0
+    while invoked < n_txns or any(p is not None for p in pending):
+        p = rng.randrange(processes)
+        st = pending[p]
+        if st is None:
+            if invoked >= n_txns:
+                continue
+            micros = []
+            for _ in range(rng.randint(1, max_len)):
+                k = rng.choice(key_names)
+                if rng.random() < read_p:
+                    micros.append(["r", k, None])
+                else:
+                    micros.append(["append", k, next_v[k]])
+                    next_v[k] += 1
+            pending[p] = [micros, False, None]
+            history.append(invoke(p, "txn", [list(x) for x in micros]))
+            invoked += 1
+        elif not st[1]:
+            if crash_p and rng.random() < crash_p:
+                history.append(info(p, "txn", st[0]))
+                pending[p] = None
+                continue
+            # atomic commit: every micro-op against the live lists
+            result = []
+            for kind, k, v in st[0]:
+                if kind == "append":
+                    # a rotated-away key still commits (the txn chose
+                    # it at invocation); its list just stops growing
+                    # for future txns
+                    lists[k].append(v)
+                    result.append(["append", k, v])
+                    _maybe_rotate(k)
+                else:
+                    result.append(["r", k, list(lists[k])])
+            st[1] = True
+            st[2] = result
+        else:
+            if crash_p and rng.random() < crash_p:
+                history.append(info(p, "txn", st[0]))
+            else:
+                history.append(ok(p, "txn", st[2]))
+            pending[p] = None
+    return [op.with_(index=i, time=i) for i, op in enumerate(history)]
+
+
+#: crafted list-append blocks with one known dependency cycle each
+#: (fresh keys; timing-independent — the cycles come purely from the
+#: read observations, which is all the inference consults)
+TXN_ANOMALY_KINDS = ("G0", "G1c", "G-single", "G2")
+
+#: lattice-level fixtures: each is invalid at a KNOWN
+#: weakest level and valid at everything below it, with every txn
+#: sequential (non-overlapping) so the commit-order lane is total —
+#: the ground truths the lattice differential tests assert:
+#:
+#:   write-skew   -> weakest violated: si    (G-SIb; causal/pl-2 hold)
+#:   lost-update  -> invalid at EVERY level  (G0 + G-SIa: the
+#:                                            blind overwrite also
+#:                                            reverses a write order)
+#:   long-fork    -> weakest violated: si    (G-SIb + G2; the
+#:                                            canonical SI anomaly)
+#:   session-mr   -> weakest violated: pl-2  (monotonic-reads;
+#:                                            causal holds)
+TXN_LATTICE_KINDS = ("write-skew", "lost-update", "long-fork",
+                     "session-mr")
+
+
+def txn_anomaly_block(kind: str, key_prefix: str = "z",
+                      process0: int = 100) -> List[Op]:
+    """A self-contained txn block whose inferred graph contains
+    exactly one cycle of class ``kind`` (sequential ops, fresh keys —
+    append it to any history without disturbing it). The
+    :data:`TXN_LATTICE_KINDS` kinds additionally pin the WEAKEST
+    violated consistency level (see the table above)."""
+    ka, kb = f"{key_prefix}a", f"{key_prefix}b"
+    p = process0
+
+    def seq(*txns, procs=None):
+        out = []
+        for i, t in enumerate(txns):
+            pi = p + (i if procs is None else procs[i])
+            out.append(invoke(pi, "txn",
+                              [[k, kk, None if k == "r" else v]
+                               for k, kk, v in t]))
+            out.append(ok(pi, "txn", [list(x) for x in t]))
+        return out
+
+    if kind == "G0":
+        # ww(ka): T1<T2 but ww(kb): T2<T1 — a pure write cycle
+        return seq([("append", ka, 1), ("append", kb, 1)],
+                   [("append", ka, 2), ("append", kb, 2)],
+                   [("r", ka, [1, 2]), ("r", kb, [2, 1])])
+    if kind == "G1c":
+        # each txn reads the OTHER's append: wr both ways
+        return seq([("append", ka, 1), ("r", kb, [1])],
+                   [("r", ka, [1]), ("append", kb, 1)])
+    if kind == "G-single":
+        # T1 misses T2's append to ka (rw) but reads its kb append
+        # (wr back): exactly one anti-dependency edge
+        return seq([("r", ka, []), ("r", kb, [1])],
+                   [("append", ka, 1), ("append", kb, 1)],
+                   [("r", ka, [1])])
+    if kind == "G2":
+        # two anti-dependencies and nothing stronger
+        return seq([("r", ka, []), ("append", kb, 1)],
+                   [("r", kb, []), ("append", ka, 1)],
+                   [("r", ka, [1]), ("r", kb, [1])])
+    if kind == "write-skew":
+        # the classic skew, SEQUENTIALLY: T2 starts after T1
+        # committed yet still reads ka=[] — fine under causal (no
+        # ww/wr cycle), a G-SIb write skew under strong-session SI
+        # (rw T2->T1 closed by the commit-order edge T1->T2)
+        return seq([("r", ka, []), ("r", kb, []), ("append", ka, 1)],
+                   [("r", ka, []), ("r", kb, []), ("append", kb, 1)],
+                   [("r", ka, [1]), ("r", kb, [1])])
+    if kind == "lost-update":
+        # T2 read-modify-writes over T1 without seeing T1's committed
+        # append, and the recovered kb order runs BACKWARD through
+        # commit order: a G0 write cycle (fails read-committed, hence
+        # every level) plus the time-travel G-SIa edge ww T2->T1 with
+        # T1 committed before T2 even started
+        return seq([("r", ka, []), ("append", ka, 1),
+                    ("append", kb, 1)],
+                   [("r", ka, []), ("append", ka, 2),
+                    ("append", kb, 2)],
+                   [("r", ka, [1, 2]), ("r", kb, [2, 1])])
+    if kind == "long-fork":
+        # two readers observe the two independent writes in OPPOSITE
+        # orders — the canonical SI anomaly. No ww/wr cycle (causal
+        # holds); both rw edges close through commit order (G-SIb),
+        # and the four-txn rw/wr cycle is a G2 under serializability.
+        return seq([("append", ka, 1)],
+                   [("append", kb, 1)],
+                   [("r", ka, [1]), ("r", kb, [])],
+                   [("r", ka, []), ("r", kb, [1])])
+    if kind == "session-mr":
+        # one process's reads SHRINK: txn2 sees [1,2], txn3 (same
+        # process) sees [1] — a monotonic-reads session violation
+        # (weakest violated: pl-2; causal still holds, there is no
+        # ww/wr cycle)
+        return seq([("append", ka, 1), ("append", ka, 2)],
+                   [("r", ka, [1, 2])],
+                   [("r", ka, [1])],
+                   procs=[0, 1, 1])
+    raise ValueError(f"unknown txn anomaly kind {kind!r}")
+
+
 def model_for(kind: str) -> m.Model:
     return {
         "register": m.register(),

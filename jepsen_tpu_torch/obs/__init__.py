@@ -1,6 +1,6 @@
 """Observability for the checker pipeline: a span tracer, process-wide
-counters and the engine-decision ledger, with the record shapes of the
-reference package's ``obs`` core.
+counters and gauges, and the engine-decision ledger, with the record
+shapes of the reference package's ``obs`` core.
 
     from jepsen_tpu_torch import obs
 
@@ -42,12 +42,13 @@ class Recorder:
     """One sink of spans, counters and ledger records: the process-wide
     :data:`GLOBAL`, plus one per :func:`capture`."""
 
-    __slots__ = ("_lock", "spans", "counters", "ledger")
+    __slots__ = ("_lock", "spans", "counters", "gauges", "ledger")
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.spans: List[Dict[str, Any]] = []
         self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, Any] = {}
         self.ledger: List[Dict[str, Any]] = []
 
     def _append(self, store: list, cap: int, dropped: str,
@@ -68,10 +69,15 @@ class Recorder:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def gauge(self, name: str, value: Any) -> None:
+        with self._lock:
+            self.gauges[name] = value
+
     def clear(self) -> None:
         with self._lock:
             self.spans.clear()
             self.counters.clear()
+            self.gauges.clear()
             self.ledger.clear()
 
 
@@ -133,6 +139,19 @@ def counters() -> Dict[str, float]:
         return dict(GLOBAL.counters)
 
 
+def gauge(name: str, value: Any) -> None:
+    """Set a last-value-wins gauge (e.g. ``txn.core.n``)."""
+    if _ENABLED:
+        for s in _sinks():
+            s.gauge(name, value)
+
+
+def gauges() -> Dict[str, Any]:
+    """Snapshot of the process-wide gauges."""
+    with GLOBAL._lock:
+        return dict(GLOBAL.gauges)
+
+
 def decision(stage: str, event: str, cause: Optional[str] = None,
              **fields: Any) -> None:
     """Append ``{"ts", "stage", "event"[, "cause"], **fields}`` to the
@@ -182,6 +201,11 @@ class Capture:
     def counters(self) -> Dict[str, float]:
         with self._rec._lock:
             return dict(self._rec.counters)
+
+    @property
+    def gauges(self) -> Dict[str, Any]:
+        with self._rec._lock:
+            return dict(self._rec.gauges)
 
     @property
     def ledger(self) -> List[Dict[str, Any]]:

@@ -24,6 +24,7 @@ from jepsen_tpu_torch import Linearizable
 from jepsen_tpu_torch import edn as edn_pt
 from jepsen_tpu_torch import fixtures as fx_pt
 from jepsen_tpu_torch import history as h_pt
+from jepsen_tpu_torch import txn as txn_pt
 from jepsen_tpu_torch.checkers import events as ev_pt
 from jepsen_tpu_torch.checkers import reach as reach_pt
 
@@ -177,7 +178,13 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.checkers.decompose",
             "jepsen_tpu_torch._native",
             "jepsen_tpu_torch.independent",
-            "jepsen_tpu_torch.tools.ablate_lane"} <= imported
+            "jepsen_tpu_torch.tools.ablate_lane",
+            "jepsen_tpu_torch.txn",
+            "jepsen_tpu_torch.txn.ops",
+            "jepsen_tpu_torch.txn.infer",
+            "jepsen_tpu_torch.txn.host_ref",
+            "jepsen_tpu_torch.txn.cycles",
+            "jepsen_tpu_torch.txn.lattice"} <= imported
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -193,3 +200,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Linearizable(model, device="cuda").check(None, h)
     assert Linearizable(model, device="cpu").check(None, h)["valid"] is True
+    th = fx_pt.gen_txn_history(20, keys=2, seed=0)
+    for kw in ({}, {"consistency": "all"}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            txn_pt.check_history(th, **kw)
+    assert txn_pt.check_history(th, device="cpu")["valid"] is True
