@@ -75,8 +75,11 @@ user's entry points and checks the results:
   Each prints its wall time, the stage selected, the returns walked,
   host reads a return, ms a return and ``frontier-cap``;
 - the transactional checker (:func:`phase_txn`): K8, one squaring of the
-  word-packed closure, bit for bit against its plain version at (K, Np)
-  from (3, 32) to (4, 8,192), beside one ``torch.bmm`` squaring in each
+  word-packed closure on the single-bit tensor cores, bit for bit
+  against its plain version at (K, Np) from (3, 32) to (4, 8,192), with
+  (1, 96) and (3, 64) for the small tile, at 2, 8 and Np / 2 edges a
+  node (the last saturates the counts), its form, tile and load path
+  logged, beside one ``torch.bmm`` squaring in each
   exact precision (fp32, TF32, bf16, fp16; the fastest is the kernels
   line's ``library_ms``); the reference bench's closure-bound graphs
   (n = 1,024 and 8,192) through the K8 ladder, the f32 cross-check and
@@ -1609,9 +1612,18 @@ def phase_chain():
 # -- the transactional checker: K8 and the txn main path ---------------------
 
 # K8 against its plain version: one squaring at each (K, Np), on seeded
-# random graphs of 2 and 8 edges a node
-TXN_STEP_SHAPES = ((3, 32), (3, 1_024), (4, 1_024), (3, 8_192), (4, 8_192))
+# random graphs of 2, 8 and Np / 2 edges a node (the last saturates the
+# counts); (1, 96) and (3, 64) take the small tile at widths whose rows
+# TMA cannot take, 96 not a power of two
+TXN_STEP_SHAPES = ((3, 32), (1, 96), (3, 64), (3, 1_024), (4, 1_024),
+                   (3, 8_192), (4, 8_192))
 TXN_STEP_DEGREES = (2, 8)
+
+
+def txn_degrees(Np):
+    return TXN_STEP_DEGREES + (Np // 2,)
+
+
 # the reference bench's closure probe (bench.py _closure_kernel_probe:
 # n = 1,024, 2n edges, seed 42) and the same recipe at the envelope
 TXN_CLOSURE_NS = (1_024, 8_192)
@@ -1648,12 +1660,29 @@ def txn_words(K, Np, degree, seed):
     return (masks,) + cycles.pack_lanes(masks)
 
 
+# the int8 tensor cores' published peak (H100 SXM, dense), and the rate
+# tools/mma_forms.py measured for wgmma m64n256k256 .b1 with AND and
+# popcount on an NVIDIA H100 80GB HBM3 at 700 W: 15,791 TOP/s, 8.0x the
+# int8 peak. K8 runs on that form, faster than the int8 bound allows,
+# so its bound is stated from the measured single-bit rate.
+INT8_PEAK = 1_979e12
+B1_RATE = 15.79e15
+
+
 def txn_step_bound(K, Np):
-    """K8's bound for one squaring: K·Np²·NW 32-bit operations (``acc |=
-    a & b`` is one three-input logic instruction a word pair), and the
-    two packings read and written once."""
+    """K8's bound for one squaring: the larger of the two packings read
+    and written once over the memory rate and 2·K·Np³ operations over the
+    single-bit rate :data:`B1_RATE`; the text also gives the int8 bound
+    and the first design's bound (K·Np²·NW three-input logic
+    instructions over the integer rate)."""
     NW = Np // 32
-    return bound_ms(4 * K * Np * NW * 4, K * Np * Np * NW)
+    nbytes, ops = 4 * K * Np * NW * 4, 2 * K * Np ** 3
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / B1_RATE
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"bytes={nbytes} b1_ops={ops}; int8 bound "
+            f"{1e3 * max(t_bytes, ops / INT8_PEAK):.6f} ms, LOP3 bound "
+            f"{1e3 * max(t_bytes, K * Np * Np * NW / INT32_PEAK):.6f} ms")
 
 
 # the library's one-call squaring, ``where(bmm(C, C) > 0, 1, C)``, in each
@@ -1739,7 +1768,9 @@ def phase_txn():
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for K, Np in TXN_STEP_SHAPES:
-        for degree in TXN_STEP_DEGREES:
+        form = cycles.square_form(Np)
+        BM, BN = cycles.SQUARE_TILES[form]
+        for degree in txn_degrees(Np):
             masks, Cw, CwT = txn_words(K, Np, degree, seed=K * Np + degree)
             got = cycles.square_step(Cw, CwT)
             want = cycles.square_step_plain(Cw, CwT)
@@ -1758,9 +1789,11 @@ def phase_txn():
             lib_name = min(libs, key=libs.get)
             b_ms, b_by, b_txt = txn_step_bound(K, Np)
             dms = dev["total"] if dev else None
-            log(f"K8 txn_closure step K={K} Np={Np}: bit-identical to its "
-                f"plain version at {TXN_STEP_DEGREES} edges a node; "
-                f"event_ms={ms:.6f} device_ms="
+            log(f"K8 txn_closure step K={K} Np={Np}: form {form}, tile "
+                f"{BM} x {BN}, wgmma m64n{BN}k256 .b1 and.popc, operands "
+                f"by {'TMA' if (Np // 32) % 4 == 0 else 'cp.async'}; "
+                f"bit-identical to its plain version at {txn_degrees(Np)} "
+                f"edges a node; event_ms={ms:.6f} device_ms="
                 f"{'not measured' if dms is None else f'{dms:.6f}'} "
                 f"plain_ms={p_ms:.3f} bound_ms={b_ms:.6f} ({b_by}; {b_txt}) "
                 f"= {ms / b_ms:.2f}x the bound; bmm step "

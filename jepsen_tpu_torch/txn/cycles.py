@@ -58,6 +58,11 @@ KERNEL_LAUNCHES = 0
 # the plain step's largest [K, rows, Np, NW] intermediate, in elements
 _PLAIN_ELEMS = 1 << 25
 
+# K8's two tile forms (rows x columns of prod a block): the big one from
+# this Np up, the small one below it (tools/txn_tiles.py times both)
+_BIG_NP = 1024
+SQUARE_TILES = {0: (64, 64), 1: (128, 256)}
+
 
 def max_dense() -> int:
     return _MAX_DENSE_DEFAULT
@@ -145,6 +150,13 @@ def square_step_plain(Cw: torch.Tensor, CwT: torch.Tensor
             CwT | pack_rows_torch(prod.transpose(1, 2)))
 
 
+def square_form(Np: int) -> int:
+    """K8's tile form for width ``Np``: 1, the big tile (two
+    warpgroups, 128 x 256), from :data:`_BIG_NP` up, else 0, the small
+    one (one warpgroup, 64 x 64)."""
+    return 1 if Np >= _BIG_NP else 0
+
+
 _LIB = None
 
 
@@ -154,7 +166,7 @@ def _lib():
         from jepsen_tpu_torch import _build
         lib = _build.load("txn_closure")
         lib.jt_txn_square_step.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.jt_txn_square_step.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -180,7 +192,7 @@ def _square_step_cuda(Cw: torch.Tensor, CwT: torch.Tensor
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.jt_txn_square_step(Cw.data_ptr(), CwT.data_ptr(),
                                      Cw_out.data_ptr(), CwT_out.data_ptr(),
-                                     K, Np, stream)
+                                     K, Np, square_form(Np), stream)
     if err != 0:
         raise RuntimeError(f"txn square_step kernel launch failed: CUDA "
                            f"error {err}")
