@@ -88,7 +88,18 @@ user's entry points and checks the results:
   port's CPU run, on a 6,000-txn history with a write skew at every
   consistency level (``txn-lattice-mxu``, K = 4, Np = 8,192; 13 K8
   launches) against the host lattice and the f32 cross-check, and on
-  every injected block.
+  every injected block;
+- the command line (:func:`phase_cli`), each command in a subprocess
+  through ``python -m jepsen_tpu_torch`` on the card: ``check`` on the
+  ``data/`` fixtures, on a 100,000-op cas ``history.jsonl`` and on the
+  6,000-txn history (K8); ``recheck`` of 8 cas-30k histories, two
+  corrupted (one K2 launch); ``--algorithm reach-chunked`` on the
+  100,000-op history, valid and corrupted (K1's forward pass, K2's
+  basis walk); ``--algorithm competition`` (the winner, the losers'
+  stop time) and ``linear`` on a corrupted cas-30k; each verdict, op and
+  dead event against the dense engine in process; K2's largest basis
+  launch and a full-basis launch (E = D = 256) bit for bit against
+  their plain version.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -1939,6 +1950,307 @@ def phase_txn():
     return out[TXN_KERNEL_SHAPE]
 
 
+# -- the command line: python -m jepsen_tpu_torch check / recheck -------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# sizes of the command-line phase (the CPU rehearsal lowers them)
+CLI_BIG_OPS, CLI_SMALL_OPS, CLI_FULL_BASIS_OPS = 100_000, 30_000, 5_000
+CLI_RECHECK_N, CLI_RECHECK_BAD = 8, (2, 5)
+CLI_VERDICT = ("valid", "op", "dead-event")
+CLI_FIXTURES = (("cas-register-ok-small.edn", "cas-register"),
+                ("cas-register-ok-large.edn", "cas-register"),
+                ("cas-register-bad.edn", "cas-register"),
+                ("cas-register-recorded-bad.edn", "cas-register"),
+                ("register-ok.edn", "register"),
+                ("register-bad.edn", "register"),
+                ("mutex-ok.edn", "mutex"),
+                ("multi-register-ok.edn", "multi-register"),
+                ("multi-register-bad.edn", "multi-register"))
+# the child: ``python -m jepsen_tpu_torch`` (runpy, as ``-m`` runs it) with
+# every kernel count set to 0 just before and read just after, its wall
+# time and its route records, as the last line of its standard error
+CLI_CHILD = (
+    "import json, runpy, sys, time, torch\n"
+    "import chip_smoke\n"
+    "from jepsen_tpu_torch import obs\n"
+    "sys.argv = ['jepsen_tpu_torch'] + sys.argv[1:]\n"
+    "chip_smoke.zero_launches()\n"
+    "rc = 0\n"
+    "with obs.capture() as cap:\n"
+    "    t0 = time.perf_counter()\n"
+    "    try:\n"
+    "        runpy.run_module('jepsen_tpu_torch', run_name='__main__')\n"
+    "    except SystemExit as e:\n"
+    "        rc = e.code\n"
+    "    if torch.cuda.is_available():\n"
+    "        torch.cuda.synchronize()\n"
+    "    dt = time.perf_counter() - t0\n"
+    "print(json.dumps({'launches': chip_smoke.launches(), 'main_s': dt,\n"
+    "                  'ledger': [d for d in cap.ledger if d['stage'] in\n"
+    "                             ('reach-chunked', 'competition',\n"
+    "                              'recheck')]}), file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def cli_args(*args):
+    """A command line for the child, on this phase's device."""
+    return list(args) + ([] if CARD == "cuda" else ["--device", CARD])
+
+
+def cli_start(args):
+    return subprocess.Popen([sys.executable, "-c", CLI_CHILD, *args],
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def cli_finish(label, proc, t0):
+    """Wait for a child: ``(rc, stdout, info)``, ``info`` its launches,
+    in-child wall seconds, route records and the process's own wall
+    seconds; its launches are added to :data:`MAIN_PATH_LAUNCHES`."""
+    out, err = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    try:
+        info = json.loads(err.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        raise AssertionError(f"cli {label}: exit {proc.returncode}, no "
+                             f"result; stderr: {err[-4000:]}") from None
+    for name, n in info["launches"].items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    info["wall_s"] = wall
+    return proc.returncode, out, info
+
+
+def cli_run(label, args):
+    t0 = time.perf_counter()
+    return cli_finish(label, cli_start(cli_args(*args)), t0)
+
+
+def cli_same(label, got, want, keys=CLI_VERDICT):
+    diff = {k: (want.get(k), got.get(k)) for k in keys
+            if k in got and want.get(k) != got.get(k)}
+    if diff or got.get("valid") != want.get("valid"):
+        raise AssertionError(f"cli {label}: differs from the in-process "
+                             f"run {diff or (got, want)}")
+
+
+def cli_line(label, rc, res, info, extra=""):
+    la = {k: v for k, v in info["launches"].items()
+          if k in ("lane_walk", "batch_walk", "wide_walk", "txn_closure")}
+    log(f"cli {label}: exit {rc} valid={res.get('valid')} engine="
+        f"{res.get('engine')} dead-event={res.get('dead-event')}{extra}; "
+        f"process {info['wall_s']:.3f} s, command {info['main_s']:.4f} s; "
+        f"launches K1 {la['lane_walk']} K2 {la['batch_walk']} K4 "
+        f"{la['wide_walk']} K8 {la['txn_closure']}")
+
+
+def basis_launches(fn):
+    """Run ``fn`` with every K2 launch's operands recorded: ``(result,
+    [(P, slot_ops, ret_slot_rh, R0, B, n_pass), ...])``."""
+    from jepsen_tpu_torch.checkers import reach_batch
+
+    calls, real = [], reach_batch.batch_walk
+
+    def rec(*a):
+        calls.append(a)
+        return real(*a)
+
+    reach_batch.batch_walk = rec
+    try:
+        return fn(), calls
+    finally:
+        reach_batch.batch_walk = real
+
+
+def basis_vs_plain(label, args):
+    """One recorded basis launch of K2 against ``batch_walk_plain`` on
+    the same operands, bit for bit, and both timed."""
+    from jepsen_tpu_torch.checkers import reach_batch
+
+    *ops, B, n_pass = args
+    got = reach_batch.batch_walk(*ops, B, n_pass)
+    want, p_ms = plain_ms(lambda: reach_batch.batch_walk_plain(*ops, B,
+                                                               n_pass))
+    err = same(label, got, want)
+    ms = event_ms(lambda: reach_batch.batch_walk(*ops, B, n_pass), 5)
+    P, slot_ops, ret_rh, R0 = ops
+    W = slot_ops.numel() // ret_rh.numel()
+    log(f"kernel batch_walk [{label}] lanes={ret_rh.shape[1]} seed "
+        f"groups={R0.shape[0] >> W} rows E*M={R0.shape[0]} steps="
+        f"{ret_rh.shape[0]} B={B} n_pass={n_pass}: bit-identical "
+        f"max_abs_err={err} kernel_ms={ms:.6f} plain_ms={p_ms:.3f}")
+
+
+def phase_cli():
+    """The command line on the card, each command in a subprocess through
+    ``python -m jepsen_tpu_torch`` with no ``--device`` (the card):
+    ``check`` on the ``data/`` fixtures (started together), on a cas
+    history of :data:`CLI_BIG_OPS` ops written to ``history.jsonl``, and
+    on the 6,000-txn lattice history (K8); ``recheck`` of
+    :data:`CLI_RECHECK_N` cas histories of :data:`CLI_SMALL_OPS` ops,
+    two corrupted (one lockstep batch on K2); ``--algorithm
+    reach-chunked`` on the big history, valid and corrupted (K1's forward
+    pass, K2's basis walk); ``--algorithm competition`` and ``linear`` on
+    the corrupted small one. Each verdict, failing op and dead event
+    equals the in-process dense engine's on the card. In process:
+    ``reach-chunked`` against ``reach`` on the big history, and K2's
+    largest basis launch there and a full-basis launch (E = D) held bit
+    for bit against ``batch_walk_plain``."""
+    import tempfile
+
+    from jepsen_tpu_torch import Linearizable, fixtures, history, models
+    from jepsen_tpu_torch.checkers import facade
+
+    t_phase = time.perf_counter()
+    cas = models.cas_register()
+
+    def reach(h, model=cas):
+        return Linearizable(model, algorithm="reach",
+                            device=CARD).check(None, h)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        def write(name, h):
+            path = os.path.join(tmp, name)
+            history.save_jsonl(h, path)
+            return path
+
+        # -- the fixtures, started together ------------------------------
+        t0 = time.perf_counter()
+        procs = [(f, m, cli_start(cli_args(
+            "check", os.path.join(ROOT, "data", f), "--model", m)))
+            for f, m in CLI_FIXTURES]
+        for f, m, proc in procs:
+            rc, out, info = cli_finish(f, proc, t0)
+            res = json.loads(out)
+            want = reach(history.load_edn(os.path.join(ROOT, "data", f)),
+                         getattr(models, m.replace("-", "_"))())
+            # the decomposition reports its failing op per key
+            keys = ("valid",) if m == "multi-register" else CLI_VERDICT
+            cli_same(f, res, want, keys)
+            if rc != (0 if res["valid"] is True else 1):
+                raise AssertionError(f"cli {f}: exit {rc} for {res}")
+            cli_line(f"check {f}", rc, res, info)
+        log(f"cli fixtures: {len(CLI_FIXTURES)} processes at once, "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # -- a big cas history, auto and reach-chunked --------------------
+        big = gen("cas", CLI_BIG_OPS, 5, 0)
+        big_bad = gen("cas", CLI_BIG_OPS, 5, 0, corrupt=True)
+        p_big, p_bad = write("history.jsonl", big), write("bad.jsonl",
+                                                          big_bad)
+        want_big, want_bad = reach(big), reach(big_bad)
+        rc, out, info = cli_run("check big", ["check", p_big])
+        res = json.loads(out)
+        cli_same("check big", res, want_big)
+        cli_line(f"check cas-{CLI_BIG_OPS} history.jsonl", rc, res, info)
+        if CARD == "cuda" and CLI_BIG_OPS >= 100_000:
+            expect("cli check cas-100k", info["launches"], batch_walk=2)
+        for label, path, want in (("valid", p_big, want_big),
+                                  ("corrupted", p_bad, want_bad)):
+            rc, out, info = cli_run(f"reach-chunked {label}",
+                                    ["check", path, "--algorithm",
+                                     "reach-chunked"])
+            res = json.loads(out)
+            cli_same(f"reach-chunked {label}", res, want)
+            routes = {d["phase"]: d for d in info["ledger"]
+                      if d["stage"] == "reach-chunked"}
+            basis = routes.get("basis", {}).get("groups")
+            if CARD == "cuda":
+                expect(f"cli reach-chunked {label}", info["launches"],
+                       lane_walk=1,
+                       batch_walk=len(basis) if basis else 0)
+            cli_line(f"check cas-{CLI_BIG_OPS} {label} --algorithm "
+                     f"reach-chunked", rc, res, info,
+                     f" chunks={res.get('chunks')} forward="
+                     f"{routes['forward']['engine']} basis groups "
+                     f"(chunks, configs)={basis}")
+
+        # in process: reach-chunked against reach on the same history,
+        # and K2's largest basis launch against its plain version
+        def chunked(h):
+            return Linearizable(cas, algorithm="reach-chunked",
+                                device=CARD).check(None, h)
+
+        (res, calls) = basis_launches(lambda: drive(lambda: chunked(big)))
+        res, dt, la, spans, ledger = res
+        cli_same("in-process reach-chunked", res, want_big)
+        res_r, dt_r, la_r, _, _ = drive(lambda: reach(big))
+        groups = [d.get("groups") for d in ledger
+                  if d["stage"] == "reach-chunked"
+                  and d.get("phase") == "basis"]
+        log(f"in-process cas-{CLI_BIG_OPS}: reach-chunked {dt:.4f} s "
+            f"(chunks {res['chunks']}, basis groups {groups}, launches "
+            f"K1 {la['lane_walk']} K2 {la['batch_walk']}; "
+            f"{split(dt, spans)}) against reach {dt_r:.4f} s "
+            f"({res_r['engine']}, launches K1 {la_r['lane_walk']} K2 "
+            f"{la_r['batch_walk']})")
+        if calls and CARD == "cuda":
+            basis_vs_plain(f"cas-{CLI_BIG_OPS} largest basis launch",
+                           max(calls, key=lambda a: a[3].numel()))
+        full = gen("cas", CLI_FULL_BASIS_OPS, 5, 7)
+        (res, calls) = basis_launches(lambda: chunked(full))
+        cli_same("full basis", res, reach(full))
+        E_M = max(a[3].shape[0] for a in calls)
+        log(f"in-process cas-{CLI_FULL_BASIS_OPS}: reach-chunked "
+            f"valid={res['valid']} chunks={res['chunks']}, full basis: "
+            f"E*M = {E_M} rows")
+        if CARD == "cuda":
+            basis_vs_plain(f"cas-{CLI_FULL_BASIS_OPS} full basis",
+                           max(calls, key=lambda a: a[3].numel()))
+
+        # -- recheck of several paths: one lockstep batch -----------------
+        paths, wants = [], []
+        for i in range(CLI_RECHECK_N):
+            h = gen("cas", CLI_SMALL_OPS, 5, 2000 + i,
+                    corrupt=i in CLI_RECHECK_BAD)
+            paths.append(write(f"h{i}.jsonl", h))
+            wants.append(reach(h))
+        rc, out, info = cli_run("recheck", ["recheck", *paths])
+        lines = [json.loads(ln) for ln in out.strip().splitlines()]
+        for i, (ln, want) in enumerate(zip(lines, wants)):
+            cli_same(f"recheck path {i}", ln, want)
+        if rc != 1 or len(lines) != CLI_RECHECK_N:
+            raise AssertionError(f"cli recheck: exit {rc}, {lines}")
+        if CARD == "cuda":
+            expect("cli recheck", info["launches"], batch_walk=1,
+                   lane_walk=2 * len(CLI_RECHECK_BAD))
+        cli_line(f"recheck {CLI_RECHECK_N} x cas-{CLI_SMALL_OPS}, "
+                 f"{len(CLI_RECHECK_BAD)} corrupted", rc,
+                 {"valid": [ln["valid"] for ln in lines]}, info)
+
+        # -- competition and linear on a corrupted small history ----------
+        small_bad = gen("cas", CLI_SMALL_OPS, 5, 0, corrupt=True)
+        p_small = write("small_bad.jsonl", small_bad)
+        want = reach(small_bad)
+        for algorithm in ("competition", "linear"):
+            rc, out, info = cli_run(algorithm, ["check", p_small,
+                                                "--algorithm", algorithm])
+            res = json.loads(out)
+            cli_same(algorithm, res, want)
+            extra = ""
+            if algorithm == "competition":
+                rec = [d for d in info["ledger"]
+                       if d["stage"] == "competition"]
+                extra = (f" winner={res.get('winner')} losers stopped in "
+                         f"{rec[0]['stop_s']:.4f} s")
+            cli_line(f"check cas-{CLI_SMALL_OPS} corrupted --algorithm "
+                     f"{algorithm}", rc, res, info, extra)
+
+        # -- a txn history: the closure on K8 -----------------------------
+        h = fixtures.gen_txn_history(**TXN_LATTICE)
+        h = history.index(h + [op.with_(index=-1) for op in
+                               fixtures.txn_anomaly_block("write-skew")])
+        p_txn = write("txn.jsonl", h)
+        want = facade.auto_check_txn(h, {"device": CARD})
+        rc, out, info = cli_run("txn", ["check", p_txn])
+        res = json.loads(out)
+        cli_same("txn", res, want, ("valid", "anomalies", "engine"))
+        if CARD == "cuda":
+            expect_any("cli txn", info["launches"], "txn_closure")
+        cli_line(f"check txn {len(h)} ops", rc, res, info,
+                 f" anomalies={res.get('anomalies')}")
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2189,6 +2501,9 @@ def main() -> int:
 
     # -- the transactional checker: K8 and its main path ----------------
     k8 = phase_txn()
+
+    # -- the command line ----------------------------------------------
+    phase_cli()
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)

@@ -1,6 +1,7 @@
 """Checkers — upstream: ``jepsen/src/jepsen/checker.clj`` plus Knossos.
 
-- :mod:`.facade` — the composable ``Checker`` API and the ``auto`` chain.
+- :mod:`.facade` — the composable ``Checker`` API, the ``auto`` chain,
+  the ``competition`` race and the data-invariant checkers.
 - :mod:`.reach` — the dense-reachability search (host prep, routing,
   torch walks, witness); ``check_many`` and ``check_batch`` for many
   histories at once.
@@ -12,6 +13,13 @@
 - :mod:`.reach_pallas` — the walks of more than 32 states (one history,
   and many keys), as CUDA kernels with their plain versions.
 - :mod:`.wgl_ref` — the Python Wing-Gong-Lowe oracle.
+- :mod:`.linear` — sparse just-in-time linearization (upstream
+  ``knossos.linear``), host only; :mod:`.linear_report` — the SVG of a
+  failing window; :mod:`.search` — deadline, abort and memory watchdog.
 - :mod:`.events` — host-side slot/event-stream preprocessing, on the C++
   scans of :mod:`.preproc_native` (``native/preproc.cpp``).
 """
+from jepsen_tpu_torch.checkers.facade import (  # noqa: F401
+    Checker, check_safe, compose, counter, linearizable, noop_checker,
+    queue, set_checker, stats, total_queue, unbridled_optimism,
+)

@@ -1,7 +1,9 @@
 """The composable ``Checker`` API — upstream ``jepsen/src/jepsen/checker.clj``:
 ``linearizable`` delegating to the search engines (as the upstream
-delegates to Knossos via ``knossos.competition/analysis``), and
-``check_safe``.
+delegates to Knossos via ``knossos.competition/analysis``), the
+data-invariant checkers (``set``, ``counter``, ``queue``,
+``total-queue``), ``compose``, ``noop``, ``unbridled-optimism``,
+``stats``, and ``check_safe``.
 
 API shape: ``checker.check(test, history, opts) -> dict`` with at least a
 ``"valid"`` key (``True`` / ``False`` / ``"unknown"``), the model carried
@@ -10,15 +12,20 @@ by the checker (or the test map).
 from __future__ import annotations
 
 import logging
+import threading
 import traceback as _traceback
+from collections import Counter as _Counter
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
 
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.models import Model
-from jepsen_tpu_torch.op import Op
+from jepsen_tpu_torch.op import FAIL, INFO, INVOKE, OK, Op
+from jepsen_tpu_torch.util import hashable
 
 
 class Checker:
@@ -75,6 +82,9 @@ class Linearizable(Checker):
       decomposition runs first.
     - ``"reach"`` — the dense engine alone
       (:mod:`jepsen_tpu_torch.checkers.reach`).
+    - ``"reach-chunked"`` — the dense engine, history-parallel
+      (:func:`jepsen_tpu_torch.checkers.reach.check_chunked`), with its
+      ``n_chunks`` and ``max_matrix`` options.
     - ``"chunklock"`` — the chunk-lockstep engine alone
       (:mod:`jepsen_tpu_torch.checkers.reach_chunklock`), with its
       ``n_chunks``, ``e_pad`` and ``suffix`` options.
@@ -88,6 +98,16 @@ class Linearizable(Checker):
       (:mod:`jepsen_tpu_torch.checkers.wgl_native`).
     - ``"wgl-cpu"`` — the Python oracle
       (:mod:`jepsen_tpu_torch.checkers.wgl_ref`).
+    - ``"linear"`` — sparse just-in-time linearization, upstream
+      ``knossos.linear`` (:mod:`jepsen_tpu_torch.checkers.linear`).
+    - ``"competition"`` — the C++ WGL search, the dense engine, the
+      JIT-linearization and the frontier raced on threads; the first
+      definitive verdict wins and the losers are aborted (upstream
+      ``knossos.competition``; :func:`_competition`).
+
+    An invalid verdict with an ``op`` renders the failing window as
+    ``linear.svg`` into ``test["dir"]`` when the test names one, and
+    sets ``report-file``.
 
     ``device`` (or ``opts["device"]``) names where the device engines
     run: the card by default; ``"cpu"`` runs the plain PyTorch versions.
@@ -99,6 +119,24 @@ class Linearizable(Checker):
     name = "linearizable"
 
     def check(self, test, history, opts=None):
+        res = self._check_impl(test, history, opts)
+        out_dir = (test or {}).get("dir") if hasattr(test, "get") else None
+        if res.get("valid") is False and res.get("op") and out_dir:
+            # the upstream-style SVG of the failing window
+            # (knossos.linear.report) next to the run's other artifacts
+            import os
+
+            from jepsen_tpu_torch.checkers import linear_report
+            path = os.path.join(out_dir, "linear.svg")
+            try:
+                linear_report.render_analysis(history, res, path)
+            except Exception:                           # noqa: BLE001
+                pass        # a host-side drawing; it never masks a verdict
+            else:
+                res["report-file"] = path
+        return res
+
+    def _check_impl(self, test, history, opts=None):
         from jepsen_tpu_torch.checkers import reach, wgl_ref
 
         model = _model_from(self.model, test)
@@ -110,6 +148,11 @@ class Linearizable(Checker):
         algorithm = kw.pop("algorithm", self.algorithm)
         if algorithm == "reach":
             return reach.check(model, history, **_engine_kw(kw, _REACH_KW))
+        if algorithm == "reach-chunked":
+            with obs.span("facade.pack", ops=len(history)):
+                packed = h.pack(history)
+            return reach.check_chunked(model, packed=packed,
+                                       **_engine_kw(kw, _CHUNKED_KW))
         if algorithm == "chunklock":
             from jepsen_tpu_torch.checkers import reach_chunklock
             return reach_chunklock.check_packed(
@@ -132,6 +175,12 @@ class Linearizable(Checker):
                                     **_engine_kw(kw, _NATIVE_KW))
         if algorithm == "wgl-cpu":
             return wgl_ref.check(model, history, **_engine_kw(kw, _WGL_KW))
+        if algorithm == "linear":
+            from jepsen_tpu_torch.checkers import linear
+            return linear.check(model, history,
+                                **_engine_kw(kw, _LINEAR_KW))
+        if algorithm == "competition":
+            return _competition(model, history, kw)
         if algorithm == "auto":
             from jepsen_tpu_torch import models as _models
             with obs.span("facade.pack", ops=len(history)):
@@ -153,7 +202,7 @@ class Linearizable(Checker):
                 obs.decision("decompose", "skipped",
                              cause="not-decomposable", ops=packed.n)
             return auto_check_packed(model, packed, kw)
-        raise NotImplementedError(f"algorithm {algorithm!r} not ported")
+        raise ValueError(f"unknown algorithm {algorithm!r}")
 
 
 def linearizable(model: Optional[Model] = None,
@@ -377,6 +426,7 @@ def auto_check_many_packed(model: Model, packed_list,
 _REACH_KW = ("max_states", "max_slots", "max_dense", "should_abort",
              "device")
 _REACH_MANY_KW = _REACH_KW          # check_many takes the same options
+_CHUNKED_KW = _REACH_KW + ("n_chunks", "max_matrix")
 _CHUNKLOCK_KW = ("max_states", "max_slots", "max_dense", "n_chunks",
                  "e_pad", "suffix", "device")
 _WGL_KW = ("time_limit", "max_configs", "strategy", "should_abort")
@@ -386,6 +436,7 @@ _FRONTIER_KW = ("max_states", "frontier0", "max_frontier", "time_limit",
 _DECOMPOSE_KW = _REACH_KW + ("time_limit", "max_configs", "frontier0",
                              "max_frontier")
 _TXN_KW = ("device", "max_dense_txns", "force_host", "consistency")
+_LINEAR_KW = ("time_limit", "max_configs", "rep", "should_abort")
 
 
 def _engine_kw(kw: Mapping, allowed: Sequence[str]) -> Dict[str, Any]:
@@ -414,3 +465,340 @@ class Compose(Checker):
 
 def compose(checkers: Dict[str, Checker]) -> Compose:
     return Compose(checkers)
+
+
+# -- competition: the searches raced on threads -----------------------------
+
+# the racers' declines: the history does not fit that engine, which is an
+# "unknown" in the race, not a fault
+def _capacity_declines():
+    from jepsen_tpu_torch.checkers import frontier, reach, reach_q
+    from jepsen_tpu_torch.checkers.events import ConcurrencyOverflow
+    from jepsen_tpu_torch.models.memo import StateExplosion
+
+    return (reach.DenseOverflow, ConcurrencyOverflow, StateExplosion,
+            frontier.FrontierOverflow, reach_q.QuotientOverflow)
+
+
+def _competition(model: Model, history: Sequence[Op],
+                 kw: Dict[str, Any]) -> Dict[str, Any]:
+    """Race the C++ WGL search, the dense engine, the JIT-linearization
+    and the sparse frontier on threads (upstream
+    ``knossos.competition/analysis``, which races wgl against linear);
+    the first definitive verdict wins (``winner`` names it) and the
+    losers are aborted through one :class:`SearchControl` (the C++
+    search by its bound ``AbortFlag``, the others by ``should_abort``).
+
+    A racer's capacity decline (:func:`_capacity_declines`), an abort or
+    an ``unknown`` counts as ``unknown``; any other exception is a fault
+    and is raised. After the abort the two device racers (dense engine,
+    frontier) are joined, which stop within one segment, and a fault of
+    theirs is raised even when another racer won. Each racer runs under
+    a copy of the caller's context, so its spans and ledger records
+    reach any active ``obs.capture()``."""
+    import contextvars
+    import queue
+
+    from jepsen_tpu_torch.checkers import frontier, linear, reach, wgl_native
+    from jepsen_tpu_torch.checkers.search import SearchControl
+
+    kw = dict(kw)
+    kw["device"] = _device.resolve(kw.get("device"))
+    declines = _capacity_declines()
+    ctl = SearchControl(time_limit=kw.get("time_limit")).start()
+    native_abort = ctl.bind_native(wgl_native.AbortFlag())
+    verdicts: "queue.Queue" = queue.Queue()
+
+    def racer(name, fn):
+        def run():
+            try:
+                r = fn()
+            except declines as e:
+                r = {"valid": "unknown", "cause": type(e).__name__,
+                     "error": str(e)}
+            except BaseException as e:                  # noqa: BLE001
+                verdicts.put((name, None, e))
+                return
+            verdicts.put((name, r, None))
+        ctx = contextvars.copy_context()
+        return threading.Thread(target=lambda: ctx.run(run), daemon=True,
+                                name=f"competition-{name}")
+
+    device_racers = {
+        "reach": racer("reach", lambda: reach.check(
+            model, history, should_abort=ctl.should_abort,
+            **_engine_kw(kw, _REACH_KW))),
+        "frontier": racer("frontier", lambda: frontier.check(
+            model, history, should_abort=ctl.should_abort,
+            **_engine_kw(kw, ("max_states", "frontier0", "max_frontier",
+                              "device")))),
+    }
+    host_racers = {
+        "wgl-native": racer("wgl-native", lambda: wgl_native.check(
+            model, history, abort_flag=native_abort,
+            **_engine_kw(kw, ("max_configs", "max_states")))),
+        "linear": racer("linear", lambda: linear.check(
+            model, history, should_abort=ctl.should_abort,
+            **_engine_kw(kw, ("max_configs", "rep")))),
+    }
+    threads = {**host_racers, **device_racers}
+    for t in threads.values():
+        t.start()
+    import time as _time
+
+    winner: Optional[Dict[str, Any]] = None
+    fallback: Optional[Dict[str, Any]] = None
+    fault: Optional[BaseException] = None
+    try:
+        for _ in threads:
+            name, r, exc = verdicts.get()
+            if exc is not None:
+                fault = exc
+                break
+            if r.get("valid") in (True, False):
+                winner = dict(r)
+                winner["winner"] = name
+                break
+            fallback = fallback or r    # an unknown, as a last resort
+    finally:
+        ctl.abort()                         # stop the losers
+        t_abort = _time.monotonic()
+        for t in device_racers.values():
+            t.join()
+        ctl.close()
+    # the ledger keeps how long the device losers took to stop
+    obs.decision("competition", "route",
+                 winner=winner["winner"] if winner else None,
+                 stop_s=round(_time.monotonic() - t_abort, 6))
+    while fault is None and not verdicts.empty():
+        name, _r, exc = verdicts.get_nowait()
+        if exc is not None and name in device_racers:
+            fault = exc
+    if fault is not None:
+        raise fault
+    return winner or fallback or {"valid": "unknown"}
+
+
+# -- the data-invariant checkers ---------------------------------------------
+
+class NoopChecker(Checker):
+    """Always valid (upstream ``jepsen.checker/noop``)."""
+    name = "noop"
+
+    def check(self, test, history, opts=None):
+        return {"valid": True}
+
+
+class UnbridledOptimism(Checker):
+    """Everything is awesome (upstream
+    ``jepsen.checker/unbridled-optimism``)."""
+    name = "unbridled-optimism"
+
+    def check(self, test, history, opts=None):
+        return {"valid": True}
+
+
+def noop_checker() -> NoopChecker:
+    return NoopChecker()
+
+
+def unbridled_optimism() -> UnbridledOptimism:
+    return UnbridledOptimism()
+
+
+@dataclass
+class SetChecker(Checker):
+    """Grow-only set workload: ``add`` ops followed by a final ``read``
+    returning the set contents (upstream ``jepsen.checker/set``). Valid iff
+    every acknowledged add is present and nothing never-attempted is."""
+    name = "set"
+
+    def check(self, test, history, opts=None):
+        attempts = set()
+        acked = set()
+        final_read = None
+        for op in history:
+            if op.process == "nemesis":
+                continue
+            if op.f == "add":
+                v = hashable(op.value)
+                if op.type == INVOKE:
+                    attempts.add(v)
+                elif op.type == OK:
+                    acked.add(v)
+            elif op.f == "read" and op.type == OK:
+                final_read = {hashable(v) for v in (op.value or [])}
+        if final_read is None:
+            return {"valid": "unknown", "error": "no final read"}
+        lost = acked - final_read
+        unexpected = final_read - attempts
+        recovered = (final_read & attempts) - acked
+        return {
+            "valid": not lost and not unexpected,
+            "attempt-count": len(attempts), "acknowledged-count": len(acked),
+            "ok-count": len(final_read & acked),
+            "lost-count": len(lost), "lost": sorted(lost, key=repr),
+            "unexpected-count": len(unexpected),
+            "unexpected": sorted(unexpected, key=repr),
+            "recovered-count": len(recovered),
+            "recovered": sorted(recovered, key=repr),
+        }
+
+
+def set_checker() -> SetChecker:
+    return SetChecker()
+
+
+@dataclass
+class CounterChecker(Checker):
+    """Counter workload: ``add`` deltas (possibly failing or crashing) and
+    ``read`` observations (upstream ``jepsen.checker/counter``). Each ok
+    read must lie within the interval of possible counter values given
+    which adds had definitely / possibly taken effect at that moment."""
+    name = "counter"
+
+    def check(self, test, history, opts=None):
+        pairs = h.pair(h.index(list(history))
+                       if history and history[0].index < 0 else list(history))
+        adds, reads = [], []
+        INF = 1 << 60
+        for p in pairs:
+            if p.failed:
+                continue
+            op = p.invoke
+            ret = p.complete.index if not p.crashed else INF
+            if op.f == "add":
+                adds.append((op.index, ret, op.value or 0, p.crashed))
+            elif op.f == "read" and not p.crashed:
+                v = p.complete.value
+                if v is not None:
+                    reads.append((op.index, ret, v))
+        if not reads:
+            return {"valid": True, "reads-checked": 0}
+        a_inv = np.array([a[0] for a in adds], np.int64).reshape(-1, 1)
+        a_ret = np.array([a[1] for a in adds], np.int64).reshape(-1, 1)
+        a_d = np.array([a[2] for a in adds], np.float64).reshape(-1, 1)
+        a_crash = np.array([a[3] for a in adds], bool).reshape(-1, 1)
+        bad = []
+        for chunk in range(0, len(reads), 4096):
+            rs = reads[chunk:chunk + 4096]
+            r_inv = np.array([r[0] for r in rs], np.int64)
+            r_ret = np.array([r[1] for r in rs], np.int64)
+            r_v = np.array([r[2] for r in rs], np.float64)
+            if len(adds):
+                # definitely applied: acked and returned before the read
+                # began; possibly applied: invoked before it returned
+                exact = (~a_crash) & (a_ret < r_inv)
+                maybe = (a_inv < r_ret) & ~exact
+                base = (a_d * exact).sum(axis=0)
+                lo = base + (np.minimum(a_d, 0) * maybe).sum(axis=0)
+                hi = base + (np.maximum(a_d, 0) * maybe).sum(axis=0)
+            else:
+                lo = hi = np.zeros(len(rs))
+            out = (r_v < lo) | (r_v > hi)
+            for i in np.nonzero(out)[0]:
+                bad.append({"value": rs[i][2], "index": int(rs[i][0]),
+                            "possible": [float(lo[i]), float(hi[i])]})
+        return {"valid": not bad, "reads-checked": len(reads),
+                "errors": bad[:32], "error-count": len(bad)}
+
+
+def counter() -> CounterChecker:
+    return CounterChecker()
+
+
+@dataclass
+class QueueChecker(Checker):
+    """Queue dequeues must come from somewhere: no value dequeued more times
+    than it was enqueue-attempted (upstream ``jepsen.checker/queue``)."""
+    name = "queue"
+
+    def check(self, test, history, opts=None):
+        enq = _Counter()
+        deq = _Counter()
+        for op in history:
+            if op.f == "enqueue" and op.type == INVOKE:
+                enq[hashable(op.value)] += 1
+            elif op.f == "dequeue" and op.type == OK:
+                deq[hashable(op.value)] += 1
+        overdrawn = {v: c - enq[v] for v, c in deq.items() if c > enq[v]}
+        return {"valid": not overdrawn,
+                "dequeued-count": sum(deq.values()),
+                "overdrawn": dict(sorted(overdrawn.items(),
+                                         key=lambda kv: repr(kv[0]))[:32])}
+
+
+def queue() -> QueueChecker:
+    return QueueChecker()
+
+
+@dataclass
+class TotalQueueChecker(Checker):
+    """Every acknowledged enqueue is dequeued exactly once; nothing is
+    dequeued that was never enqueued (upstream
+    ``jepsen.checker/total-queue``)."""
+    name = "total-queue"
+
+    def check(self, test, history, opts=None):
+        attempts = _Counter()
+        acked = _Counter()
+        deq = _Counter()
+        for op in history:
+            if op.f == "enqueue" and op.type == INVOKE:
+                attempts[hashable(op.value)] += 1
+            elif op.f == "enqueue" and op.type == OK:
+                acked[hashable(op.value)] += 1
+            elif op.f == "dequeue" and op.type == OK:
+                deq[hashable(op.value)] += 1
+        lost = {v: c - deq[v] for v, c in acked.items() if c > deq[v]}
+        unexpected = {v: c for v, c in deq.items() if v not in attempts}
+        duplicated = {v: c - attempts[v] for v, c in deq.items()
+                      if v in attempts and c > attempts[v]}
+        recovered = {v: c for v, c in deq.items()
+                     if v in attempts and v not in acked}
+        return {
+            "valid": not lost and not unexpected,
+            "attempt-count": sum(attempts.values()),
+            "acknowledged-count": sum(acked.values()),
+            "ok-count": sum((deq & acked).values()),
+            "lost-count": sum(lost.values()),
+            "lost": dict(list(lost.items())[:32]),
+            "unexpected-count": sum(unexpected.values()),
+            "unexpected": dict(list(unexpected.items())[:32]),
+            "duplicated-count": sum(duplicated.values()),
+            "recovered-count": sum(recovered.values()),
+        }
+
+
+def total_queue() -> TotalQueueChecker:
+    return TotalQueueChecker()
+
+
+@dataclass
+class StatsChecker(Checker):
+    """Op counts by function and completion type (later-era
+    ``jepsen.checker/stats``); valid unless some function had zero
+    successes."""
+    name = "stats"
+
+    def check(self, test, history, opts=None):
+        by_f: Dict[Any, _Counter] = {}
+        for op in history:
+            if op.type == INVOKE or op.process == "nemesis":
+                continue
+            by_f.setdefault(op.f, _Counter())[op.type] += 1
+        out = {}
+        valid = True
+        for f, c in sorted(by_f.items(), key=lambda kv: repr(kv[0])):
+            n_ok, n_fail, n_info = c[OK], c[FAIL], c[INFO]
+            ok_frac = n_ok / max(1, n_ok + n_fail + n_info)
+            f_valid = n_ok > 0
+            valid = valid and f_valid
+            out[f] = {"valid": f_valid, "count": n_ok + n_fail + n_info,
+                      "ok-count": n_ok, "fail-count": n_fail,
+                      "info-count": n_info, "ok-fraction": round(ok_frac, 4)}
+        return {"valid": valid if out else True, "by-f": out}
+
+
+def stats() -> StatsChecker:
+    return StatsChecker()

@@ -461,7 +461,7 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
         if len(device) > 1:
             raise NotImplementedError(
                 "the mesh-sharded frontier walk is not ported "
-                "(ROADMAP.md, Queue 1 item 13)")
+                "(ROADMAP.md, Queue 1 item 9)")
         device = device[0] if device else None
     dev = _device.resolve(device)
     t0 = _time.monotonic()

@@ -41,12 +41,18 @@ native keyed lane (one launch of K3, or K5 above 32 states), else the
 keyed kernels over each key's own prep, else each history through
 :func:`check_packed`. :func:`check_batch` runs several whole histories
 through the lockstep lane.
+
+:func:`check_chunked` (the ``reach-chunked`` algorithm) parallelises one
+history over its length: each chunk's transfer matrix from a walk of
+every basis config on K2, after a forward pass on K1 (or K4, chained)
+that restricts each chunk's basis to the configs that can enter it, then
+a fold on the host.
 """
 from __future__ import annotations
 
 import threading
 import time as _time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1184,3 +1190,305 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
                                   max_slots=max_slots, max_dense=max_dense,
                                   memo=preps[i][0], device=dev)
     return results  # type: ignore[return-value]
+
+
+# -- history-length parallelism: chunk transfer matrices --------------------
+
+def _basis_returns_torch(P, xor_cols, bitmask, ret_slot_c, slot_ops_c,
+                         basis):
+    """The reference's basis walk (``_walk_returns_scan`` over every
+    (chunk, basis config), no early exit) as batched torch ops: ``P``
+    f32[O+1, S, S], ``ret_slot_c`` int[H, L], ``slot_ops_c`` int[H, L, W],
+    ``basis`` bool[H, E, S, M]. Returns each config's image after its
+    chunk, bool[H, E, S, M]: W fire passes and the projection a return,
+    as :func:`_ret_step`."""
+    H, E, S, M = basis.shape
+    W = xor_cols.shape[0]
+    dev = basis.device
+    n_ops_pad = P.shape[0] - 1
+    ops = torch.as_tensor(slot_ops_c, device=dev).long()
+    ops = torch.where(ops < 0, n_ops_pad, ops)
+    js = torch.as_tensor(ret_slot_c, device=dev).long()
+    idx = torch.arange(M, device=dev)
+    xor_cols = xor_cols.long()
+    R = basis
+    for r in range(ops.shape[1]):
+        G = P[ops[:, r]]                                    # [H, W, S, S]
+        for _ in range(W):
+            Rx = R[..., xor_cols].float()                   # [H,E,S,W,M]
+            contrib = torch.einsum("hesjm,hjst->hetjm", Rx, G)
+            R = R | ((contrib > 0.5) & bitmask).any(dim=3)
+        j = js[:, r]
+        bit = torch.where(j >= 0, torch.ones_like(j) << j.clamp(min=0),
+                          0)[:, None]                       # [H, 1]
+        src = (idx[None, :] | bit)[:, None, None, :].expand(H, E, S, M)
+        keep = ((idx[None, :] & bit) == 0)[:, None, None, :]
+        R = R.gather(3, src) & keep
+    return R
+
+
+def _basis_returns_k2(P_np, ret_slot_c, slot_ops_c, basis, W: int, dev):
+    """The basis walk on K2 (:func:`reach_batch.batch_walk`): one lane a
+    chunk (``ret_slot_rh`` the chunks' streams side by side), one seed
+    group a basis config (``R0[e·M + m, c·S + s]`` one-hot), ``W`` passes,
+    and K2's block the whole chunk, so its checkpoint buffer holds one set
+    a lane. Groups past the grid's second axis go in several launches.
+    ``basis`` bool[H, E, S, M]; returns the images, bool[H, E, S, M]."""
+    H, E, S, M = basis.shape
+    L = ret_slot_c.shape[1]
+    P_t = torch.as_tensor(np.ascontiguousarray(P_np, np.float32), device=dev)
+    rs_rh = torch.as_tensor(np.ascontiguousarray(ret_slot_c.T, np.int32),
+                            device=dev)
+    ops = torch.as_tensor(np.ascontiguousarray(
+        slot_ops_c.transpose(1, 0, 2), np.int32).reshape(-1), device=dev)
+    out = []
+    for e0 in range(0, E, _K2_MAX_GROUPS):
+        b = basis[:, e0:e0 + _K2_MAX_GROUPS]                # [H, e, S, M]
+        R0 = torch.as_tensor(np.ascontiguousarray(
+            b.transpose(1, 3, 0, 2).reshape(-1, H * S), np.float32),
+            device=dev)                                     # [e·M, H·S]
+        _, final = reach_batch.batch_walk(P_t, ops, rs_rh, R0, L, W)
+        out.append((final.view(b.shape[1], M, H, S) > 0.5).permute(2, 0, 3, 1)
+                   .cpu().numpy())
+    return np.concatenate(out, axis=1)
+
+
+# K2's grid is (lanes, seed groups); its second axis takes at most 65,535
+_K2_MAX_GROUPS = 1 << 15
+
+
+def _prefix_dead_event(P_np, rs, n: int, S_pad: int, M: int, W: int,
+                       n_ops: int, dev) -> Tuple[str, int]:
+    """Walk the first ``n`` returns exactly from the seed, by geometry
+    (K1, else K4, else the torch returns walk), and return the walk's
+    engine and the event at which the set empties (-1: it does not)."""
+    R0 = np.zeros((S_pad, M), bool)
+    R0[0, 0] = True
+    for engine, walker in (("reach-lane", reach_lane),
+                           ("reach-pallas", reach_pallas)):
+        fits = (reach_lane.lane_fits if walker is reach_lane
+                else reach_pallas.fits)
+        if fits(S_pad, M, n_ops):
+            dead, _ = walker.walk_returns(P_np, rs.ret_slot[:n],
+                                          rs.slot_ops[:n], R0, device=dev,
+                                          fetch_R=False)
+            return engine, (-1 if dead < 0 else int(rs.ret_event[dead]))
+    L = max(_UNROLL, -(-n // _UNROLL) * _UNROLL)
+    rs_l = ev.pad_returns(ev.ReturnStream(
+        ret_slot=rs.ret_slot[:n], slot_ops=rs.slot_ops[:n],
+        ret_event=rs.ret_event[:n], ret_entry=rs.ret_entry[:n], W=W,
+        n_returns=min(n, rs.n_returns)), L)
+    P = torch.as_tensor(P_np, device=dev)
+    xc, bm = (torch.as_tensor(a, device=dev) for a in _xor_bitmask(W, M))
+    ptr, _, alive, R_block = _walk_returns(
+        P, xc, bm, rs_l.ret_slot, torch.as_tensor(rs_l.slot_ops, device=dev),
+        _seed(S_pad, M, dev))
+    if alive:
+        return "reach", -1
+    return "reach", _refine_dead(P, xc, bm, rs_l, ptr, R_block)
+
+
+def check_chunked(model: Model, history: Sequence[Op] = (), *,
+                  packed: Optional[h.PackedHistory] = None,
+                  n_chunks: int = 8, max_states: int = 100_000,
+                  max_slots: int = 20, max_dense: int = 1 << 22,
+                  max_matrix: int = 1 << 26, device=None,
+                  should_abort=None) -> Dict[str, Any]:
+    """History-length-parallel check on ``device`` (default: the card):
+    split the return stream into ``n_chunks`` chunks, compute each
+    chunk's D×D boolean transfer matrix by walking the chunk from every
+    basis config, then fold the matrices on the host.
+
+    Where ``Rn·D >= 2^20`` a forward pass first records the reachable set
+    at every chunk's left edge, so each chunk's matrix is computed over
+    only the B ≤ D configs that can enter it: one K1 launch with its
+    block checkpoints where the lane kernel takes the geometry and W ≤
+    :data:`reach_lane._FAST_PASSES` (chunks then align to its 1,024-
+    return blocks), else the chunks chained on K4 (one launch a chunk),
+    else on the torch returns walk. The basis walk runs on K2 (one launch
+    a basis group, narrow ≤ 8 configs and wide) within its envelope,
+    else as batched torch ops. A death the forward pass finds is its
+    dead return; one the fold finds is located by walking the failing
+    prefix (K1, K4 or torch, by geometry). Each choice is recorded with
+    ``obs.decision("reach-chunked", "route", ...)``. Raises
+    :class:`DenseOverflow` when ``D**2 > max_matrix`` or the fast path
+    does not apply; ``should_abort`` is consulted before the forward
+    pass and between its segments."""
+    dev = _device.resolve(device)
+    t0 = _time.monotonic()
+    if packed is None:
+        packed = h.pack(history)
+    if packed.n == 0 or packed.n_ok == 0:
+        return {"valid": True, "engine": "reach-chunked", "events": 0,
+                "time-s": 0.0}
+    with obs.span("reach.prep", ops=packed.n):
+        memo, stream, _T, S_pad, M = _prep(
+            model, packed, max_states=max_states, max_slots=max_slots,
+            max_dense=max_dense)
+    D = S_pad * M
+    if D * D > max_matrix:
+        raise DenseOverflow(
+            f"chunk transfer matrix {D}x{D} exceeds budget {max_matrix}")
+    W = max(stream.W, 1)
+    if not _fast_ok(S_pad, W, M, memo.n_ops):
+        raise DenseOverflow("chunked basis walk exceeds fast-path budget")
+    geom = {"states": S_pad, "slots": W, "ops": memo.n_ops}
+    with obs.span("reach.returns-view", events=int(stream.n_events)):
+        rs = ev.returns_view(stream)
+    Rn = rs.n_returns
+    n_chunks = max(1, min(n_chunks, max(Rn, 1)))
+    per = -(-max(Rn, 1) // n_chunks)
+    P_np = _build_P(memo, S_pad)
+    # the forward pass and the restricted bases pay off only when the
+    # full-basis walk's work, Rn returns × D configs, is substantial
+    restrict = Rn * D >= 1 << 20
+    lane_ok = reach_lane.lane_fits(S_pad, M, memo.n_ops)
+    if not restrict:
+        forward = None
+    elif lane_ok and W <= reach_lane._FAST_PASSES:   # checkpoints exact
+        forward = "reach-lane"
+        per = -(-per // reach_lane._BLOCK) * reach_lane._BLOCK
+        n_chunks = -(-Rn // per)
+    elif reach_pallas.fits(S_pad, M, memo.n_ops):
+        forward = "reach-pallas"
+    else:
+        forward = "reach"
+    rs_p = ev.pad_returns(rs, n_chunks * per)
+    ret_slot_c = rs_p.ret_slot.reshape(n_chunks, per)
+    slot_ops_c = rs_p.slot_ops.reshape(n_chunks, per, W)
+    if should_abort is not None and should_abort():
+        return dict(_ABORTED, engine="reach-chunked")
+    R0 = np.zeros((S_pad, M), bool)
+    R0[0, 0] = True
+    # forward pass → the chunks' boundary sets [n_chunks, S, M] and the
+    # dead return it finds (-1: alive)
+    dead_ret = -1
+    obs.decision("reach-chunked", "route", phase="forward",
+                 engine=forward or "none", chunks=n_chunks, **geom)
+    try:
+        with obs.span("reach.walk", engine="reach-chunked", stage="forward",
+                      returns=int(Rn)):
+            if forward is None:
+                # full basis: every config can enter every chunk; the
+                # fold itself detects death
+                bounds = np.ones((n_chunks, S_pad, M), bool)
+            elif forward == "reach-lane":
+                ckpt, dead_ret = reach_lane.walk_checkpoints(
+                    P_np, rs_p.ret_slot, rs_p.slot_ops, R0, device=dev,
+                    should_abort=should_abort)
+                bounds = ckpt[(np.arange(n_chunks) * per)
+                              // reach_lane._BLOCK]
+            elif forward == "reach-pallas":
+                bounds = np.zeros((n_chunks, S_pad, M), bool)
+                R_cur = R0
+                for c in range(n_chunks):
+                    bounds[c] = R_cur
+                    d, R_cur = reach_pallas.walk_returns(
+                        P_np, ret_slot_c[c], slot_ops_c[c], R_cur,
+                        device=dev, should_abort=should_abort)
+                    if d >= 0:
+                        dead_ret = c * per + d
+                        break
+            else:
+                bounds = np.zeros((n_chunks, S_pad, M), bool)
+                P_t = torch.as_tensor(P_np, device=dev)
+                xc, bm = (torch.as_tensor(a, device=dev)
+                          for a in _xor_bitmask(W, M))
+                R_cur = _seed(S_pad, M, dev)
+                for c in range(n_chunks):
+                    if should_abort is not None and should_abort():
+                        raise reach_lane.Aborted()
+                    bounds[c] = R_cur.cpu().numpy()
+                    _, R_cur, alive, _ = _walk_returns(
+                        P_t, xc, bm, ret_slot_c[c],
+                        torch.as_tensor(slot_ops_c[c], device=dev), R_cur)
+                    if not alive:
+                        dead_ret = -2           # located below
+                        break
+    except reach_lane.Aborted:
+        return dict(_ABORTED, engine="reach-chunked")
+    dead_event = -1
+    if dead_ret >= 0:
+        dead_event = int(rs_p.ret_event[dead_ret])
+    elif dead_ret == -2:
+        nonempty = bounds.reshape(n_chunks, -1).any(axis=1)
+        dead_chunk = int(np.nonzero(nonempty)[0][-1])
+        _, dead_event = _prefix_dead_event(
+            P_np, rs_p, min((dead_chunk + 1) * per, rs_p.R), S_pad, M, W,
+            memo.n_ops, dev)
+    else:
+        dead_chunk = _fold_chunks(P_np, ret_slot_c, slot_ops_c, bounds,
+                                  S_pad, M, W, memo.n_ops, geom, dev)
+        if dead_chunk >= 0:
+            # exact localization: the failing prefix, dead_chunk + 1
+            # chunks of returns
+            engine, dead_event = _prefix_dead_event(
+                P_np, rs_p, min((dead_chunk + 1) * per, rs_p.R), S_pad, M,
+                W, memo.n_ops, dev)
+            obs.decision("reach-chunked", "route", phase="localize",
+                         engine=engine, chunk=dead_chunk, **geom)
+            if dead_event < 0:
+                raise RuntimeError(f"reach-chunked: the fold empties at "
+                                   f"chunk {dead_chunk}, the prefix walk "
+                                   f"does not")
+    elapsed = _time.monotonic() - t0
+    if dead_event < 0:
+        out = _result_valid("reach-chunked", stream, memo, elapsed)
+    else:
+        out = _result_invalid("reach-chunked", stream, memo, packed,
+                              dead_event, elapsed)
+    out["chunks"] = n_chunks
+    return out
+
+
+def _fold_chunks(P_np, ret_slot_c, slot_ops_c, bounds, S_pad: int, M: int,
+                 W: int, n_ops: int, geom, dev) -> int:
+    """Each chunk's transfer matrix over its boundary set's configs (its
+    restricted basis), then the host fold of the seed through them.
+    Chunks go in a narrow (≤ 8 configs) and a wide basis group, each
+    padded to ``max(8, next_pow2)`` configs and walked at once: on K2
+    where it takes the geometry, else as batched torch ops. Returns the
+    first chunk after which the folded set is empty, or -1."""
+    n_chunks = bounds.shape[0]
+    D = S_pad * M
+    flat = bounds.reshape(n_chunks, -1)
+    counts = flat.sum(axis=1)
+    k2 = reach_batch.fits(S_pad, M, n_ops)
+    groups = []
+    mats: List[Optional[np.ndarray]] = [None] * n_chunks
+    for cs in (np.nonzero(counts <= 8)[0], np.nonzero(counts > 8)[0]):
+        if not len(cs):
+            continue
+        B_pad = max(8, _next_pow2(int(counts[cs].max())))
+        groups.append([int(len(cs)), B_pad])
+        basis = np.zeros((len(cs), B_pad, S_pad, M), bool)
+        for j, c in enumerate(cs):
+            on = np.nonzero(flat[c])[0]
+            basis[j, np.arange(len(on)), on // M, on % M] = True
+        with obs.span("reach.walk", engine="reach-chunked", stage="basis",
+                      chunks=int(len(cs)), basis=B_pad):
+            if k2:
+                R = _basis_returns_k2(P_np, ret_slot_c[cs], slot_ops_c[cs],
+                                      basis, W, dev)
+            else:
+                xc, bm = (torch.as_tensor(a, device=dev)
+                          for a in _xor_bitmask(W, M))
+                R = _basis_returns_torch(
+                    torch.as_tensor(P_np, device=dev), xc, bm,
+                    ret_slot_c[cs], slot_ops_c[cs],
+                    torch.as_tensor(basis, device=dev)).cpu().numpy()
+        R = R.reshape(len(cs), B_pad, D)
+        for j, c in enumerate(cs):
+            mats[c] = R[j]
+    obs.decision("reach-chunked", "route", phase="basis",
+                 engine="batch_walk" if k2 else "torch", groups=groups,
+                 **geom)
+    v = np.zeros(D, bool)
+    v[0] = True                              # state 0, mask 0
+    for c in range(n_chunks):
+        on = np.nonzero(flat[c])[0]
+        rows = mats[c][:len(on)][v[on]]
+        v = rows.any(axis=0) if len(rows) else np.zeros(D, bool)
+        if not v.any():
+            return c
+    return -1

@@ -601,25 +601,51 @@ def prefix_set(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
 
 
 def _walk_segmented(args, geom, n_pass: int, should_abort):
-    """Abortable drive: segments of about :data:`_ABORT_SEG` returns with
-    the config set carried, the hook checked between segments. Returns
-    ``(dead, final)``, ``dead`` offset by its segment's start; raises
-    :class:`Aborted` when the hook fires."""
+    """Drive the walk: one launch over the whole stream, or with
+    ``should_abort`` segments of about :data:`_ABORT_SEG` returns (whole
+    blocks) with the config set carried, the hook checked between
+    segments. Returns ``(dead, final, ckpts)``: ``dead`` offset by its
+    segment's start, and each launched segment's block checkpoints in
+    order (none past the death's segment); raises :class:`Aborted` when
+    the hook fires."""
     B, W, M, S, O1, R_pad = geom
     P, rs_t, so_t, R_cur = args
-    seg_len = max(B, _ABORT_SEG // B * B)
-    base = 0
+    seg_len = R_pad if should_abort is None else max(B, _ABORT_SEG // B * B)
+    base, ckpts = 0, []
     while base < R_pad:
-        if should_abort():
+        if should_abort is not None and should_abort():
             raise Aborted()
         seg = min(seg_len, R_pad - base)
-        _, R_cur, dead = lane_walk(P, rs_t[base:base + seg],
-                                   so_t[base:base + seg], R_cur, B, n_pass)
-        dead = int(dead[0])
+        ck, R_cur, dead = lane_walk(P, rs_t[base:base + seg],
+                                    so_t[base:base + seg], R_cur, B, n_pass)
+        ckpts.append(ck)
+        dead = int(dead[0])                 # the one device round trip
         if dead >= 0:
-            return base + dead, R_cur
+            return base + dead, R_cur, ckpts
         base += seg
-    return -1, R_cur
+    return -1, R_cur, ckpts
+
+
+def walk_checkpoints(P: np.ndarray, ret_slot: np.ndarray,
+                     slot_ops: np.ndarray, R0_sm: np.ndarray, *,
+                     device=None, B: int = _BLOCK,
+                     should_abort=None) -> Tuple[np.ndarray, int]:
+    """One exact walk (the full ``W``-pass ladder) of the whole stream on
+    ``device`` (default: the card), keeping K1's block checkpoints.
+
+    Returns ``(ckpt, dead)``: ``ckpt`` bool[R_pad // B, S, M], the set at
+    the start of each block of ``B`` returns (empty past the death), and
+    ``dead`` the first return after which the set is empty, or -1. With
+    ``should_abort`` the walk runs in segments (:func:`_walk_segmented`)
+    and raises :class:`Aborted` when the hook fires."""
+    geom, args = pack_operands(P, ret_slot, slot_ops, R0_sm, B=B,
+                               device=device)
+    B, W, M, S, O1, R_pad = geom
+    dead, _, ckpts = _walk_segmented(args, geom, W, should_abort)
+    ckpt = np.zeros((R_pad // B, S, M), bool)
+    got = (torch.cat(ckpts).cpu().numpy() > 0.5).transpose(0, 2, 1)
+    ckpt[:len(got)] = got
+    return ckpt, dead
 
 
 def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
@@ -642,10 +668,8 @@ def walk_returns(P: np.ndarray, ret_slot: np.ndarray,
     n_fast = min(W, _FAST_PASSES)
 
     def run(n_pass: int):
-        if should_abort is not None:
-            return _walk_segmented(args, geom, n_pass, should_abort)
-        _, final, dead = lane_walk(*args, B, n_pass)
-        return int(dead[0]), final          # the one device round trip
+        dead, final, _ = _walk_segmented(args, geom, n_pass, should_abort)
+        return dead, final
 
     dead, final = run(n_fast)
     if n_fast < W and (dead >= 0 or fetch_R):

@@ -255,9 +255,13 @@ def test_algorithms():
         None, bad)["valid"] is False
     assert Linearizable(model, algorithm="frontier",
                         device="cpu").check(None, h)["valid"] is True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Linearizable(model, algorithm="linear",
-                     device="cpu").check(None, h)
+    assert Linearizable(model, algorithm="linear",
+                        device="cpu").check(None, h)["valid"] is True
+    r_linear = Linearizable(model, algorithm="linear",
+                            device="cpu").check(None, bad)
+    assert r_linear["valid"] is False and r_linear["op"] == ref["op"]
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        Linearizable(model, algorithm="nope", device="cpu").check(None, h)
 
 
 # -- the chain past the dense engine ----------------------------------------

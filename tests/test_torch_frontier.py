@@ -280,7 +280,7 @@ def test_abort_gives_unknown(quotient, monkeypatch):
 
 def test_one_device_only():
     h = fx_pt.gen_history("cas", n_ops=20, processes=3, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         fr_pt.check(m_pt.cas_register(), h, device=["cpu", "cpu"])
     assert fr_pt.check(m_pt.cas_register(), h,
                        device=["cpu"])["valid"] is True

@@ -184,7 +184,13 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.txn.infer",
             "jepsen_tpu_torch.txn.host_ref",
             "jepsen_tpu_torch.txn.cycles",
-            "jepsen_tpu_torch.txn.lattice"} <= imported
+            "jepsen_tpu_torch.txn.lattice",
+            "jepsen_tpu_torch.checkers.search",
+            "jepsen_tpu_torch.checkers.linear",
+            "jepsen_tpu_torch.checkers.linear_report",
+            "jepsen_tpu_torch.store",
+            "jepsen_tpu_torch.cli",
+            "jepsen_tpu_torch.__main__"} <= imported
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
