@@ -12,9 +12,11 @@ user's entry points and checks the results:
 
 - ``Linearizable(cas_register()).check`` on a 100,000-op history
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
-  one against the CPU run and against K1, with no torch returns walk:
-  K1 reports the dead return itself; its walk split stage by stage,
-  ``tools/walk_split.py``), and on a 1,000,000-op one;
+  one against K1, with no torch returns walk: K1 reports the dead
+  return itself; its walk split stage by stage,
+  ``tools/walk_split.py``; and a corrupted 48,000-op history, just past
+  chunk-lockstep's floor, against the CPU run), and on a 1,000,000-op
+  one;
 - the same on a 30,000-op history, below chunk-lockstep's floor (K1);
   K1 and K2 walk P's nibble image tables, built by one
   ``pack_tables`` launch and copied into each block's shared memory
@@ -32,8 +34,9 @@ user's entry points and checks the results:
   its plain version, and both lanes' walks after one shared union prep
   (the lockstep scheduler, and K3), which must agree key for key; K3 walks P's nibble image tables as K1 and K2 do,
   in the warp form and in the block form (held bit for bit against its
-  plain version and the host replay at W = 4, 6 and 8 and at the long
-  keys, and timed beside K5 on the same keys);
+  plain version and the host replay at W = 4 (2,000 keys), 6 and 8
+  (500 keys) and at the long keys, and timed beside K5 on the same
+  keys);
 - ``reach.check_batch`` on 32 cas-100k histories from
   ``fixtures.gen_packed`` (one K2 launch) and on 8 cas-30k histories, two
   corrupted, each history's result against its own ``check_packed`` on
@@ -52,8 +55,9 @@ user's entry points and checks the results:
 - the ablation harness (``jepsen_tpu_torch.tools.ablate_lane``): its 22
   variants of the walk's body (19 on K6, 3 on K7), and the two kernel
   instances no variant takes alone, on its cas-100k stream, each held
-  bit for bit against its plain version and the host replay on the first
-  block of 1,024 returns, with the form, table place and ring its launch
+  bit for bit against its plain version and the host replay (the first
+  case of each kernel on the first block of 1,024 returns, the others on
+  the first 256), with the form, table place and ring its launch
   takes; the block form on a cas history of 6 processes (one case per
   kernel instance, the projection table at its largest, both of K7's
   dtypes); then the full ladder through the harness's own function,
@@ -98,8 +102,18 @@ user's entry points and checks the results:
   basis walk); ``--algorithm competition`` (the winner, the losers'
   stop time) and ``linear`` on a corrupted cas-30k; each verdict, op and
   dead event against the dense engine in process; K2's largest basis
-  launch and a full-basis launch (E = D = 256) bit for bit against
-  their plain version.
+  launch of a 30,000-op history and a full-basis launch (E = D = 256)
+  bit for bit against their plain version;
+- the test runner (:func:`phase_run`): ``core.run`` of the register
+  suite at the README command's width (5 nodes, concurrency 5, the
+  partition nemesis, 10 s), linearizable (valid, as ``wgl-native`` finds
+  it on the same history) and sloppy (invalid at the CPU dense engine's
+  failing op and dead event, ``wgl-native`` agreeing, ``linear.svg``
+  written), each with its route (K1 below chunk-lockstep's floor) and
+  launches; ``independent_test()`` key by key against its CPU run; then
+  ``python -m jepsen_tpu_torch run --mode sloppy`` (exit 1, the run
+  dir's files), ``recheck`` of that dir (exit 1, the same failing op)
+  and ``run`` (exit 0), each in its own process.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -137,11 +151,16 @@ INT32_PEAK = 132 * 64 * 1.98e9
 # key 7 on is corrupted
 N_KEYS, OPS_PER_KEY, KEY_PROCS = 2_000, 50, 4
 BAD_KEYS = tuple(range(7, N_KEYS, 100))
+# K3's block form at W = 6 and 8 is held on this many of those keys
+BLOCK_FORM_KEYS = 500
 # one live key (the native keyed lane on K3)
 ONE_KEY_OPS = 30_000
 # check_batch: the bench's batch rung (32 cas-100k histories from
 # fixtures.gen_packed), and 8 cas-30k histories, two corrupted
 BATCH_N = 32
+# the corrupted history the CPU run holds chunk-lockstep's answer against
+# (35,133 returns: just past reach_chunklock.MIN_RETURNS)
+CPU_REF_OPS = 48_000
 SMALL_BATCH_N, SMALL_BATCH_BAD = 8, (2, 5)
 
 
@@ -862,6 +881,9 @@ def check_batch_phase(label, packed, n_ops, **launches):
 # and a multi-register of 3 keys over 3 values (64 states)
 WIDE_CAS = dict(values=40)
 WIDE_MULTI = dict(values=3, keys=3)
+# K4 against its plain version on the first returns of the multi-register
+# histories (a plain walk's time grows with its returns)
+WIDE_MULTI_RETURNS, WIDE_W7_RETURNS = 5_000, 2_000
 WIDE_RETURNS = 20_000          # K4 against its plain version on this
                                # prefix
 TORCH_RETURNS = 5_000          # and the torch returns walk on this one
@@ -921,9 +943,10 @@ def phase_k4(P_wide, rs_wide, P_m, rs_m, multi100):
     """K4 against its plain version on the same CUDA tensors, bit for
     bit, with the host replay of each walk: the wide cas-100k's alphabet
     (735 ops, the tables in device memory) over its first
-    :data:`WIDE_RETURNS` returns, multi-register-20k (the tables in
-    shared memory; both in the warp form), a narrow walk (one word a
-    mask) and a wide one at W = 7 (both in the block form); then K4
+    :data:`WIDE_RETURNS` returns, multi-register-20k's first
+    :data:`WIDE_MULTI_RETURNS` (the tables in shared memory; both in the
+    warp form), a narrow walk (one word a mask) and a wide one at W = 7
+    (its first :data:`WIDE_W7_RETURNS`; both in the block form); then K4
     against K1 on cas-30k, and the torch returns walk the wide route
     took before K4, on the first shape's first :data:`TORCH_RETURNS`
     returns; then the whole wide cas-100k and
@@ -936,12 +959,14 @@ def phase_k4(P_wide, rs_wide, P_m, rs_m, multi100):
                                     models.cas_register())
     P_7, rs_7, _ = history_operands(gen("multi", 5_000, 7, 0, **WIDE_MULTI),
                                     models.multi_register())
-    n = WIDE_RETURNS
+    n, nm, n7 = WIDE_RETURNS, WIDE_MULTI_RETURNS, WIDE_W7_RETURNS
     runs = [("cas-40 alphabet, 20,000 returns", P_wide,
              rs_wide.ret_slot[:n], rs_wide.slot_ops[:n]),
-            ("multi-register-20k", P_m, rs_m.ret_slot, rs_m.slot_ops),
+            (f"multi-register-20k, first {nm} returns", P_m,
+             rs_m.ret_slot[:nm], rs_m.slot_ops[:nm]),
             ("narrow W=7", P_n, rs_n.ret_slot, rs_n.slot_ops),
-            ("wide multi-register W=7", P_7, rs_7.ret_slot, rs_7.slot_ops)]
+            (f"wide multi-register W=7, first {n7} returns", P_7,
+             rs_7.ret_slot[:n7], rs_7.slot_ops[:n7])]
     out = {"max_abs_err": 0.0}
     for label, P, ret, ops in runs:
         W, S, O1 = ops.shape[1], P.shape[1], P.shape[0]
@@ -1095,6 +1120,10 @@ def phase_k5(per_key):
 # returns
 ABLATE_OPS = 100_000
 ABLATE_BLOCK = 1024
+# every case after the first (whose numbers the kernels line reports) on
+# its first ABLATE_REST returns: the plain versions are most of the
+# phase's time
+ABLATE_REST = 256
 ABLATE_W6_OPS, ABLATE_W6_RETURNS = 1_000, 256
 # beyond the ladder's variants, the kernel instances that no variant
 # takes alone: the reversed bool body and the f32 table projection
@@ -1119,21 +1148,20 @@ def ablate_case(name: str, W: int):
 
 
 def phase_ablate(label, geom, opnds, n: int, names, stream: bool,
-                 reps: int = 5):
+                 reps: int = 5, n_rest: int = None):
     """K6 (``stream=False``: the cases that gather the fire operand in
     the kernel) or K7 (the streamed ones) against their plain versions
-    on the first ``n`` returns of the operands, bit for bit, with the
-    host replay of each walk; each launch's form and table place (or
-    ring) from the layout rule; time, plain time and bound of each case,
-    and the device's own time of the first. Returns the numbers of the
-    first case, and the largest error."""
+    on the first ``n`` returns of the operands (``n_rest`` for every
+    case after the first), bit for bit, with the host replay of each
+    walk; each launch's form and table place (or ring) from the layout
+    rule; time, plain time and bound of each case, and the device's own
+    time of the first. Returns the numbers of the first case, and the
+    largest error."""
     from jepsen_tpu_torch.tools import ablate_lane as ab
 
     B, W, M, S, O1, _R_pad = geom
-    ret, ops, P, PJ, R0 = opnds
-    ret, ops = ret[:n], ops[:n]
-    P_np, ret_np, ops_np = P.cpu().numpy(), ret.cpu().numpy(), \
-        ops.cpu().numpy()
+    ret_all, ops_all, P, PJ, R0 = opnds
+    P_np = P.cpu().numpy()
     replays = {}
     out = {"max_abs_err": 0.0}
     kernel = "ablate_stream" if stream else "ablate_walk"
@@ -1141,16 +1169,18 @@ def phase_ablate(label, geom, opnds, n: int, names, stream: bool,
         fire, proj, counts, unroll, n_pass, cgate = ablate_case(name, W)
         if (proj in ab._STREAM_DTYPE) != stream:
             continue
+        m = n if "ms" not in out else (n_rest or n)
+        ret, ops, Bm = ret_all[:m], ops_all[:m], min(B, m)
         if stream:
             dt = ab._STREAM_DTYPE[proj]
             G = ab.stream_operand(P, ops, dt)
-            args = (ret, G, R0, B, n_pass, fire, counts)
+            args = (ret, G, R0, Bm, n_pass, fire, counts)
             kern, plain = ab.ablate_stream, ab.ablate_stream_plain
             moved = nbytes(ret, G, R0)
             code = ab.design(W, S, O1, counts, stream=True,
                              g_int8=dt == torch.int8)
         else:
-            args = (P, ret, ops, PJ, R0, B, n_pass, fire, proj, counts,
+            args = (P, ret, ops, PJ, R0, Bm, n_pass, fire, proj, counts,
                     unroll, cgate)
             kern, plain = ab.ablate_walk, ab.ablate_walk_plain
             moved = nbytes(ret, ops, P, R0, *((PJ,) if proj == "matmul"
@@ -1158,15 +1188,15 @@ def phase_ablate(label, geom, opnds, n: int, names, stream: bool,
             code = ab.design(W, S, O1, counts, proj == "matmul")
         got = kern(*args)
         ref, p_ms = plain_ms(lambda: plain(*args))
-        tag = f"{kernel} [{name}, first {n} returns of {label}]"
+        tag = f"{kernel} [{name}, first {m} returns of {label}]"
         err = same(tag, got, ref)
         ms = event_ms(lambda: kern(*args), reps)
         total = n_pass + sum(cgate)
-        if total not in replays:
-            replays[total] = walk_work(P_np, ret_np[:, None],
-                                       ops_np[:, None], as_sets(R0[None]),
-                                       total)
-        work, v, _ = replays[total]
+        if (total, m) not in replays:
+            replays[total, m] = walk_work(
+                P_np, ret.cpu().numpy()[:, None], ops.cpu().numpy()[:, None],
+                as_sets(R0[None]), total)
+        work, v, _ = replays[total, m]
         if not np.array_equal(v, as_sets(got[1][None])):
             raise AssertionError(f"{tag} differs from the host replay")
         bound, bound_by, detail = bound_ms(moved + nbytes(*got), work)
@@ -1179,7 +1209,7 @@ def phase_ablate(label, geom, opnds, n: int, names, stream: bool,
                        device_ms=d["total"] if d else None)
         log(f"kernel {tag}: W={W} S={S} O1={O1} passes<={total} "
             f"design={ab.describe(code, counts)} bit-identical max_abs_err={err} "
-            f"kernel_ms={ms:.6f} us_per_return={1e3 * ms / n:.6f}{dev} "
+            f"kernel_ms={ms:.6f} us_per_return={1e3 * ms / m:.6f}{dev} "
             f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
             f"{detail}) alive={bool(got[1].any())}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -2093,8 +2123,9 @@ def phase_cli():
     the corrupted small one. Each verdict, failing op and dead event
     equals the in-process dense engine's on the card. In process:
     ``reach-chunked`` against ``reach`` on the big history, and K2's
-    largest basis launch there and a full-basis launch (E = D) held bit
-    for bit against ``batch_walk_plain``."""
+    largest basis launch of a :data:`CLI_SMALL_OPS`-op history and a
+    full-basis launch (E = D) held bit for bit against
+    ``batch_walk_plain``."""
     import tempfile
 
     from jepsen_tpu_torch import Linearizable, fixtures, history, models
@@ -2170,8 +2201,7 @@ def phase_cli():
             return Linearizable(cas, algorithm="reach-chunked",
                                 device=CARD).check(None, h)
 
-        (res, calls) = basis_launches(lambda: drive(lambda: chunked(big)))
-        res, dt, la, spans, ledger = res
+        res, dt, la, spans, ledger = drive(lambda: chunked(big))
         cli_same("in-process reach-chunked", res, want_big)
         res_r, dt_r, la_r, _, _ = drive(lambda: reach(big))
         groups = [d.get("groups") for d in ledger
@@ -2183,8 +2213,14 @@ def phase_cli():
             f"{split(dt, spans)}) against reach {dt_r:.4f} s "
             f"({res_r['engine']}, launches K1 {la_r['lane_walk']} K2 "
             f"{la_r['batch_walk']})")
+        # K2's basis launches against their plain version: the largest
+        # of a cas history of CLI_SMALL_OPS ops (a third of the big one's
+        # steps), and the full basis below
+        mid = gen("cas", CLI_SMALL_OPS, 5, 0)
+        (res, calls) = basis_launches(lambda: chunked(mid))
+        cli_same("mid basis", res, reach(mid))
         if calls and CARD == "cuda":
-            basis_vs_plain(f"cas-{CLI_BIG_OPS} largest basis launch",
+            basis_vs_plain(f"cas-{CLI_SMALL_OPS} largest basis launch",
                            max(calls, key=lambda a: a[3].numel()))
         full = gen("cas", CLI_FULL_BASIS_OPS, 5, 7)
         (res, calls) = basis_launches(lambda: chunked(full))
@@ -2251,6 +2287,208 @@ def phase_cli():
     log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the test runner (python -m jepsen_tpu_torch run) -----------------------
+
+# the README's command: 5 nodes, concurrency 5, the partition nemesis
+RUN_TIME_LIMIT, RUN_SEED = 10.0, 7
+RUN_SPANS = ("run.setup", "run.workers", "run.teardown", "run.check",
+             "run.store")
+RUN_FILES = ("test.json", "results.json", "results.edn", "history.jsonl",
+             "history.edn", "history.txt", "jepsen.log", "timeline.html",
+             "obs.jsonl", "trace.json")
+
+
+def run_dir_files(label, d, invalid):
+    """The reference's run-dir files, the charts or their skip, and
+    ``linear.svg`` on an invalid verdict; returns how the charts went."""
+    res = json.load(open(os.path.join(d, "results.json")))
+    want = list(RUN_FILES) + (["linear.svg"] if invalid else [])
+    charts = []
+    for name, png in (("latency", "latency-raw.png"), ("rate", "rate.png")):
+        r = res["results"][name]
+        if r.get("skipped") == "matplotlib not installed":
+            charts.append(f"{name} skipped (no matplotlib)")
+        else:
+            want.append(png)
+            charts.append(f"{name} {png}")
+    missing = [f for f in want if not os.path.exists(os.path.join(d, f))]
+    if missing:
+        raise AssertionError(f"run {label}: {d} lacks {missing}")
+    return ", ".join(charts)
+
+
+def run_route(label, ledger, la, invalid):
+    """The route record of the run's check, and its launches by route:
+    chunk-lockstep (two K2 launches; K1 on the dead chunk and the
+    witness when invalid) from ``MIN_RETURNS`` returns, else K1."""
+    routes = [r for r in ledger if r["stage"] == "reach"
+              and r["event"] == "route"]
+    if len(routes) != 1:
+        raise AssertionError(f"run {label}: routes {routes}")
+    route = routes[0]
+    if route["engine"] == "reach-chunklock":
+        expect(f"run {label}", la, batch_walk=2)
+    elif route["engine"] == "reach-lane":
+        expect(f"run {label}", la, batch_walk=0)
+    else:
+        raise AssertionError(f"run {label}: route {route}")
+    expect(f"run {label}", la, lane_walk=2 if invalid else
+           (1 if route["engine"] == "reach-lane" else 0), keyed_walk=0,
+           wide_walk=0, wide_keyed=0)
+    return route
+
+
+def run_line(label, done, dt, la, spans, route, returns):
+    n = len(done["history"])
+    walls = ", ".join(f"{k} {spans.get(k, 0.0):.4f} s" for k in RUN_SPANS)
+    check = spans.get("run.check", 0.0)
+    split_ = ", ".join(f"{k} {spans.get(v, 0.0):.4f} s" for k, v in (
+        ("pack", "facade.pack"), ("prep", "reach.prep"),
+        ("returns-view", "reach.returns-view"), ("walk", "reach.walk"),
+        ("witness", "reach.witness")))
+    infos = sum(1 for op in done["history"]
+                if op.type == "info" and op.process != "nemesis")
+    log(f"run {label}: valid={done['results']['valid']} ops={n} "
+        f"returns={returns} info={infos} W={route['slots']} route "
+        f"{route['engine']} (states {route['states']}); workers "
+        f"{n / spans['run.workers']:.1f} ops/s; spans {walls}; check "
+        f"{check:.4f} s: {split_}; wall {dt:.4f} s; launches "
+        f"{ {k: v for k, v in la.items() if v} }")
+
+
+def phase_run():
+    """The test runner on the card, at the README command's width (5
+    nodes, concurrency 5, the partition nemesis, :data:`RUN_TIME_LIMIT`
+    seconds). In process: ``core.run(register_test(...))`` in
+    linearizable mode (valid; the same verdict from ``wgl-native``, the
+    host C++ search, on the same history) and in sloppy mode (invalid;
+    failing op and dead event equal the port's CPU dense engine on the
+    same history, ``wgl-native`` agrees, ``linear.svg`` written), each
+    with its route and launches; ``independent_test()`` at its defaults,
+    key by key against its CPU run. Then three command lines, each in
+    its own process: ``run --mode sloppy`` (exit 1, the run dir's
+    files), ``recheck`` of that dir (exit 1, the same failing op), and
+    ``run`` (exit 0)."""
+    import tempfile
+
+    from jepsen_tpu_torch import Linearizable, core, history, models, obs
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checkers import reach_chunklock
+    from jepsen_tpu_torch.suites import register
+
+    t_phase = time.perf_counter()
+    cas = models.cas_register()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-run-") as tmp:
+        for mode in ("linearizable", "sloppy"):
+            t = register.register_test(mode=mode, time_limit=RUN_TIME_LIMIT,
+                                       seed=RUN_SEED, store=True)
+            t["store-root"] = os.path.join(tmp, "in-process")
+            with obs.capture() as cap:
+                done, dt, la, spans, ledger = drive(lambda: core.run(t))
+            invalid = mode == "sloppy"
+            res = done["results"]
+            lin = res["results"]["linear"]
+            if res["valid"] is not (not invalid) or \
+                    lin["valid"] is not (not invalid):
+                raise AssertionError(f"run {mode}: {res['valid']} {lin}")
+            route = run_route(mode, ledger, la, invalid)
+            returns = [s["args"]["returns"] for s in cap.spans
+                       if s["name"] == "reach.walk"][0]
+            if (route["engine"] == "reach-chunklock") != (
+                    returns >= reach_chunklock.MIN_RETURNS):
+                raise AssertionError(f"run {mode}: {returns} returns took "
+                                     f"{route['engine']}")
+            run_line(f"in process {mode}", done, dt, la, spans, route,
+                     returns)
+            h = done["history"]
+            t0 = time.perf_counter()
+            wgl = Linearizable(cas, algorithm="wgl-native").check(None, h)
+            wgl_s = time.perf_counter() - t0
+            if wgl["valid"] is not lin["valid"]:
+                raise AssertionError(f"run {mode}: wgl-native {wgl}")
+            extra = ""
+            if invalid:
+                # the port's dense engine on the CPU: the lane walk's
+                # plain version (the abort hook keeps it off
+                # chunk-lockstep), which stops after the dead segment
+                t0 = time.perf_counter()
+                ref = Linearizable(cas, algorithm="reach", device="cpu",
+                                   opts={"should_abort": lambda: False}
+                                   ).check(None, h)
+                cpu_s = time.perf_counter() - t0
+                same_result(f"run {mode}", lin, ref, ("valid", "op",
+                                                      "dead-event"))
+                if not os.path.exists(lin.get("report-file", "")):
+                    raise AssertionError(f"run {mode}: no linear.svg")
+                extra = (f"; failing op index {lin['op']['index']} dead "
+                         f"event {lin['dead-event']}, as the CPU dense "
+                         f"engine finds them ({cpu_s:.3f} s)")
+            charts = run_dir_files(mode, done["dir"], invalid)
+            log(f"run in process {mode}: wgl-native valid={wgl['valid']} "
+                f"({wgl_s:.3f} s){extra}; {charts}")
+
+        # -- independent_test() at its defaults ---------------------------
+        t = register.independent_test()
+        with obs.capture() as cap:
+            done, dt, la, spans, ledger = drive(lambda: core.run(t))
+        res = done["results"]
+        causes = [r.get("cause") for r in ledger
+                  if r["stage"] == "reach-many" and r["event"] == "route"]
+        if causes not in (["lockstep"], ["keyed"]):
+            raise AssertionError(f"run independent: routes {causes}")
+        expect_any("run independent", la, "batch_walk", "keyed_walk")
+        ref = independent.checker(Linearizable(cas, device="cpu")).check(
+            None, done["history"])
+        if res["key-count"] != 8 or res["valid"] is not True:
+            raise AssertionError(f"run independent: {res['valid']} "
+                                 f"{res['key-count']} {res['failures']}")
+        for key in ("valid", "failures", "key-count"):
+            if res[key] != ref[key]:
+                raise AssertionError(f"run independent: {key} differs")
+        for k, r in res["results"].items():
+            same_result(f"run independent key {k}", r, ref["results"][k],
+                        ("valid", "engine", "op", "dead-event",
+                         "final-configs", "previous-ok"))
+        log(f"run in process independent: valid={res['valid']} key-count="
+            f"{res['key-count']} ops={len(done['history'])} route "
+            f"{causes[0]}; spans "
+            f"{', '.join(f'{k} {spans.get(k, 0.0):.4f} s' for k in RUN_SPANS)}"
+            f"; wall {dt:.4f} s; launches "
+            f"{ {k: v for k, v in la.items() if v} }; every key agrees "
+            f"with the CPU run")
+
+        # -- the command line, each in its own process --------------------
+        root = os.path.join(tmp, "cli")
+        runs = {}
+        for mode, rc_want in (("sloppy", 1), ("linearizable", 0)):
+            args = ["run", "--suite", "register", "--time-limit",
+                    str(RUN_TIME_LIMIT), "--store-root", root]
+            if mode == "sloppy":
+                args += ["--mode", "sloppy"]
+            rc, out, info = cli_run(f"run {mode}", cli_args(*args))
+            line = json.loads(out.strip().splitlines()[-1])
+            if rc != rc_want or line["valid"] is not (rc_want == 0):
+                raise AssertionError(f"cli run {mode}: exit {rc} {line}")
+            charts = run_dir_files(f"cli {mode}", line["dir"], rc_want == 1)
+            runs[mode] = line
+            la = info["launches"]
+            log(f"cli run --mode {mode}: exit {rc} valid={line['valid']} "
+                f"ops={line['ops']}; process {info['wall_s']:.3f} s, "
+                f"command {info['main_s']:.4f} s; launches K1 "
+                f"{la['lane_walk']} K2 {la['batch_walk']}; {charts}")
+            if mode == "sloppy":
+                stored = json.load(open(os.path.join(
+                    line["dir"], "results.json")))["results"]["linear"]
+                rc, out, info = cli_run("recheck", cli_args(
+                    "recheck", line["dir"]))
+                res = json.loads(out)
+                cli_same("recheck of the sloppy run", res, stored)
+                if rc != 1 or res["op"] != stored["op"]:
+                    raise AssertionError(f"cli recheck: exit {rc} {res}")
+                cli_line("recheck of the sloppy run dir", rc, res, info)
+    log(f"run phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2298,9 +2536,11 @@ def main() -> int:
                   k5=True)
     for procs in (6, 8):
         # the block form at its lookup count against K5's at any number
-        # of words, on the same keys
-        phase_k3(f"{N_KEYS} keys x {OPS_PER_KEY} ops, {procs} processes",
-                 keyed_histories(processes=procs)[1], k5=True)
+        # of words, on the same keys (fewer: the host replay and the plain
+        # version grow with them)
+        phase_k3(f"{BLOCK_FORM_KEYS} keys x {OPS_PER_KEY} ops, {procs} "
+                 f"processes", keyed_histories(
+                     BLOCK_FORM_KEYS, processes=procs)[1], k5=True)
     h_long, per_key_long = keyed_histories(LONG_KEYS, LONG_OPS, LONG_BAD)
     phase_k3(f"long keys {LONG_KEYS} x {LONG_OPS} ops", per_key_long, n=10)
     lanes = {label: phase_lanes(label, pk) for label, pk in (
@@ -2328,9 +2568,9 @@ def main() -> int:
         f" s, geometry {ab_geom}, {ab_returns} returns")
     cases = list(ablate_lane.VARIANTS) + list(ABLATE_EXTRA)
     k6 = phase_ablate("cas-100k", ab_geom, ab_opnds, ABLATE_BLOCK, cases,
-                      stream=False)
+                      stream=False, n_rest=ABLATE_REST)
     k7 = phase_ablate("cas-100k", ab_geom, ab_opnds, ABLATE_BLOCK, cases,
-                      stream=True)
+                      stream=True, n_rest=ABLATE_REST)
     # the block form: W = 6, bool-matmulproj at its largest table
     w6_geom, w6_opnds, _n = ablate_lane.operands(
         ABLATE_W6_OPS, processes=6, B=ABLATE_W6_RETURNS, device="cuda")
@@ -2358,15 +2598,26 @@ def main() -> int:
     # witness prefix
     expect("corrupted cas-100k", la, batch_walk=2, lane_walk=2,
            keyed_walk=0)
+    # against the CPU run on a corrupted history of CPU_REF_OPS ops, just
+    # past chunk-lockstep's floor (the CPU run's time grows with the
+    # history); at cas-100k the card's answer is held against K1's dead
+    # return and the walk split below
+    mid = gen("cas", CPU_REF_OPS, 5, 0, corrupt=True)
+    res_mid, dt_mid, la_mid, _, _ = drive(lambda: linearizable(mid))
+    expect(f"corrupted cas-{CPU_REF_OPS}", la_mid, batch_walk=2,
+           lane_walk=2, keyed_walk=0)
     t0 = time.perf_counter()
-    ref = linearizable(bad, device="cpu")
+    ref = linearizable(mid, device="cpu")
     cpu_s = time.perf_counter() - t0
+    if res_mid.get("engine") != "reach-chunklock":
+        raise AssertionError(f"corrupted cas-{CPU_REF_OPS}: {res_mid}")
     for key in ("valid", "engine", "op", "dead-event", "max-linearized",
                 "final-configs", "previous-ok", "chunks", "basis-max",
                 "rescues"):
-        if res.get(key) != ref.get(key):
-            raise AssertionError(f"corrupted cas-100k: {key} differs "
-                                 f"cuda={res.get(key)} cpu={ref.get(key)}")
+        if res_mid.get(key) != ref.get(key):
+            raise AssertionError(f"corrupted cas-{CPU_REF_OPS}: {key} "
+                                 f"differs cuda={res_mid.get(key)} "
+                                 f"cpu={ref.get(key)}")
     Pb, rsb, Mb = history_operands(bad, models.cas_register())
     R0 = np.zeros((Pb.shape[1], Mb), bool)
     R0[0, 0] = True
@@ -2379,8 +2630,9 @@ def main() -> int:
     log(f"main path corrupted cas-100k: {res['engine']} "
         f"valid={res['valid']} dead-event={res['dead-event']} (return "
         f"{dead_k1}, as K1 finds it) {dt:.4f} s on cuda ({split(dt, spans)}; "
-        f"launches {la}), {cpu_s:.3f} s on cpu; verdict, op, dead event, "
-        f"witness and chunk counts agree")
+        f"launches {la}); corrupted cas-{CPU_REF_OPS}: dead-event="
+        f"{res_mid['dead-event']} {dt_mid:.4f} s on cuda, {cpu_s:.3f} s on "
+        f"cpu; verdict, op, dead event, witness and chunk counts agree")
     # the walk stage by stage, each stage synchronised: no torch returns
     # walk, K1 once on the dead chunk and once for the witness
     from jepsen_tpu_torch.tools import walk_split
@@ -2504,6 +2756,9 @@ def main() -> int:
 
     # -- the command line ----------------------------------------------
     phase_cli()
+
+    # -- the test runner ------------------------------------------------
+    phase_run()
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)

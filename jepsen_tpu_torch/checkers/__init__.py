@@ -20,6 +20,6 @@
   scans of :mod:`.preproc_native` (``native/preproc.cpp``).
 """
 from jepsen_tpu_torch.checkers.facade import (  # noqa: F401
-    Checker, check_safe, compose, counter, linearizable, noop_checker,
-    queue, set_checker, stats, total_queue, unbridled_optimism,
+    Checker, check_declining, check_safe, compose, counter, linearizable,
+    noop_checker, queue, set_checker, stats, total_queue, unbridled_optimism,
 )

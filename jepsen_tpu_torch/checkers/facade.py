@@ -3,7 +3,7 @@
 delegates to Knossos via ``knossos.competition/analysis``), the
 data-invariant checkers (``set``, ``counter``, ``queue``,
 ``total-queue``), ``compose``, ``noop``, ``unbridled-optimism``,
-``stats``, and ``check_safe``.
+``stats``, ``check_safe`` and ``check_declining``.
 
 API shape: ``checker.check(test, history, opts) -> dict`` with at least a
 ``"valid"`` key (``True`` / ``False`` / ``"unknown"``), the model carried
@@ -57,6 +57,22 @@ def check_safe(checker: Checker, test: Optional[Mapping],
         return {"valid": "unknown",
                 "error": f"{type(e).__name__}: {e}",
                 "traceback": tb}
+
+
+def check_declining(checker: Checker, test: Optional[Mapping],
+                    history: Sequence[Op],
+                    opts: Optional[Mapping] = None) -> Dict[str, Any]:
+    """Run a checker, turning only a capacity decline (the history does
+    not fit the engine: :func:`_capacity_declines`) into ``{"valid":
+    "unknown", "error": ...}``. Any other error propagates, a failed
+    kernel build or a CUDA launch error above all. ``compose``, the
+    ``independent`` checker, the test runner and the command line check
+    through this; :func:`check_safe` stays for a caller that wants every
+    error made an ``unknown``."""
+    try:
+        return checker.check(test, history, opts)
+    except _capacity_declines() as e:
+        return {"valid": "unknown", "error": f"{type(e).__name__}: {e}"}
 
 
 def _model_from(model: Optional[Model], test: Optional[Mapping]) -> Model:
@@ -446,12 +462,14 @@ def _engine_kw(kw: Mapping, allowed: Sequence[str]) -> Dict[str, Any]:
 @dataclass
 class Compose(Checker):
     """Run several named checkers; valid iff all are (upstream
-    ``jepsen.checker/compose``)."""
+    ``jepsen.checker/compose``). Each runs through
+    :func:`check_declining`: a capacity decline is that checker's
+    ``unknown``, any other error propagates."""
     checkers: Dict[str, Checker]
     name = "compose"
 
     def check(self, test, history, opts=None):
-        results = {name: check_safe(c, test, history, opts)
+        results = {name: check_declining(c, test, history, opts)
                    for name, c in self.checkers.items()}
         valids = [r.get("valid") for r in results.values()]
         if all(v is True for v in valids):

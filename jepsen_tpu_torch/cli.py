@@ -1,19 +1,24 @@
-"""Command-line interface — upstream ``jepsen/src/jepsen/cli.clj``: the
-offline checks of a stored or upstream history, ``check`` (one history
-file; transactional histories go to the list-append checker) and
-``recheck`` (one or more stored runs; several paths are checked together
-on the lockstep lane).
+"""Command-line interface — upstream ``jepsen/src/jepsen/cli.clj``:
+``run`` (execute a test suite against the in-process fake cluster and
+check its history), and the offline checks of a stored or upstream
+history, ``check`` (one history file; transactional histories go to the
+list-append checker) and ``recheck`` (one or more stored runs; several
+paths are checked together on the lockstep lane).
 
+    python -m jepsen_tpu_torch run --suite register --mode sloppy --time-limit 10
     python -m jepsen_tpu_torch check history.edn --model cas-register
     python -m jepsen_tpu_torch recheck store/<name>/latest [more paths]
 
-Both print the verdict as JSON and exit 0 when every result is valid,
-else 1. ``--device`` names where the checks run: the card by default,
-``cpu`` for the plain PyTorch versions; without a card the default
-fails with the port's :func:`~jepsen_tpu_torch.device.default_device`
-error (exit 2) and nothing runs on the CPU. ``run``, ``serve`` and
-``check-serve`` are not ported yet and exit 2 naming their
-``ROADMAP.md`` item.
+Each prints its verdict as JSON and exits 0 when every result is valid,
+else 1; a fault in a check prints its traceback and exits 1.
+``--device`` names where the checks run: the card by default, ``cpu``
+for the plain PyTorch versions; without a card the default fails with
+the port's :func:`~jepsen_tpu_torch.device.default_device` error (exit
+2) before anything runs (``run`` generates no op), and nothing runs on
+the CPU by itself. ``run`` takes the register suites (``register``,
+``register-independent``); the other suites, ``run --online``,
+``serve`` and ``check-serve`` are not ported yet and exit 2 naming
+their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -22,17 +27,95 @@ import json
 import logging
 import os
 import sys
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 _NOT_PORTED = {
-    "run": "'run' (the test runner with its fake clusters, nemeses, "
-           "generators and suites) is not ported yet (ROADMAP.md, Queue 1 "
-           "item 1)",
     "serve": "'serve' (the results browser) is not ported yet (ROADMAP.md, "
              "Queue 1 item 3)",
     "check-serve": "'check-serve' (the checking daemon) is not ported yet "
                    "(ROADMAP.md, Queue 1 item 3)",
 }
+
+
+_SUITES_NOT_PORTED = ("mutex", "queue", "set", "counter", "etcd", "redis")
+
+
+def _add_common(ap: argparse.ArgumentParser) -> None:
+    """The upstream shared option set (``--nodes``, ``--concurrency``,
+    ``--time-limit``, ``--test-count``, ssh opts)."""
+    ap.add_argument("--nodes", default=None,
+                    help="comma-separated node names")
+    ap.add_argument("--nodes-file", default=None)
+    ap.add_argument("--username", default="root")
+    ap.add_argument("--password", default=None)
+    ap.add_argument("--ssh-private-key", default=None)
+    ap.add_argument("--concurrency", type=int, default=5)
+    ap.add_argument("--time-limit", type=float, default=10.0)
+    ap.add_argument("--test-count", type=int, default=1)
+    ap.add_argument("--store-root", default="store")
+    ap.add_argument("--seed", type=int, default=None)
+
+
+def _nodes_from(args) -> Optional[list]:
+    if args.nodes:
+        return args.nodes.split(",")
+    if args.nodes_file:
+        with open(args.nodes_file) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+    return None
+
+
+def _run_not_ported(args) -> Optional[str]:
+    """Why ``run`` cannot take these arguments yet, or None."""
+    if args.online:
+        return ("'run --online' (live linearizability monitoring) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 2)")
+    if args.suite in _SUITES_NOT_PORTED:
+        return (f"suite {args.suite!r} is not ported yet (ROADMAP.md, "
+                f"Queue 1 item 15); this port runs 'register' and "
+                f"'register-independent'")
+    return None
+
+
+def _cmd_run(args, dev) -> int:
+    """Run a suite ``--test-count`` times: the workload against the
+    in-process fake cluster, then the check on ``dev``. One JSON line a
+    run; exit 0 when every run is valid, else 1."""
+    from jepsen_tpu_torch import core
+    from jepsen_tpu_torch.suites import register
+
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    nodes = _nodes_from(args)                 # the fake cluster must be
+    builders: Dict[str, Callable[..., Dict[str, Any]]] = {  # built over them
+        "register": lambda: register.register_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True,
+            algorithm=args.algorithm, nodes=nodes or 5, device=dev),
+        "register-independent": lambda: register.independent_test(
+            mode=args.mode, concurrency=args.concurrency,
+            seed=args.seed, store=True, device=dev),
+    }
+    if args.suite not in builders:
+        print(f"unknown suite {args.suite!r}; have {sorted(builders)}",
+              file=sys.stderr)
+        return 2
+    ok = True
+    for i in range(args.test_count):
+        test = builders[args.suite]()
+        test["store-root"] = args.store_root
+        test["ssh"] = {"username": args.username,
+                       "password": args.password,
+                       "private-key-path": args.ssh_private_key}
+        done = core.run(test)
+        valid = done["results"].get("valid")
+        print(json.dumps({"run": i, "name": done["name"], "valid": valid,
+                          "dir": done.get("dir"),
+                          "ops": len(done["history"])}), flush=True)
+        ok = ok and valid is True
+    return 0 if ok else 1
 
 
 def _load_history(path: str):
@@ -50,18 +133,6 @@ def _model(name: str):
     from jepsen_tpu_torch import models
 
     return getattr(models, name.replace("-", "_"))()
-
-
-def _check_one(checker, model, history) -> Dict[str, Any]:
-    """One history through ``checker``: a capacity decline (the history
-    does not fit the engine asked for) is an ``unknown`` with its error,
-    as ``check_safe`` makes it; any other error propagates."""
-    from jepsen_tpu_torch.checkers.facade import _capacity_declines
-
-    try:
-        return checker.check({"model": model}, history)
-    except _capacity_declines() as e:
-        return {"valid": "unknown", "error": f"{type(e).__name__}: {e}"}
 
 
 def _cmd_recheck(args, dev) -> int:
@@ -99,8 +170,8 @@ def _cmd_recheck(args, dev) -> int:
             obs.decision("recheck", "fallback", cause=type(e).__name__,
                          histories=len(live))
             checker = facade.Linearizable(model, device=dev)
-            res_by_idx = {i: _check_one(checker, model, hist)
-                          for i, hist in live}
+            res_by_idx = {i: facade.check_declining(
+                checker, {"model": model}, hist) for i, hist in live}
         ok = True
         for i, (p, _hist, err) in enumerate(loaded):
             res = (res_by_idx[i] if err is None
@@ -111,7 +182,7 @@ def _cmd_recheck(args, dev) -> int:
     history = _load_history(args.path[0])
     checker = facade.Linearizable(model, algorithm=args.algorithm,
                                   device=dev)
-    res = _check_one(checker, model, history)
+    res = facade.check_declining(checker, {"model": model}, history)
     print(json.dumps(res, indent=2, default=str))
     return 0 if res.get("valid") is True else 1
 
@@ -134,7 +205,7 @@ def _cmd_check(args, dev) -> int:
         model = _model(args.model)
         checker = facade.Linearizable(model, algorithm=args.algorithm,
                                       device=dev)
-        res = _check_one(checker, model, history)
+        res = facade.check_declining(checker, {"model": model}, history)
     if args.store_root:
         import uuid
 
@@ -151,8 +222,9 @@ def _cmd_check(args, dev) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch",
-        description="Offline linearizability and transactional checks on "
-                    "one NVIDIA GPU")
+        description="Jepsen tests against an in-process fake cluster, and "
+                    "offline linearizability and transactional checks, "
+                    "on one NVIDIA GPU")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for cmd, text in _NOT_PORTED.items():
         sub.add_parser(cmd, help=f"not ported: {text}")
@@ -161,6 +233,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         p.add_argument("--device", default=None,
                        help="where the checks run (default: the card; "
                             "'cpu' runs the plain PyTorch versions)")
+
+    runp = sub.add_parser("run", help="run a test suite")
+    _add_common(runp)
+    runp.add_argument("--suite", default="register",
+                      help="'register' or 'register-independent'")
+    runp.add_argument("--mode", default="linearizable",
+                      choices=["linearizable", "sloppy"])
+    runp.add_argument("--algorithm", default="auto")
+    runp.add_argument("--no-nemesis", action="store_true")
+    runp.add_argument("--online", action="store_true",
+                      help="live linearizability monitoring (not ported "
+                           "yet: exits 2)")
+    device_arg(runp)
+    runp.set_defaults(fn=_cmd_run)
 
     ckp = sub.add_parser(
         "check",
@@ -199,6 +285,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"jepsen_tpu_torch: {_NOT_PORTED[argv[0]]}", file=sys.stderr)
         return 2
     args = ap.parse_args(argv)
+    if args.cmd == "run":
+        why = _run_not_ported(args)
+        if why:
+            print(f"jepsen_tpu_torch: {why}", file=sys.stderr)
+            return 2
     from jepsen_tpu_torch import device as _device
     try:
         dev = _device.resolve(args.device)

@@ -15,7 +15,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
-from jepsen_tpu_torch.checkers.facade import Checker, Linearizable, check_safe
+from jepsen_tpu_torch.checkers.facade import (Checker, Linearizable,
+                                              check_declining)
 from jepsen_tpu_torch.op import Op
 from jepsen_tpu_torch.util import hashable
 
@@ -44,7 +45,9 @@ def split_history(history: Sequence[Op]) -> Dict[Any, List[Op]]:
 
 class IndependentChecker(Checker):
     """Apply ``inner`` to each key's sub-history; valid iff every key is
-    (upstream ``jepsen.independent/checker``)."""
+    (upstream ``jepsen.independent/checker``). A key's capacity decline
+    is that key's ``unknown``; any other error propagates
+    (:func:`~jepsen_tpu_torch.checkers.facade.check_declining`)."""
     name = "independent"
 
     def __init__(self, inner: Checker):
@@ -61,7 +64,7 @@ class IndependentChecker(Checker):
             results = self._check_batched(test, subs, keys, opts)
         else:
             for k in keys:
-                results[k] = check_safe(self.inner, test, subs[k], opts)
+                results[k] = check_declining(self.inner, test, subs[k], opts)
         valids = [r.get("valid") for r in results.values()]
         if all(v is True for v in valids):
             valid: Any = True
@@ -111,7 +114,7 @@ class IndependentChecker(Checker):
                 results[k] = r
         except (reach.DenseOverflow, ConcurrencyOverflow, StateExplosion):
             for k in fits:
-                results[k] = check_safe(self.inner, test, subs[k], opts)
+                results[k] = check_declining(self.inner, test, subs[k], opts)
         return results
 
 

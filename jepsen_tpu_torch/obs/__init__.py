@@ -14,11 +14,15 @@ shapes of the reference package's ``obs`` core.
 
 Every auto-chain stage transition lands in the ledger, so a test can
 assert which engine decided a verdict and that no stage was dropped
-silently. Set ``JEPSEN_TPU_NO_OBS=1`` to disable all recording.
+silently. A run's record is exported next to its history as
+``trace.json`` (Chrome/Perfetto ``trace_event``: :func:`export_trace`)
+and ``obs.jsonl`` (one record a line: :func:`export_jsonl`). Set
+``JEPSEN_TPU_NO_OBS=1`` to disable all recording.
 """
 from __future__ import annotations
 
 import contextvars
+import json
 import os
 import threading
 import time
@@ -72,6 +76,18 @@ class Recorder:
     def gauge(self, name: str, value: Any) -> None:
         with self._lock:
             self.gauges[name] = value
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Consistent copy of counters, gauges and the ledger (spans are
+        exported separately: they can be large)."""
+        with self._lock:
+            return {"counters": dict(self.counters),
+                    "gauges": dict(self.gauges),
+                    "ledger": [dict(r) for r in self.ledger]}
+
+    def span_events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [dict(e) for e in self.spans]
 
     def clear(self) -> None:
         with self._lock:
@@ -194,8 +210,7 @@ class Capture:
 
     @property
     def spans(self) -> List[Dict[str, Any]]:
-        with self._rec._lock:
-            return [dict(e) for e in self._rec.spans]
+        return self._rec.span_events()
 
     @property
     def counters(self) -> Dict[str, float]:
@@ -224,6 +239,10 @@ class Capture:
     def skipped(self) -> List[Dict[str, Any]]:
         return self._by_event("skipped")
 
+    def summary(self) -> Dict[str, Any]:
+        """JSON-serializable counters + gauges + ledger (no spans)."""
+        return self._rec.snapshot()
+
 
 class _CaptureCtx:
     __slots__ = ("_cap", "_token")
@@ -249,3 +268,52 @@ def capture() -> _CaptureCtx:
 def reset() -> None:
     """Clear the process-wide recorder."""
     GLOBAL.clear()
+
+
+# -- export --------------------------------------------------------------------
+
+def _recorder_of(source: Optional[Any]) -> Recorder:
+    if source is None:
+        return GLOBAL
+    if isinstance(source, Capture):
+        return source._rec
+    return source
+
+
+def trace_events(source: Optional[Any] = None) -> List[Dict[str, Any]]:
+    """The Chrome ``traceEvents`` list: every recorded span as a ``"X"``
+    (complete) event, plus one metadata event naming the process."""
+    rec = _recorder_of(source)
+    meta = {"name": "process_name", "ph": "M", "pid": os.getpid(),
+            "tid": 0, "args": {"name": "jepsen-tpu"}}
+    return [meta] + rec.span_events()
+
+
+def export_trace(path: str, source: Optional[Any] = None) -> str:
+    """Write a Chrome/Perfetto ``trace_event`` JSON file."""
+    data = {"traceEvents": trace_events(source),
+            "displayTimeUnit": "ms"}
+    with open(path, "w") as f:
+        json.dump(data, f, default=str)
+    return path
+
+
+def export_jsonl(path: str, source: Optional[Any] = None) -> str:
+    """Write ``obs.jsonl``: one JSON object per line, each tagged with a
+    ``"type"`` of ``counter`` / ``gauge`` / ``decision`` / ``span``."""
+    rec = _recorder_of(source)
+    snap = rec.snapshot()
+    with open(path, "w") as f:
+        for name, value in sorted(snap["counters"].items()):
+            f.write(json.dumps({"type": "counter", "name": name,
+                                "value": value}, default=str) + "\n")
+        for name, value in sorted(snap["gauges"].items()):
+            f.write(json.dumps({"type": "gauge", "name": name,
+                                "value": value}, default=str) + "\n")
+        for r in snap["ledger"]:
+            f.write(json.dumps({"type": "decision", **r},
+                               default=str) + "\n")
+        for e in rec.span_events():
+            f.write(json.dumps({"type": "span", **e},
+                               default=str) + "\n")
+    return path

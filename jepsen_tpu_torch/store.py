@@ -130,6 +130,22 @@ def save_check(root: str, name: str, run_id: str, history: List[Op],
                  "results": results}, run_dir=d)
 
 
+def save_obs(run_dir: str, capture: Optional[Any] = None) -> None:
+    """Persist the run's observability record next to its history:
+    ``obs.jsonl`` (spans + counters + engine-decision ledger, one JSON
+    object per line) and ``trace.json`` (Chrome/Perfetto
+    ``trace_event`` — load in ``chrome://tracing`` or ui.perfetto.dev).
+    ``capture`` is the run's :class:`jepsen_tpu_torch.obs.Capture`
+    (None exports the process-wide recorder). Best-effort: persistence
+    failures must never fail a completed run."""
+    from jepsen_tpu_torch import obs
+    try:
+        obs.export_jsonl(os.path.join(run_dir, "obs.jsonl"), capture)
+        obs.export_trace(os.path.join(run_dir, "trace.json"), capture)
+    except Exception as e:                              # noqa: BLE001
+        log.warning("obs export to %s failed: %s", run_dir, e)
+
+
 def load_history(run_dir: str) -> List[Op]:
     """Load a stored history for offline re-analysis (the upstream
     re-check path)."""

@@ -1,11 +1,15 @@
 """Small shared utilities — upstream: ``jepsen/src/jepsen/util.clj``:
 the helpers shared by history packing, EDN and the transactional
-checker."""
+checker, and those of the test runner (``majority``, ``node_names``,
+``with_retry``, ``meh`` ...)."""
 from __future__ import annotations
 
 import threading
+import time
 from contextlib import contextmanager
-from typing import Any
+from typing import Any, Callable, Optional, TypeVar
+
+T = TypeVar("T")
 
 
 def hashable(v: Any) -> Any:
@@ -69,3 +73,86 @@ def gc_paused():
             _GC_PAUSE_DEPTH -= 1
             if _GC_PAUSE_DEPTH == 0 and _GC_PAUSE_RESUME:
                 gc.enable()
+
+
+def majority(n: int) -> int:
+    """Smallest majority of ``n`` nodes (upstream ``jepsen.util/majority``)."""
+    return n // 2 + 1
+
+
+def node_names(nodes) -> list:
+    """Normalize a suite's ``nodes`` argument: a count becomes
+    ``["n1", ..., "nN"]``, a bare string is ONE node name (not a char
+    sequence), anything else is taken as a list of names."""
+    if isinstance(nodes, int):
+        return [f"n{i + 1}" for i in range(nodes)]
+    if isinstance(nodes, str):
+        return [nodes]
+    return list(nodes)
+
+
+def relative_time_nanos(start: float) -> int:
+    """Nanoseconds since ``start`` (a ``time.monotonic()`` instant) —
+    upstream ``jepsen.util/relative-time-nanos``."""
+    return int((time.monotonic() - start) * 1e9)
+
+
+def with_retry(fn: Callable[[], T], retries: int = 3,
+               delay: float = 0.1,
+               exceptions: tuple = (Exception,)) -> T:
+    """Call ``fn``, retrying on failure (upstream ``jepsen.util/with-retry``)."""
+    last: Optional[BaseException] = None
+    for attempt in range(retries + 1):
+        try:
+            return fn()
+        except exceptions as e:  # noqa: PERF203
+            last = e
+            if attempt < retries:
+                time.sleep(delay * (2 ** attempt))
+    assert last is not None
+    raise last
+
+
+def meh(fn: Callable[[], T]) -> Optional[T]:
+    """Run ``fn``, swallowing exceptions (upstream ``jepsen.util/meh``)."""
+    try:
+        return fn()
+    except Exception:
+        return None
+
+
+def map_vals(f: Callable[[Any], Any], d: dict) -> dict:
+    """Map ``f`` over a dict's values (upstream ``jepsen.util/map-vals``)."""
+    return {k: f(v) for k, v in d.items()}
+
+
+def pprint_str(x: Any) -> str:
+    """Pretty-print to a string (upstream ``jepsen.util/pprint-str``)."""
+    import pprint
+    return pprint.pformat(x, width=78)
+
+
+def log_op(op: Any) -> None:
+    """Log one operation in the jepsen console style (upstream
+    ``jepsen.util/log-op``)."""
+    import logging
+    logging.getLogger("jepsen.ops").info(
+        "%s\t%s\t%s\t%r", op.process, op.type, op.f, op.value)
+
+
+class with_thread_name:
+    """Context manager renaming the current thread (upstream
+    ``jepsen.util/with-thread-name``) — thread names show in log lines."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import threading
+        self._old = threading.current_thread().name
+        threading.current_thread().name = self.name
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+        threading.current_thread().name = self._old

@@ -260,10 +260,106 @@ def test_no_card_fails_without_running(monkeypatch, capsys):
     assert cli_pt.main(["check", path] + CPU) == 1
 
 
-@pytest.mark.parametrize("cmd", ["run", "serve", "check-serve"])
+@pytest.mark.parametrize("cmd", ["serve", "check-serve"])
 def test_unported_commands_exit_2(cmd, capsys):
     assert cli_pt.main([cmd, "--suite", "register"]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+RUN_KEYS = {"run", "name", "valid", "dir", "ops"}
+
+
+@pytest.mark.parametrize("mode,rc_want", [("linearizable", 0),
+                                          ("sloppy", 1)])
+def test_run_register_on_cpu(mode, rc_want, tmp_path, capsys):
+    """``run --device cpu``: the README's command at a short time limit;
+    the sloppy cluster under the partition nemesis fails the check."""
+    rc, out = _run(cli_pt.main, ["run", "--suite", "register", "--mode", mode,
+                                 "--time-limit", "1.5", "--seed", "11",
+                                 "--store-root", str(tmp_path)] + CPU,
+                   capsys)
+    line = _one(out)
+    assert set(line) == RUN_KEYS
+    assert rc == rc_want and line["valid"] is (rc_want == 0)
+    assert line["name"] == f"register-{mode}" and line["ops"] > 100
+    hist = store_ref.load_history(line["dir"])
+    assert len(hist) == line["ops"]
+    res = json.load(open(os.path.join(line["dir"], "results.json")))
+    assert res["valid"] is line["valid"]
+    assert res["results"]["linear"]["valid"] is line["valid"]
+    if rc_want:
+        rc2, out2 = _run(cli_pt.main, ["recheck", line["dir"]] + CPU, capsys)
+        assert rc2 == 1
+        _same(res["results"]["linear"], _one(out2))
+
+
+def test_run_independent_and_test_count(tmp_path, capsys):
+    rc, out = _run(cli_pt.main, ["run", "--suite", "register-independent",
+                                 "--test-count", "2", "--concurrency", "4",
+                                 "--seed", "3",
+                                 "--store-root", str(tmp_path)] + CPU, capsys)
+    lines = _lines(out)
+    assert rc == 0 and [ln["run"] for ln in lines] == [0, 1]
+    assert all(ln["valid"] is True and set(ln) == RUN_KEYS for ln in lines)
+    res = json.load(open(os.path.join(lines[0]["dir"], "results.json")))
+    assert res["key-count"] == 8
+
+
+def test_run_line_has_the_reference_keys(tmp_path, capsys):
+    args = ["run", "--suite", "register", "--time-limit", "0.3",
+            "--no-nemesis", "--seed", "1"]
+    rc_ref, out_ref = _run(cli_ref.main, args + ["--store-root",
+                                                 str(tmp_path / "ref")],
+                           capsys)
+    rc_pt, out_pt = _run(cli_pt.main, args + ["--store-root",
+                                              str(tmp_path / "pt")] + CPU,
+                         capsys)
+    assert rc_pt == rc_ref == 0
+    assert set(_one(out_pt)) == set(_one(out_ref)) == RUN_KEYS
+    assert sorted(os.listdir(_one(out_pt)["dir"])) == \
+        sorted(os.listdir(_one(out_ref)["dir"]))
+
+
+def test_run_without_card_exits_2_before_any_op(monkeypatch, tmp_path,
+                                                  capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli_pt.main(["run", "--suite", "register", "--time-limit", "1",
+                      "--store-root", str(tmp_path)])
+    cap = capsys.readouterr()
+    assert rc == 2 and cap.out == "" and "no CUDA device" in cap.err
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("args,item", [
+    (["--online"], "Queue 1 item 2"),
+    (["--suite", "mutex"], "Queue 1 item 15"),
+    (["--suite", "queue", "--device", "cpu"], "Queue 1 item 15"),
+    (["--suite", "etcd"], "Queue 1 item 15")])
+def test_run_not_ported_yet_exits_2(args, item, tmp_path, capsys):
+    rc = cli_pt.main(["run", "--store-root", str(tmp_path)] + args)
+    assert rc == 2 and item in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+def test_run_check_fault_exits_with_traceback(tmp_path):
+    """A fault in the run's check (a kernel wrapper that raises) is a
+    traceback and exit 1, the history on disk."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "from jepsen_tpu_torch.checkers import reach_lane\n"
+         "def boom(*a, **k):\n"
+         "    raise RuntimeError('CUDA error: launch failure')\n"
+         "reach_lane.lane_walk = boom\n"
+         "from jepsen_tpu_torch.cli import main\n"
+         "sys.exit(main(['run', '--time-limit', '0.3', '--no-nemesis',\n"
+         "               '--store-root', sys.argv[1], '--device', 'cpu']))\n",
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 1 and out.stdout == ""
+    assert "Traceback" in out.stderr and "launch failure" in out.stderr
+    assert store_pt.load_history(store_pt.latest(str(tmp_path)))
 
 
 def test_module_entry_point(tmp_path):
