@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
 K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``, K8
-``txn_closure``), holds each
+``txn_closure``, K9 ``txn_inc_join``), holds each
 kernel bit for bit against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path through the
 user's entry points and checks the results:
@@ -113,7 +113,26 @@ user's entry points and checks the results:
   launches; ``independent_test()`` key by key against its CPU run; then
   ``python -m jepsen_tpu_torch run --mode sloppy`` (exit 1, the run
   dir's files), ``recheck`` of that dir (exit 1, the same failing op)
-  and ``run`` (exit 0), each in its own process.
+  and ``run`` (exit 0), each in its own process;
+- online checking (:func:`phase_online`): the same runs with
+  ``online-check`` in process, linearizable (the monitor valid) and
+  sloppy (the monitor stops the workers early; its violation equal to
+  ``NativeStreamEngine`` fed the stored history on the CPU), then
+  ``run --mode sloppy --online`` in its own process (exit 1);
+- the streaming session engines: ``DeviceFrontierEngine``'s carried
+  frontier (:func:`phase_carry`) on K1 at cas-100k and on K4 at wide
+  cas-100k, each with its corrupted twin, in 256-op blocks, against
+  ``NativeStreamEngine`` (violation, settled returns, the final set);
+  K9 bit for bit against its plain version at (4, 8,192, 256) beside
+  its bound and the library's ``bmm`` join (:func:`phase_join`); and
+  ``TxnSessionEngine`` (:func:`phase_txn_session`) over the 6,003-txn
+  write-skew history in 128-op blocks at K = 3 and K = 4, every block's
+  booleans against the f32 cross-check, the close against the post-hoc
+  check on K8, the last block's K9 launches against the plain version.
+
+Depths cut to make room (``PERF.md`` section 4): K1's plain version on
+the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
+all of them), no CPU run at the long keys.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -421,8 +440,12 @@ def same(label: str, got, want):
 # past the ladder cap, a corrupted one that dies mid-stream and a
 # many-op alphabet at 32 states whose tables stay in device memory (its
 # first 4,096 returns: the plain version takes about 1 ms a return)
+# the first geometry's plain version runs on its first K1_PLAIN_RETURNS
+# returns (PERF.md section 4's cuts); K1 is timed on the whole stream too
+K1_PLAIN_RETURNS = 8_192
 GEOMS = [
-    ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False, {}, None),
+    ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False, {},
+     K1_PLAIN_RETURNS),
     ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False, {}, None),
     ("W=10 capped ladder", "cas", 1_000, 11, 0, 64, True, {}, None),
     ("corrupted cas-4k", "cas", 4_000, 5, 3, 256, True, {}, None),
@@ -494,6 +517,13 @@ def phase_k1():
             if label == GEOMS[0][0]:
                 out.update(ms=ms, plain_ms=p_ms, bound_ms=bound,
                            bound_by=bound_by)
+                full = reach_lane.operands_from_numpy(
+                    P, rs.ret_slot, rs.slot_ops, R0, B=B, device="cuda")
+                t = event_ms(lambda: reach_lane.lane_walk(*full, B, n_pass),
+                             10)
+                log(f"kernel lane_walk [{label}, all {rs.n_returns} "
+                    f"returns] n_pass={n_pass}: kernel_ms={t:.6f} "
+                    f"us_per_return={1e3 * t / rs.n_returns:.6f}")
         if W > reach_lane._FAST_PASSES:
             # the capped walk, the exact rescue and the death location,
             # on the card against the plain version on the CPU
@@ -1286,7 +1316,8 @@ def launches():
             "ablate_walk": ablate_lane.ABLATE_LAUNCHES,
             "ablate_tables": ablate_lane.ABLATE_TABLE_LAUNCHES,
             "ablate_stream": ablate_lane.STREAM_LAUNCHES,
-            "txn_closure": cycles.KERNEL_LAUNCHES}
+            "txn_closure": cycles.KERNEL_LAUNCHES,
+            "txn_inc_join": cycles.INC_JOIN_LAUNCHES}
 
 
 def zero_launches():
@@ -1300,7 +1331,7 @@ def zero_launches():
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
     ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
     ablate_lane.ABLATE_TABLE_LAUNCHES = 0
-    cycles.KERNEL_LAUNCHES = 0
+    cycles.KERNEL_LAUNCHES = cycles.INC_JOIN_LAUNCHES = 0
 
 
 # each kernel's launches summed over every drive of the main path
@@ -1362,12 +1393,12 @@ def split(dt: float, spans) -> str:
     return ", ".join(out)
 
 
-def check_keyed(label, h, n_keys, bad, cause, **launches):
+def check_keyed(label, h, n_keys, bad, cause, cpu=True, **launches):
     """One ``independent`` check of the main path on ``[key, v]``
-    history ``h``, on the card with every count zeroed first, then on
-    the CPU: the route's cause must be ``cause``, each kernel launched
-    as ``launches`` says, the failed keys ``bad``, and every key's
-    result equal on both. Returns the launches by kernel."""
+    history ``h``, on the card with every count zeroed first, then (with
+    ``cpu``) on the CPU: the route's cause must be ``cause``, each kernel
+    launched as ``launches`` says, the failed keys ``bad``, and every
+    key's result equal on both. Returns the launches by kernel."""
     from jepsen_tpu_torch import Linearizable, independent, models
 
     def check(device=None):
@@ -1380,12 +1411,18 @@ def check_keyed(label, h, n_keys, bad, cause, **launches):
     if routes != [cause]:
         raise AssertionError(f"{label}: routes {routes}")
     expect(label, la, **launches)
-    t0 = time.perf_counter()
-    ref = check("cpu")
-    cpu_s = time.perf_counter() - t0
     if sorted(res["failures"]) != sorted(bad) or res["valid"] is not \
             (not bad) or res["key-count"] != n_keys:
         raise AssertionError(f"{label}: failures {res['failures']}")
+    if not cpu:
+        log(f"main path {label} ({len(bad)} corrupted): route {cause}, "
+            f"valid={res['valid']} failures={len(res['failures'])} "
+            f"{dt:.4f} s = {len(h) // 2 / dt:.1f} ops/s; {split(dt, spans)}"
+            f"; launches {la}; no CPU run (PERF.md section 4's cuts)")
+        return la
+    t0 = time.perf_counter()
+    ref = check("cpu")
+    cpu_s = time.perf_counter() - t0
     for key in ("valid", "failures", "key-count"):
         if res[key] != ref[key]:
             raise AssertionError(f"{label}: {key} differs")
@@ -2489,6 +2526,414 @@ def phase_run():
     log(f"run phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+
+# -- online checking: run --online, the streaming monitor ---------------------
+
+# online-opts of the phase's runs: the reference's test cadence
+ONLINE_OPTS = {"interval_s": 0.3, "min_new_ops": 64}
+# the violation dict's keys that a replay of the stored prefix must give
+ONLINE_KEYS = ("valid", "engine", "op", "settled-returns")
+
+
+def online_replay(hist, found):
+    """The monitor's violation ``found``, from a fresh
+    ``NativeStreamEngine`` fed the stored history's detected prefix on
+    the host at once: the settled walk does not depend on the flush
+    boundaries, so its advance and its tail alarm at the prefix's end
+    give the monitor's detection (or, when the monitor found it at its
+    final flush, the run-over advance)."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import online
+
+    eng = online.NativeStreamEngine(models.cas_register())
+    eng.feed_many(hist[:found["prefix-ops"]])
+    return eng.advance() or eng.tail_alarm() or eng.advance(run_over=True)
+
+
+def phase_online():
+    """``run --online`` on the card: ``register_test(time_limit=10,
+    seed=7)`` with ``online-check``, linearizable (the monitor valid, the
+    post-hoc check valid) and sloppy (the monitor stops the workers
+    early, its violation equal to ``NativeStreamEngine`` fed the stored
+    history on the CPU), in process; then ``run --mode sloppy --online``
+    in its own process (exit 1). Returns the phase's readings."""
+    import tempfile
+
+    from jepsen_tpu_torch import core
+    from jepsen_tpu_torch.suites import register
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-online-") as tmp:
+        for mode in ("linearizable", "sloppy"):
+            t = register.register_test(mode=mode, time_limit=RUN_TIME_LIMIT,
+                                       seed=RUN_SEED, store=True)
+            t["store-root"] = os.path.join(tmp, "in-process")
+            t["online-check"] = True
+            t["online-opts"] = dict(ONLINE_OPTS)
+            done, dt, la, spans, ledger = drive(lambda: core.run(t))
+            invalid = mode == "sloppy"
+            res = done["results"]
+            on, lin = res["online-check"], res["results"]["linear"]
+            hist = done["history"]
+            if on["valid"] is not (not invalid) or \
+                    lin["valid"] is not (not invalid) or \
+                    res["valid"] is not (not invalid):
+                raise AssertionError(f"online {mode}: {on} {lin['valid']}")
+            route = run_route(f"online {mode}", ledger, la, invalid)
+            workers = spans["run.workers"]
+            if invalid:
+                # fail fast: the monitor stopped the workers before the
+                # time limit, and only the in-flight ops landed after it
+                if workers >= RUN_TIME_LIMIT or \
+                        len(hist) > on["prefix-ops"] + 2000:
+                    raise AssertionError(f"online sloppy: did not stop "
+                                         f"early ({workers:.3f} s, "
+                                         f"{len(hist)} ops, {on})")
+                t0 = time.perf_counter()
+                rep = online_replay(hist, on)
+                rep_s = time.perf_counter() - t0
+                same_txn("online sloppy, replay", on, rep, ONLINE_KEYS)
+                detect_s = hist[on["prefix-ops"] - 1].time / 1e9
+                text = (f"violation at op {on['op']['index']} after "
+                        f"{on['prefix-ops']} ops (flush "
+                        f"{on['detected-at-flush']}, settled returns "
+                        f"{on['settled-returns']}), its last op {detect_s:.4f}"
+                        f" s into the run; the host engine on the stored "
+                        f"prefix gives the same violation ({rep_s:.3f} s); "
+                        f"post-hoc op index {lin['op']['index']}")
+                out.update(detect_ops=on["prefix-ops"], detect_s=detect_s,
+                           workers_s=workers, wall_s=dt)
+            else:
+                if on["ops-checked"] != len(hist):
+                    raise AssertionError(f"online linearizable: {on}")
+                text = (f"{on['flushes']} flushes, {on['settled-returns']} "
+                        f"settled returns of {on['ops-checked']} ops")
+                out.update(valid_wall_s=dt, valid_workers_s=workers,
+                           valid_ops=len(hist))
+            log(f"online in process {mode}: valid={on['valid']} ops="
+                f"{len(hist)} route {route['engine']}; run.workers "
+                f"{workers:.4f} s of {RUN_TIME_LIMIT} s, run.check "
+                f"{spans.get('run.check', 0.0):.4f} s, wall {dt:.4f} s; "
+                f"{text}; launches {({k: v for k, v in la.items() if v})}")
+        args = ["run", "--suite", "register", "--mode", "sloppy", "--online",
+                "--time-limit", str(RUN_TIME_LIMIT), "--store-root",
+                os.path.join(tmp, "cli")]
+        rc, stdout, info = cli_run("run --online", args)
+        line = json.loads(stdout.strip().splitlines()[-1])
+        stored = json.load(open(os.path.join(line["dir"], "results.json")))
+        on = stored["online-check"]
+        if rc != 1 or line["valid"] is not False or on["valid"] is not False \
+                or line["ops"] > on["prefix-ops"] + 2000:
+            raise AssertionError(f"cli run --online: exit {rc} {line} {on}")
+        la = info["launches"]
+        log(f"cli run --mode sloppy --online: exit {rc} ops={line['ops']} "
+            f"detected after {on['prefix-ops']} ops; process "
+            f"{info['wall_s']:.3f} s, command {info['main_s']:.4f} s; "
+            f"launches K1 {la['lane_walk']} K2 {la['batch_walk']}")
+        out.update(cli_wall_s=info["wall_s"], cli_ops=line["ops"])
+    log(f"online phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- the streaming session engines --------------------------------------------
+
+# the carry's histories (fixtures.gen_history "cas", processes=5, seed=0,
+# and the corrupted twins) and the append block, in ops
+CARRY_OPS, CARRY_BLOCK = 100_000, 256
+CARRY_CASES = (("cas-100k", {}, "lane_walk"),
+               ("wide cas-100k", WIDE_CAS, "wide_walk"))
+
+
+def carry_feed(eng, hist, times):
+    """Feed ``hist`` in :data:`CARRY_BLOCK`-op blocks, advancing and
+    running the tail alarm after each (a session's append), then the
+    run-over advance; each advance's wall seconds into ``times``."""
+    v = None
+    for i in range(0, len(hist), CARRY_BLOCK):
+        eng.feed_many(hist[i:i + CARRY_BLOCK])
+        t0 = time.perf_counter()
+        v = eng.advance()
+        times.append(time.perf_counter() - t0)
+        if v is None:
+            v = eng.tail_alarm()
+        if v is not None:
+            return v
+    t0 = time.perf_counter()
+    v = eng.advance(run_over=True)
+    times.append(time.perf_counter() - t0)
+    return v
+
+
+def phase_carry():
+    """The register family's streaming session on the card:
+    ``DeviceFrontierEngine`` (the carried frontier on K1 at cas-100k, on
+    K4 at wide cas-100k, each with its corrupted twin) against
+    ``NativeStreamEngine``'s host walk on the same blocks: violation,
+    ``settled-returns``, and the final carried set against the host's.
+    Returns the readings by case."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import online
+    from jepsen_tpu_torch.serve import session
+
+    t_phase = time.perf_counter()
+    out = {}
+    for label, kw, kernel in CARRY_CASES:
+        for corrupt in (False, True):
+            name = f"{'corrupted ' if corrupt else ''}{label}"
+            h = gen("cas", CARRY_OPS, 5, 0, corrupt=corrupt, **kw)
+            host = online.NativeStreamEngine(models.cas_register())
+            t_host = []
+            t0 = time.perf_counter()
+            vh = carry_feed(host, h, t_host)
+            host_s = time.perf_counter() - t0
+            dev = session.DeviceFrontierEngine(models.cas_register())
+            t_dev = []
+            vd, dt, la, _spans, ledger = drive(
+                lambda: carry_feed(dev, h, t_dev))
+            routes = {r["engine"] for r in ledger
+                      if r["stage"] == "frontier-carry"}
+            want = "reach-lane" if kernel == "lane_walk" else "reach-pallas"
+            if routes != {want}:
+                raise AssertionError(f"carry {name}: routes {routes}")
+            expect(f"carry {name}", la, **{kernel: None},
+                   **{k: 0 for k in ("lane_walk", "wide_walk", "batch_walk")
+                      if k != kernel})
+            if (vh is None) == corrupt or vh != vd or \
+                    host.settled_returns != dev.settled_returns:
+                raise AssertionError(f"carry {name}: host {vh} "
+                                     f"{host.settled_returns}, card {vd} "
+                                     f"{dev.settled_returns}")
+            if not corrupt and not np.array_equal(dev.host_set(), host.R):
+                raise AssertionError(f"carry {name}: the final sets differ")
+            n = dev.settled_returns
+            reseeds = sum(1 for r in ledger if r["stage"] == "frontier-carry")
+            adv_d, adv_h = 1e3 * sum(t_dev), 1e3 * sum(t_host)
+            log(f"carry {name} ({len(h)} ops, {CARRY_BLOCK}-op blocks): "
+                f"{'violation at op ' + str(vd['op']['index']) if vd else 'valid'}"
+                f", {n} settled returns, equal to the host engine's"
+                f"{'' if corrupt else ' with the final set'}; carry seeded "
+                f"{reseeds} times ({want}); {kernel} launches "
+                f"{la[kernel]}; card: {len(t_dev)} advances "
+                f"{adv_d:.3f} ms ({adv_d / len(t_dev):.4f} ms an advance, "
+                f"{1e3 * adv_d / max(n, 1):.4f} us a return), whole feed "
+                f"{dt:.3f} s; host engine: {adv_h:.3f} ms "
+                f"({adv_h / len(t_host):.4f} ms an advance, "
+                f"{1e3 * adv_h / max(n, 1):.4f} us a return), whole feed "
+                f"{host_s:.3f} s")
+            out[name] = {"advance_ms": adv_d / len(t_dev),
+                         "us_per_return": 1e3 * adv_d / max(n, 1),
+                         "host_advance_ms": adv_h / len(t_host),
+                         "host_us_per_return": 1e3 * adv_h / max(n, 1),
+                         "launches": la[kernel], "returns": n}
+    log(f"carry phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# the txn session: phase_txn's 6,003-txn write-skew history
+# (TXN_LATTICE) in blocks of TXN_SESSION_BLOCK ops (64 txns), at K = 3
+# and at every lattice level (K = 4)
+TXN_SESSION_BLOCK = 128
+# K9 against its plain version: (K, Np, d) at the dense envelope with a
+# 256-node dirty block, and the density of A's bits there
+TXN_JOIN_SHAPE = (4, 8_192, 256)
+TXN_JOIN_DENSITY = 0.5
+
+
+def join_bound(K, Np, d):
+    """K9's bound: the larger of its bytes (A, B and C read once, the
+    output written once) over the memory rate and 2·K·Np·d·Np single-bit
+    operations over :data:`B1_RATE`."""
+    NW, DW = Np // 32, -(-d // 32)
+    nbytes = 4 * (K * Np * DW + K * d * NW + 2 * K * Np * NW)
+    ops = 2 * K * Np * d * Np
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / B1_RATE
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"bytes={nbytes} b1_ops={ops}")
+
+
+def join_library_ms(thru, right, C, reps):
+    """The library's join: one exact ``torch.bmm`` of the dense ``thru``
+    by the dense ``right`` in bf16 and in fp16 (0/1 inputs, sums of ones:
+    ``> 0`` is exact), then ``> 0``, the packing and the OR with ``C``;
+    each must equal K9's output. ms by dtype."""
+    from jepsen_tpu_torch.txn import cycles
+
+    out, want = {}, None
+    for name, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+        a, b = thru.to(dt), right.to(dt)
+
+        def lib():
+            return C | cycles.pack_rows_torch(torch.bmm(a, b) > 0)
+
+        got = lib()
+        if want is not None and not torch.equal(got, want):
+            raise AssertionError(f"join library {name} differs")
+        want = got
+        out[name] = event_ms(lib, reps)
+    return out, want
+
+
+def phase_join():
+    """K9 against its plain version, bit for bit, at
+    :data:`TXN_JOIN_SHAPE` (random A bits of density
+    :data:`TXN_JOIN_DENSITY`): event_ms, device_ms, the plain version's
+    time, the bound and the library's join. Returns the kernels line's
+    numbers."""
+    from jepsen_tpu_torch.txn import cycles
+
+    K, Np, d = TXN_JOIN_SHAPE
+    NW = Np // 32
+    g = torch.Generator(device=CARD).manual_seed(15)
+    thru = torch.rand((K, Np, d), generator=g, device=CARD) \
+        < TXN_JOIN_DENSITY
+    right = torch.rand((K, d, Np), generator=g, device=CARD) < 0.05
+    C = torch.randint(-2**31, 2**31 - 1, (K, Np, NW), generator=g,
+                      device=CARD, dtype=torch.int32)
+    A, B = cycles.pack_bits(thru), cycles.pack_rows_torch(right)
+    got = cycles.inc_join(A, B, C)
+    want, p_ms = plain_ms(lambda: cycles.inc_join_plain(A, B, C))
+    err = int((got.long() - want.long()).abs().max())
+    if err or not torch.equal(got, want):
+        raise AssertionError("K9 differs from its plain version")
+    ms = event_ms(lambda: cycles.inc_join(A, B, C), 20)
+    dev = device_ms(lambda: cycles.inc_join(A, B, C), 50)
+    libs, lib_out = join_library_ms(thru, right, C, 5)
+    if not torch.equal(lib_out, got):
+        raise AssertionError("K9 differs from the library's join")
+    b_ms, b_by, b_txt = join_bound(K, Np, d)
+    lib_name = min(libs, key=libs.get)
+    log(f"K9 txn_inc_join K={K} Np={Np} d={d} (A density "
+        f"{TXN_JOIN_DENSITY}): bit-identical to its plain version and the "
+        f"library's join; event_ms={ms:.6f} {dev_text(dev)} plain_ms="
+        f"{p_ms:.3f} bound_ms={b_ms:.6f} ({b_by}; {b_txt}) = "
+        f"{ms / b_ms:.2f}x the bound; library "
+        + ", ".join(f"{k} {v:.6f} ms" for k, v in libs.items())
+        + f" (fastest {lib_name}: K9 {libs[lib_name] / ms:.2f}x its speed)")
+    return {"max_abs_err": err, "ms": ms,
+            "device_ms": dev["total"] if dev else None, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": libs[lib_name]}
+
+
+def phase_txn_session():
+    """The transactional streaming session on the card:
+    ``TxnSessionEngine`` over :data:`TXN_LATTICE`'s history with a write
+    skew, in :data:`TXN_SESSION_BLOCK`-op blocks, serializable (K = 3)
+    and at every lattice level (K = 4, Np growing to 8,192). Every
+    block's booleans against the f32 cross-check (``inc_update_f32`` on
+    the same operands, on the card), the close verdict against the
+    post-hoc ``txn.check_history`` on K8, and the session's last K9
+    launches against K9's plain version bit for bit. Returns the
+    readings."""
+    from jepsen_tpu_torch import fixtures, history
+
+    t_phase = time.perf_counter()
+    h = fixtures.gen_txn_history(**TXN_LATTICE)
+    h = history.index(h + [op.with_(index=-1) for op in
+                           fixtures.txn_anomaly_block("write-skew")])
+    out = {}
+    # the session's ladder and joins, and the cross-check, are float32
+    # torch.bmm on 0/1 operands, thresholded at 0: exact in TF32 as in
+    # full float32 (the inputs are exact, a sum of ones never rounds to
+    # 0), so the phase allows TF32, as a user may
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for consistency in (None, "all"):
+            out[consistency] = txn_session_run(h, consistency)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"txn session phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(TF32 allowed)")
+    return out
+
+
+def txn_session_run(h, consistency):
+    """One :func:`phase_txn_session` session (``consistency`` None: K =
+    3; ``"all"``: the lattice, K = 4)."""
+    from jepsen_tpu_torch import txn
+    from jepsen_tpu_torch.serve import session
+    from jepsen_tpu_torch.txn import cycles
+
+    label = "serializable" if consistency is None else "lattice"
+    eng = session.TxnSessionEngine(consistency=consistency)
+    clo = eng.closure
+    f32 = {"C": None, "A": None, "s": 0.0, "blocks": 0, "d": []}
+    real_add, real_join = clo.add_block, cycles.inc_join
+    joins = []
+
+    def add_block(n, src, dst, et):
+        got = real_add(n, src, dst, et)
+        ops = [torch.as_tensor(a, device=CARD) for a in
+               cycles.block_operands(np.asarray(src), np.asarray(dst),
+                                     np.asarray(et), clo.Np,
+                                     clo.lattice)]
+        t0 = time.perf_counter()
+        f32["C"], f32["A"], want = cycles.inc_update_f32(
+            f32["C"], f32["A"], clo.Np, *ops, clo.contracts)
+        want = want.cpu().numpy()
+        f32["s"] += time.perf_counter() - t0
+        f32["blocks"] += 1
+        f32["d"].append(len(ops[4]))
+        if [bool(x) for x in want] != list(got.values()):
+            raise AssertionError(f"txn session {label} block "
+                                 f"{f32['blocks']}: {got} against the "
+                                 f"f32 cross-check {want}")
+        return got
+
+    def join(A, B, C):
+        res = real_join(A, B, C)
+        joins[:] = joins[-1:] + [(A, B, C, res)]
+        return res
+
+    def feed():
+        for i in range(0, len(h), TXN_SESSION_BLOCK):
+            if eng.advance_block(h[i:i + TXN_SESSION_BLOCK]):
+                break
+        return eng.close_incremental()
+
+    clo.add_block = add_block
+    cycles.inc_join = join
+    try:
+        res, dt, la, _spans, _ = drive(feed)
+    finally:
+        cycles.inc_join = real_join
+    blocks = f32["blocks"]
+    expect(f"txn session {label}", la, txn_inc_join=2 * blocks,
+           txn_closure=0)
+    kw = {} if consistency is None else {"consistency": consistency}
+    post, post_dt, post_la, _s, _l = drive(
+        lambda: txn.check_history(h, **kw))
+    expect(f"txn session {label} post-hoc", post_la, txn_closure=None)
+    if res["valid"] is not False or post["valid"] is not False or \
+            res["booleans"] != post["booleans"] or \
+            res["anomalies"] != post["anomalies"]:
+        raise AssertionError(f"txn session {label}: {res} against the "
+                             f"post-hoc {post}")
+    for A, B, C, got in joins:
+        if not torch.equal(got, cycles.inc_join_plain(A, B, C)):
+            raise AssertionError(f"txn session {label}: K9 differs "
+                                 f"from its plain version")
+    shapes = [(tuple(A.shape), tuple(B.shape)) for A, B, _C, _g in joins]
+    j_ms = [event_ms(lambda: cycles.inc_join(*j[:3]), 5) for j in joins]
+    wall = dt - f32["s"]
+    per = 1e3 * wall / blocks
+    log(f"txn session {label} ({eng.infer.n} txns, {blocks} blocks of {TXN_SESSION_BLOCK} ops, K = "
+        f"{clo.K}, Np {clo.Np}, dirty width up to {max(f32['d'])}): "
+        f"invalid, anomalies {res['anomalies']}, booleans equal the "
+        f"f32 cross-check at every block and the post-hoc check "
+        f"({post['engine']}, {post_dt:.4f} s) at close; session "
+        f"{wall:.3f} s ({per:.3f} ms a block; the cross-check's "
+        f"{f32['s']:.3f} s not counted); K9 launches "
+        f"{la['txn_inc_join']}; the last block's K9 launches (A, B "
+        f"shapes {shapes}) bit-identical to the plain version, "
+        f"event_ms " + ", ".join(f"{x:.6f}" for x in j_ms))
+    return {"block_ms": per, "blocks": blocks,
+            "launches": la["txn_inc_join"], "last_join_ms": j_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2672,14 +3117,18 @@ def main() -> int:
                 batch_walk=planned_groups(per_key), keyed_walk=0,
                 lane_walk=2 * len(BAD_KEYS))
     log(f"independent history generation {gen_ind_s:.2f} s not counted")
+    # no CPU run at the long keys: the 2,000-key check above holds the
+    # lockstep lane against it (PERF.md section 4's cuts)
     check_keyed(f"long keys {LONG_KEYS} x {LONG_OPS} ops", h_long, LONG_KEYS,
-                LONG_BAD, "lockstep",
+                LONG_BAD, "lockstep", cpu=False,
                 batch_walk=planned_groups(per_key_long), keyed_walk=0,
                 lane_walk=2 * len(LONG_BAD))
     # one live key is no lockstep batch: the native keyed lane on K3
     h_one, _ = keyed_histories(1, ONE_KEY_OPS, (0,))
+    # no CPU run: phase_lanes holds K3's lane against the lockstep lane
+    # key for key (PERF.md section 4's cuts)
     check_keyed(f"one key x {ONE_KEY_OPS} ops", h_one, 1, (0,), "keyed",
-                keyed_walk=1, batch_walk=0, lane_walk=1)
+                cpu=False, keyed_walk=1, batch_walk=0, lane_walk=1)
 
     # -- check_batch: several whole histories on the lockstep lane -------
     t0 = time.perf_counter()
@@ -2743,10 +3192,12 @@ def main() -> int:
     # the union's 41 states are outside K2's envelope: the native keyed
     # lane on K5; every key has at most 32 states of its own, so K1
     # re-walks each failed key's witness prefix in the key's own geometry
+    # no CPU run: K5 is held against its plain version and the host
+    # replay on these keys in phase_k5 (PERF.md section 4's cuts)
     check_keyed(f"wide independent cas {N_KEYS} keys x {OPS_PER_KEY} "
                 f"ops over 40 values", h_wide_ind, N_KEYS, BAD_KEYS,
-                "keyed-wide", wide_keyed=1, keyed_walk=0, batch_walk=0,
-                wide_walk=0, lane_walk=len(BAD_KEYS))
+                "keyed-wide", cpu=False, wide_keyed=1, keyed_walk=0,
+                batch_walk=0, wide_walk=0, lane_walk=len(BAD_KEYS))
 
     # -- the auto chain past the dense engine ---------------------------
     phase_chain()
@@ -2759,6 +3210,12 @@ def main() -> int:
 
     # -- the test runner ------------------------------------------------
     phase_run()
+
+    # -- online checking and the streaming session engines: K9 ---------
+    phase_online()
+    phase_carry()
+    k9 = phase_join()
+    phase_txn_session()
 
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
@@ -2786,6 +3243,8 @@ def main() -> int:
          k7_launches, k7),
         ("txn_closure", "txn_closure.cu", "jepsen_tpu/txn/cycles.py:198",
          total["txn_closure"], k8),
+        ("txn_inc_join", "txn_inc_join.cu", "jepsen_tpu/txn/cycles.py:482",
+         total["txn_inc_join"], k9),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

@@ -18,6 +18,8 @@
   failing window; :mod:`.search` — deadline, abort and memory watchdog.
 - :mod:`.events` — host-side slot/event-stream preprocessing, on the C++
   scans of :mod:`.preproc_native` (``native/preproc.cpp``).
+- :mod:`.online` — the live monitor of a run (``run --online``) and its
+  streaming engines, on the C++ monitor core of :mod:`.preproc_native`.
 """
 from jepsen_tpu_torch.checkers.facade import (  # noqa: F401
     Checker, check_declining, check_safe, compose, counter, linearizable,

@@ -642,6 +642,110 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
     return out
 
 
+# -- the carried frontier of a streaming session ----------------------------
+
+class FrontierCarry:
+    """The reachable-config frontier of one streaming session, kept on
+    the device across append blocks for one geometry ``(S, M = 2^W)``:
+    the carried set ``R`` f32 ``[M, S_pad]`` and the transition operand
+    ``P`` (:func:`_build_P`, ``S_pad`` the states padded as
+    :func:`check_packed` pads them). A geometry change (memo rebuild,
+    slot growth) discards the carry; the session engine re-encodes on
+    the host and seeds a fresh one from a host bool ``[S, M]`` set.
+
+    The walk is chosen by geometry when the carry is seeded and recorded
+    as a ``frontier-carry`` route: one K1 launch a block where
+    :func:`reach_lane.lane_fits` holds (``n_pass = W``, exact, with K1's
+    fixpoint exit, one checkpoint block the size of the append block, so
+    nothing is padded), else one K4 launch where
+    :func:`reach_pallas.fits` holds, else the torch returns walk
+    (:func:`_walk_returns`, its death refined return by return). Each
+    gives the exact dead return; the host reads only that index. Any
+    error propagates."""
+
+    def __init__(self, memo: Memo, W: int, R0_host: np.ndarray, *,
+                 device=None) -> None:
+        dev = _device.resolve(device)
+        self.W, self.M = int(W), 1 << int(W)
+        self.S = int(R0_host.shape[0])
+        if R0_host.shape != (self.S, self.M) or self.S != memo.n_states:
+            raise ValueError(f"FrontierCarry: seed {R0_host.shape} is not "
+                             f"[{memo.n_states}, {self.M}]")
+        self.advanced_returns = 0
+        S_pad = max(2, _next_pow2(self.S))
+        geom = {"states": S_pad, "slots": self.W, "ops": memo.n_ops}
+        if reach_lane.lane_fits(S_pad, self.M, memo.n_ops):
+            self.engine = "reach-lane"
+        elif reach_pallas.fits(S_pad, self.M, memo.n_ops):
+            self.engine = "reach-pallas"
+        else:
+            self.engine = "reach"
+        obs.decision("frontier-carry", "route", engine=self.engine, **geom)
+        self._P = torch.as_tensor(_build_P(memo, S_pad), device=dev)
+        R0 = np.zeros((self.M, S_pad), np.float32)
+        R0[:, :self.S] = R0_host.T
+        self._R = torch.as_tensor(R0, device=dev)
+        if self.engine == "reach":
+            xc, bm = _xor_bitmask(self.W, self.M)
+            self._xc = torch.as_tensor(xc, device=dev)
+            self._bm = torch.as_tensor(bm, device=dev)
+
+    def _walk(self, ret_slot: np.ndarray, slot_ops: np.ndarray
+              ) -> Tuple[int, torch.Tensor]:
+        """One walk of the block from the carried set into a fresh set:
+        ``(dead, R)``."""
+        n = len(ret_slot)
+        dev = self._R.device
+        rs = torch.as_tensor(np.ascontiguousarray(ret_slot, np.int32),
+                             device=dev)
+        so = torch.as_tensor(np.ascontiguousarray(
+            slot_ops, np.int32).reshape(n, self.W), device=dev)
+        if self.engine == "reach-lane":
+            _, R, dead = reach_lane.lane_walk(self._P, rs, so, self._R, n,
+                                              self.W)
+            return int(dead[0]), R
+        if self.engine == "reach-pallas":
+            dead, R = reach_pallas.walk(self._P, rs, so, self._R, n)
+            return int(dead[0]), R
+        R0 = self._R.T > 0.5
+        ptr, R, alive, R_block = _walk_returns(self._P, self._xc, self._bm,
+                                               ret_slot, so, R0)
+        if alive:
+            return -1, R.T.float().contiguous()
+        start = max(0, ptr - _UNROLL)
+        ptr1, _, _, _ = _walk_returns(self._P, self._xc, self._bm,
+                                      ret_slot[start:ptr], so[start:ptr],
+                                      R_block, unroll=1)
+        return start + ptr1 - 1, torch.zeros_like(self._R)
+
+    def advance(self, ret_slot: np.ndarray, slot_ops: np.ndarray) -> int:
+        """Advance the carried set through one settled block (``ret_slot``
+        int[n], ``slot_ops`` int[n, W]). Returns the exact index of the
+        first dead return, or -1 when the set survived; on death the
+        carry is the empty set (death is terminal for a session)."""
+        n = len(ret_slot)
+        if n == 0:
+            return -1
+        dead, R = self._walk(ret_slot, slot_ops)
+        self._R = R if dead < 0 else torch.zeros_like(self._R)
+        self.advanced_returns += n if dead < 0 else dead + 1
+        return dead
+
+    def probe(self, ret_slot: np.ndarray, slot_ops: np.ndarray) -> int:
+        """The tail alarm's walk from the carried set, into a fresh set,
+        so the carry is untouched: the exact dead index or -1 (the caller
+        passes unresolved ops as crashed wildcards)."""
+        if len(ret_slot) == 0:
+            return -1
+        return self._walk(ret_slot, slot_ops)[0]
+
+    def fetch(self) -> np.ndarray:
+        """The carried set on the host as bool ``[S, M]`` (the re-encode
+        before a memo rebuild or slot growth)."""
+        obs.count("fetch.eager")
+        return (self._R.cpu().numpy() > 0.5).T[:self.S].copy()
+
+
 # -- many histories: the `independent` checker's batch ----------------------
 
 def _union_alphabet(model: Model, packed_list, live, max_states: int):

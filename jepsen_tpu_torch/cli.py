@@ -16,7 +16,8 @@ for the plain PyTorch versions; without a card the default fails with
 the port's :func:`~jepsen_tpu_torch.device.default_device` error (exit
 2) before anything runs (``run`` generates no op), and nothing runs on
 the CPU by itself. ``run`` takes the register suites (``register``,
-``register-independent``); the other suites, ``run --online``,
+``register-independent``), with ``--online`` watching the history while
+it streams and ending the run at the first violation; the other suites,
 ``serve`` and ``check-serve`` are not ported yet and exit 2 naming
 their ``ROADMAP.md`` item.
 """
@@ -67,9 +68,6 @@ def _nodes_from(args) -> Optional[list]:
 
 def _run_not_ported(args) -> Optional[str]:
     """Why ``run`` cannot take these arguments yet, or None."""
-    if args.online:
-        return ("'run --online' (live linearizability monitoring) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 2)")
     if args.suite in _SUITES_NOT_PORTED:
         return (f"suite {args.suite!r} is not ported yet (ROADMAP.md, "
                 f"Queue 1 item 15); this port runs 'register' and "
@@ -109,6 +107,8 @@ def _cmd_run(args, dev) -> int:
         test["ssh"] = {"username": args.username,
                        "password": args.password,
                        "private-key-path": args.ssh_private_key}
+        if args.online:
+            test["online-check"] = True
         done = core.run(test)
         valid = done["results"].get("valid")
         print(json.dumps({"run": i, "name": done["name"], "valid": valid,
@@ -243,8 +243,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     runp.add_argument("--algorithm", default="auto")
     runp.add_argument("--no-nemesis", action="store_true")
     runp.add_argument("--online", action="store_true",
-                      help="live linearizability monitoring (not ported "
-                           "yet: exits 2)")
+                      help="live linearizability monitoring: check the "
+                           "history during the run and abort on the first "
+                           "violation")
     device_arg(runp)
     runp.set_defaults(fn=_cmd_run)
 

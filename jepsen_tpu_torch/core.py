@@ -31,7 +31,13 @@ CUDA launch error) propagates out of :func:`run` with ``history.jsonl``
 already on disk, so the run can be rechecked. A test map's ``"device"``
 (set by the suites; ``None`` is the card) is resolved before setup, so a
 run that needs a card and has none fails before any op is generated.
-Online checking (``"online-check"``) is not ported yet.
+
+With ``"online-check"`` the run is also watched while it streams by
+:class:`~jepsen_tpu_torch.checkers.online.OnlineLinearizable` (options
+from ``"online-opts"``), fed by the history's observer: the first
+violation stops the workers, the monitor's verdict joins the results as
+``results["online-check"]``, and an invalid one makes the run invalid.
+A fault of the monitor propagates, as the check's does.
 """
 from __future__ import annotations
 
@@ -255,6 +261,26 @@ def _normalize(test: Mapping) -> Dict[str, Any]:
     return t
 
 
+def _online_monitor(test: Mapping):
+    """The run's online monitor when ``test["online-check"]`` asks for
+    one, else None; a suite without a model runs unmonitored, with a
+    warning."""
+    if not test.get("online-check"):
+        return None
+    from jepsen_tpu_torch.checkers.facade import _model_from
+    from jepsen_tpu_torch.checkers.online import OnlineLinearizable
+    try:
+        model = _model_from(None, test)
+    except ValueError:
+        log.warning("online-check requested but the test map has no "
+                    "model (suite %s); monitoring disabled",
+                    test.get("name"))
+        return None
+    opts = dict(test.get("online-opts") or {})
+    opts.setdefault("device", test.get("device"))
+    return OnlineLinearizable(model, **opts)
+
+
 def run(test: Mapping) -> Dict[str, Any]:
     """Run a complete test (upstream ``jepsen.core/run!``). Returns the
     test map extended with ``"history"``, ``"results"``, ``"start-time"``,
@@ -268,13 +294,8 @@ def run(test: Mapping) -> Dict[str, Any]:
 
     ``test["device"]``, when the test map has it, is resolved first
     (:func:`jepsen_tpu_torch.device.resolve`: ``None`` is the card,
-    which must exist). A fault in the check propagates after the
-    history is on disk; ``test["online-check"]`` raises
-    ``NotImplementedError``."""
-    if test.get("online-check"):
-        raise NotImplementedError(
-            "online checking (test['online-check']) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2)")
+    which must exist). A fault in the check or in the online monitor
+    propagates after the history is on disk."""
     if "device" in test:
         test = dict(test)
         test["device"] = str(_device.resolve(test["device"]))
@@ -295,10 +316,24 @@ def _run_captured(test: Mapping, obs_cap) -> Dict[str, Any]:
         log_handler = store_mod.attach_log(store_dir)
     log.info("Running test %s", test.get("name"))
 
+    online = _online_monitor(test)
     history = History(
-        stream_path=f"{store_dir}/history.jsonl" if store_dir else None)
+        stream_path=f"{store_dir}/history.jsonl" if store_dir else None,
+        observer=online.observe if online else None)
     run_state = _Run(history, _time.monotonic())
     test["active-processes"] = lambda: set(run_state.active)
+    if online is not None:
+        # fail fast: a violated prefix can never become valid again.
+        # Chained after any caller-supplied callback
+        user_cb = online.on_violation
+
+        def _abort(v, _cb=user_cb):
+            if _cb is not None:
+                _cb(v)
+            run_state.stop.set()
+
+        online.on_violation = _abort
+        online.start()
 
     try:
         with obs.span("run.setup", test=str(test.get("name"))):
@@ -348,6 +383,10 @@ def _run_captured(test: Mapping, obs_cap) -> Dict[str, Any]:
                     pass
     finally:
         history.close()
+        if online is not None:
+            # the monitor's thread stops with the workers, fault or not;
+            # its final flush and verdict come after the check
+            online.halt()
         with obs.span("run.teardown"):
             try:
                 if not test.get("leave-db-running"):
@@ -366,6 +405,12 @@ def _run_captured(test: Mapping, obs_cap) -> Dict[str, Any]:
         with obs.span("run.check", ops=len(test["history"])):
             results = (check_declining(checker, test, test["history"])
                        if checker is not None else {"valid": True})
+        if online is not None:
+            results["online-check"] = online.stop()
+            if results["online-check"].get("valid") is False:
+                # the online verdict is sound (no false alarms), so a
+                # post-hoc "unknown" or a missing checker cannot mask it
+                results["valid"] = False
         # the run's own observability record: counters + engine-decision
         # ledger (assertable by callers, serialized into results.json)
         results["obs"] = obs_cap.summary()

@@ -34,6 +34,16 @@ Graphs past the dense envelope (:func:`admits`) are Kahn-trimmed to
 their cyclic core by the caller; a core still past it goes to the host
 SCC reference (a recorded route). A fault here propagates: the port
 takes the host only by decision.
+
+A streaming session closes its graph block by block instead
+(:class:`IncrementalClosure`, the reference's ``_inc_word_call``): the
+closed words stay on the device, and each block's new edges re-close
+only the dirty rows and columns. Its last step, the join of the closure
+through the dirty block, is one launch of the hand-written kernel K9
+(``csrc/txn_inc_join.cu``, :func:`inc_join`; plain version
+:func:`inc_join_plain`) for each packing. The reference's f32 update,
+``_inc_call``, is :func:`inc_update_f32`, a cross-check the tests and
+``chip_smoke.py`` call directly.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import torch
 
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import obs
-from jepsen_tpu_torch.txn.infer import RW, WR, WW, DepGraph
+from jepsen_tpu_torch.txn.infer import CM, RW, WR, WW, DepGraph
 
 # dense closure envelope: Np*Np f32 intermediates, 4 lanes (the
 # reference's default; ``max_dense_txns`` overrides it per call)
@@ -54,6 +64,8 @@ _MAX_DENSE_DEFAULT = 8192
 
 # K8 launches (one a squaring), counted where the wrapper launches it
 KERNEL_LAUNCHES = 0
+# K9 launches (two an append block), counted where the wrapper launches it
+INC_JOIN_LAUNCHES = 0
 
 # the plain step's largest [K, rows, Np, NW] intermediate, in elements
 _PLAIN_ELEMS = 1 << 25
@@ -334,3 +346,354 @@ def lattice_booleans(graph: DepGraph, starts: np.ndarray, ends: np.ndarray,
         masks, rw = _lattice_masks(graph, _pad_n_words(graph.n), cm, dev)
     out = _word_booleans(masks, rw, LATTICE_CONTRACTS)
     return {k: bool(out[i]) for i, k in enumerate(LATTICE_KEYS)}
+
+
+# -- incremental closure (streaming check sessions) -----------------------
+#
+# A txn session keeps the closed lane masks on the device across appends
+# and re-closes only the dirty row and column blocks of each append
+# batch: every path a new edge enables decomposes as old reach ->
+# (a junction path within the dirty node set D) -> old reach, because
+# each new edge's endpoints are in D and C was already closed. So one
+# append costs
+#
+#   1. scatter the new edges into the words (Cw, CwT, Arw_w);
+#   2. close H = C[D, D], a [d, d] squaring ladder over the dirty block;
+#   3. the skinny join thru = (C v I)[:, D] . H (f32 torch.bmm, as the
+#      reference leaves these einsums to XLA);
+#   4. C' = C v thru . (C v I)[D, :], OR-reduced straight into the words
+#      of both packings: K9, once for Cw and once for CwT;
+#   5. the verdict, as for the one-shot closure.
+#
+# Geometry: Np pads to powers of two (at least a word) and regrows by
+# copying words; |D| and the edge count pad to powers of two, as the
+# reference pads them for its compile cache.
+
+
+class ClosureOverflow(RuntimeError):
+    """The session's graph outgrew the dense closure envelope; the
+    caller routes its verdicts to the host SCC reference."""
+
+
+def _pow2_at_least(n: int, floor: int = 8) -> int:
+    return max(floor, 1 << max(0, (n - 1)).bit_length())
+
+
+def block_operands(src: np.ndarray, dst: np.ndarray, et: np.ndarray,
+                   Np: int, lattice: bool):
+    """One append batch's update operands, padded as the reference pads
+    them: ``(esrc, edst, elane, erw, dsel)``, numpy, with ``esrc`` and
+    ``edst`` int32[e_pad] (-1 padding), ``elane`` f32[K, e_pad] each
+    edge's weight in each lane (ww / ww∪wr / full, and for the lattice
+    ww∪wr∪cm, where lane 2 leaves out the cm rows), ``erw`` f32[e_pad]
+    and ``dsel`` int32[d_pad], the dirty nodes (-1 padding)."""
+    e = len(src)
+    e_pad = _pow2_at_least(max(e, 1))
+    d_ids = (np.unique(np.concatenate([src, dst])) if e
+             else np.zeros(0, np.int64))
+    d_pad = min(Np, _pow2_at_least(max(len(d_ids), 1)))
+    if len(d_ids) > d_pad:              # cannot happen: |D| <= Np
+        d_pad = _pow2_at_least(len(d_ids))
+    K = LATTICE_K if lattice else 3
+    esrc = np.full(e_pad, -1, np.int32)
+    edst = np.full(e_pad, -1, np.int32)
+    esrc[:e] = src
+    edst[:e] = dst
+    elane = np.zeros((K, e_pad), np.float32)
+    erw = np.zeros(e_pad, np.float32)
+    elane[0, :e] = (et == WW)
+    elane[1, :e] = (et == WW) | (et == WR)
+    if lattice:
+        elane[2, :e] = (et != CM)
+        elane[3, :e] = (et == WW) | (et == WR) | (et == CM)
+    else:
+        elane[2, :e] = 1.0
+    erw[:e] = (et == RW)
+    dsel = np.full(d_pad, -1, np.int32)
+    dsel[:len(d_ids)] = d_ids
+    return esrc, edst, elane, erw, dsel
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool [..., n] -> int32 [..., ceil(n / 32)] (:func:`pack_rows_torch`
+    after zero padding to whole words)."""
+    n = bits.shape[-1]
+    pad = -n % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    return pack_rows_torch(bits)
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 [..., NW] -> bool [..., n], the first ``n`` bits."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = ((words[..., None] >> shifts) & 1).ne(0)
+    return bits.reshape(*words.shape[:-1], -1)[..., :n]
+
+
+def inc_join_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                   ) -> torch.Tensor:
+    """K9's join in torch ops, the reference's masked OR-reduce:
+    ``out[b, i, :] = C[b, i, :] | OR_{k : bit k of A[b, i]} B[b, k, :]``
+    in a fresh tensor. ``A`` int32[K, Np, DW] (bits over B's rows),
+    ``B`` int32[K, d, NW], ``C`` int32[K, Np, NW]. The OR over k runs in
+    order, one row of B a step (rows no A bit names are skipped)."""
+    d = B.shape[1]
+    bits = unpack_bits(A, min(d, 32 * A.shape[2]))       # [K, Np, d]
+    out = C.clone()
+    for k in torch.nonzero(bits.any((0, 1))).flatten().tolist():
+        out |= torch.where(bits[:, :, k, None], B[:, k, None, :], 0)
+    return out
+
+
+def _check_join(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> None:
+    dev = C.device
+    for name, t in (("A", A), ("B", B), ("C", C)):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous() or t.dim() != 3:
+            raise ValueError(f"txn inc_join: {name} must be a contiguous "
+                             f"int32 [K, rows, words] tensor on {dev}")
+    K, Np, NW = C.shape
+    if A.shape[:2] != (K, Np) or B.shape[0] != K or B.shape[2] != NW \
+            or B.shape[1] > 32 * A.shape[2] or B.shape[1] < 1:
+        raise ValueError(f"txn inc_join: inconsistent shapes "
+                         f"A{tuple(A.shape)} B{tuple(B.shape)} "
+                         f"C{tuple(C.shape)}")
+
+
+_INC_LIB = None
+
+
+def _inc_lib():
+    global _INC_LIB
+    if _INC_LIB is None:
+        from jepsen_tpu_torch import _build
+        lib = _build.load("txn_inc_join")
+        lib.jt_txn_inc_join.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.jt_txn_inc_join.restype = ctypes.c_int
+        _INC_LIB = lib
+    return _INC_LIB
+
+
+def _inc_join_cuda(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                   ) -> torch.Tensor:
+    global INC_JOIN_LAUNCHES
+    _check_join(A, B, C)
+    K, Np, NW = C.shape
+    lib = _inc_lib()
+    out = torch.empty_like(C)
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.jt_txn_inc_join(A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                                  out.data_ptr(), K, Np, A.shape[2],
+                                  B.shape[1], NW, stream)
+    if err != 0:
+        raise RuntimeError(f"txn inc_join kernel launch failed: CUDA "
+                           f"error {err}")
+    INC_JOIN_LAUNCHES += 1
+    return out
+
+
+def inc_join(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+             ) -> torch.Tensor:
+    """The join with :func:`inc_join_plain`'s contract: K9 for tensors on
+    the card (asynchronous, on the current stream), the plain version
+    for tensors on the CPU."""
+    if C.device.type == "cuda":
+        return _inc_join_cuda(A, B, C)
+    if C.device.type == "cpu":
+        _check_join(A, B, C)
+        return inc_join_plain(A, B, C)
+    raise ValueError(f"txn inc_join: unsupported device {C.device}")
+
+
+def _scatter_bits(words: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``words`` int32[..., Np, NW] with bit ``cols & 31`` of word
+    ``[..., rows, cols >> 5]`` set for each kept entry (``keep`` bool
+    over the leading axes and the entries), in a fresh tensor. Entries
+    are deduplicated first, so summing their distinct bits into each
+    touched word is an OR."""
+    lead = words.shape[:-2]
+    Np, NW = words.shape[-2:]
+    L = int(np.prod(lead)) if lead else 1
+    keep = keep.reshape(L, -1)
+    lane = torch.arange(L, device=words.device)[:, None].expand_as(keep)
+    lin = ((lane * Np + rows[None, :]) * NW * 32 + cols[None, :])[keep]
+    lin = torch.unique(lin)
+    out = words.clone()
+    if lin.numel():
+        uw, inv = torch.unique(lin >> 5, return_inverse=True)
+        add = torch.zeros(uw.numel(), dtype=torch.int64,
+                          device=words.device)
+        add.index_add_(0, inv, torch.ones_like(lin) << (lin & 31))
+        flat = out.view(-1)
+        flat[uw] |= _to_int32(add)
+    return out
+
+
+def inc_update_word(Cw: torch.Tensor, CwT: torch.Tensor,
+                    Arw_w: torch.Tensor, esrc: torch.Tensor,
+                    edst: torch.Tensor, elane: torch.Tensor,
+                    erw: torch.Tensor, dsel: torch.Tensor,
+                    contracts: Tuple[int, ...]):
+    """One append batch on the carried words (the reference's
+    ``_inc_word_call``, on the words' device): returns ``(Cw, CwT, Arw_w,
+    verdict)``, fresh tensors, the verdict ``K + len(contracts)`` bools
+    as :func:`word_verdict` gives them. Operands as
+    :func:`block_operands` gives them, as tensors on the same device."""
+    K, Np, NW = Cw.shape
+    dev = Cw.device
+    s = esrc.clamp(min=0).long()
+    d = edst.clamp(min=0).long()
+    el = elane != 0
+    Cw = _scatter_bits(Cw, s, d, el)
+    CwT = _scatter_bits(CwT, d, s, el)
+    Arw_w = _scatter_bits(Arw_w, s, d, erw != 0)
+    dd = dsel.clamp(min=0).long()
+    valid = dsel >= 0
+    vf = valid.float()
+    dw = dd >> 5
+    db = (dd & 31).to(torch.int32)
+    # the dirty block from the packed rows: H[b, j, k] = bit dd[k] of
+    # row dd[j]
+    rows_w = Cw[:, dd, :] * valid.to(torch.int32)[None, :, None]
+    H = (((rows_w[:, :, dw] >> db) & 1).float()
+         * vf[None, :, None] * vf[None, None, :])
+    for _ in range(n_iter(max(len(dd), 2))):
+        H = torch.where(torch.bmm(H, H) > 0, 1.0, H)
+    # left = (C v I)[:, dd] as dense f32 [K, Np, d]; thru = left . H
+    eyeD = (torch.arange(Np, device=dev)[:, None] == dd[None, :]).float() \
+        * vf[None, :]
+    left = torch.maximum(((Cw[:, :, dw] >> db) & 1).float() * vf, eyeD[None])
+    thru = torch.bmm(left, H).gt(0)
+    del left, H
+    # right = (C v I)[dd, :] kept packed; the join by K9 in each packing
+    right_w = rows_w | pack_rows_torch(eyeD.T.bool())[None]
+    Cw = inc_join(pack_bits(thru), right_w, Cw)
+    CwT = inc_join(pack_bits(unpack_bits(right_w, Np).transpose(1, 2)),
+                   pack_rows_torch(thru.transpose(1, 2)), CwT)
+    return Cw, CwT, Arw_w, word_verdict(Cw, CwT, Arw_w, contracts)
+
+
+def inc_update_f32(C: Optional[torch.Tensor], Arw: Optional[torch.Tensor],
+                   Np: int, esrc: torch.Tensor, edst: torch.Tensor,
+                   elane: torch.Tensor, erw: torch.Tensor,
+                   dsel: torch.Tensor, contracts: Tuple[int, ...]):
+    """The reference's f32 update, ``_inc_call``, in torch on 0/1
+    float32 masks ``C`` [K, Np, Np] and ``Arw`` [Np, Np]: a cross-check
+    of :class:`IncrementalClosure`, which the tests and ``chip_smoke.py``
+    call directly (no route takes it). ``C`` and ``Arw`` may be None or
+    narrower than ``Np``: they are zero-embedded first. Returns ``(C,
+    Arw, verdict)``, the verdict's bools in :func:`word_verdict`'s
+    order."""
+    K = elane.shape[0]
+    dev = esrc.device
+    if C is None or C.shape[1] < Np:
+        C2 = torch.zeros((K, Np, Np), dtype=torch.float32, device=dev)
+        A2 = torch.zeros((Np, Np), dtype=torch.float32, device=dev)
+        if C is not None:
+            n = C.shape[1]
+            C2[:, :n, :n] = C
+            A2[:n, :n] = Arw
+        C, Arw = C2, A2
+    s = esrc.clamp(min=0).long()
+    d = edst.clamp(min=0).long()
+    lin = s * Np + d
+    C = C.clone()
+    for lane in range(K):
+        C[lane].view(-1).scatter_reduce_(0, lin, elane[lane], "amax")
+    Arw = Arw.clone()
+    Arw.view(-1).scatter_reduce_(0, lin, erw, "amax")
+    dd = dsel.clamp(min=0).long()
+    vf = (dsel >= 0).float()
+    H = C[:, dd][:, :, dd] * vf[None, :, None] * vf[None, None, :]
+    for _ in range(n_iter(max(len(dd), 2))):
+        H = torch.where(torch.bmm(H, H) > 0, 1.0, H)
+    eyeD = (torch.arange(Np, device=dev)[:, None] == dd[None, :]).float() \
+        * vf[None, :]
+    left = torch.maximum(C[:, :, dd] * vf[None, None, :], eyeD[None])
+    right = torch.maximum(C[:, dd, :] * vf[None, :, None], eyeD.T[None])
+    add = torch.bmm(torch.bmm(left, H), right)
+    C = torch.where(add > 0, 1.0, C)
+    del add, left, right
+    cyc = C.diagonal(dim1=1, dim2=2).sum(-1) > 0
+    eye = torch.eye(Np, dtype=torch.float32, device=dev)
+    gs = [((Arw * torch.maximum(C[L], eye).T).sum() > 0)[None]
+          for L in contracts]
+    return C, Arw, torch.cat([cyc] + gs)
+
+
+class IncrementalClosure:
+    """Device-resident incremental transitive closure for one txn
+    session. ``add_block(n_txns, src, dst, et)`` folds an append batch's
+    new edges in and returns the four cycle booleans (the
+    :func:`closure_booleans` keys), or with ``lattice=True`` the six of
+    :data:`LATTICE_KEYS`, where the carried stack grows the ``ww∪wr∪cm``
+    lane and ``et`` may carry :data:`~jepsen_tpu_torch.txn.infer.CM`
+    rows. The carried state is K8's layout: ``Cw``, ``CwT`` int32[K, Np,
+    Np/32] and ``Arw_w`` int32[Np, Np/32] on ``device`` (default: the
+    card). Raises :class:`ClosureOverflow` past the dense envelope; any
+    other fault propagates."""
+
+    def __init__(self, *, max_dense_txns: Optional[int] = None,
+                 lattice: bool = False,
+                 device: _device.DeviceLike = None) -> None:
+        self._cap = (max_dense_txns if max_dense_txns is not None
+                     else max_dense())
+        self.device = _device.resolve(device)
+        self.Np = 0
+        self.lattice = lattice
+        self.K = LATTICE_K if lattice else 3
+        self.contracts = LATTICE_CONTRACTS if lattice else (1,)
+        self._Cw: Optional[torch.Tensor] = None
+        self._CwT: Optional[torch.Tensor] = None
+        self._Arw_w: Optional[torch.Tensor] = None
+        self.updates = 0
+
+    def _regrow(self, n: int) -> None:
+        """Re-embed the carried words into the next power-of-two geometry
+        (new nodes have no edges, so the closure holds): the old Np is a
+        multiple of 32, so its columns are whole words of the new one."""
+        if n > self._cap:
+            raise ClosureOverflow(
+                f"session graph {n} txns > dense cap {self._cap}")
+        Np2 = _pad_n_words(n)
+        NW2 = Np2 // 32
+        Cw = torch.zeros((self.K, Np2, NW2), dtype=torch.int32,
+                         device=self.device)
+        CwT = torch.zeros_like(Cw)
+        Aw = torch.zeros((Np2, NW2), dtype=torch.int32, device=self.device)
+        if self._Cw is not None:
+            NW = self._Cw.shape[2]
+            Cw[:, :self.Np, :NW] = self._Cw
+            CwT[:, :self.Np, :NW] = self._CwT
+            Aw[:self.Np, :NW] = self._Arw_w
+            obs.count("txn.closure.regrow")
+        self.Np = Np2
+        self._Cw, self._CwT, self._Arw_w = Cw, CwT, Aw
+
+    def add_block(self, n_txns: int, src: np.ndarray, dst: np.ndarray,
+                  et: np.ndarray) -> Dict[str, bool]:
+        """Fold one append batch's new edges into the carried closure and
+        return the cycle booleans."""
+        if n_txns > self._cap:
+            raise ClosureOverflow(
+                f"session graph {n_txns} txns > dense cap {self._cap}")
+        if self._Cw is None or n_txns > self.Np:
+            self._regrow(max(n_txns, 1))
+        ops = [torch.as_tensor(a, device=self.device) for a in
+               block_operands(np.asarray(src), np.asarray(dst),
+                              np.asarray(et), self.Np, self.lattice)]
+        self._Cw, self._CwT, self._Arw_w, out = inc_update_word(
+            self._Cw, self._CwT, self._Arw_w, *ops, self.contracts)
+        self.updates += 1
+        obs.count("txn.closure.incremental")
+        obs.count("txn.closure.incremental_word")
+        o = out.cpu().numpy()
+        if self.lattice:
+            obs.count("txn.lattice.incremental")
+            return {k: bool(o[i]) for i, k in enumerate(LATTICE_KEYS)}
+        return {"cyc_ww": bool(o[0]), "cyc_wwwr": bool(o[1]),
+                "cyc_full": bool(o[2]), "gsingle": bool(o[3])}

@@ -27,9 +27,10 @@ The output is a COO edge tensor (:class:`DepGraph`) in the narrow
 :mod:`jepsen_tpu_torch.txn.cycles` turns into bit-packed adjacency for
 the device closure.
 
-A copy of the reference's post-hoc inference
-(``jepsen_tpu/txn/infer.py``); its incremental inference for streaming
-sessions is not ported yet.
+A copy of the reference's inference (``jepsen_tpu/txn/infer.py``): the
+post-hoc :func:`infer`, and :class:`IncrementalInfer`, the same edges
+block by block for a streaming session
+(:class:`jepsen_tpu_torch.serve.session.TxnSessionEngine`).
 """
 from __future__ import annotations
 
@@ -229,3 +230,343 @@ def infer(txns: Sequence[txn_ops.Txn],
         obs.count(f"txn.edges.{EDGE_NAMES[t]}", int((et == t).sum()))
     return DepGraph(n=n, src=src, dst=dst, et=et, txns=tuple(txns),
                     direct=tuple(direct), counters=counters)
+
+
+# -- incremental inference (streaming sessions) ----------------------------
+#
+# A read settles only once every value it observed has a KNOWN appender
+# (or is proven aborted, a G1a). Until then it waits: trusting it earlier
+# could brand an in-flight append's value a phantom (a false alarm the
+# post-hoc path can never produce, because post-hoc everything has
+# completed). Under this rule the emitted edge set only ever grows in
+# well-formed histories — recovered orders are append-only and
+# prefix-validated, so an edge once emitted is never retracted — which
+# is what makes a sound early cycle alarm possible. At close,
+# :meth:`IncrementalInfer.resolve_stragglers` resolves still-pending
+# invocations as crashed and finalizes pending reads (a value still
+# unattributed then IS a phantom), after which the edge set equals the
+# post-hoc :func:`infer` edge set.
+
+
+class _KeyState:
+    """Per-key incremental traceability state."""
+
+    __slots__ = ("order", "writers", "appenders", "crashed_vals",
+                 "failed_vals", "readers_by_len", "pending", "poisoned")
+
+    def __init__(self) -> None:
+        self.order: List[Any] = []          # recovered append order
+        self.writers: List[int] = []        # appender tid per position
+        self.appenders: Dict[Any, int] = {}
+        self.crashed_vals: Set[Any] = set()
+        self.failed_vals: Dict[Any, int] = {}
+        self.readers_by_len: Dict[int, List[int]] = {}
+        self.pending: List[Tuple[int, Tuple[Any, ...]]] = []
+        self.poisoned = False               # direct anomaly on this key
+
+
+class IncrementalInfer:
+    """Stateful list-append dependency inference for one session.
+
+    Feed blocks of ops with :meth:`feed_block`; the COO edges emitted
+    since the last drain come from :meth:`drain_new_edges` (the device
+    closure's per-block delta) and the commit-order edges from
+    :meth:`drain_new_cm`; :meth:`graph` materializes the whole
+    accumulated :class:`DepGraph`. Direct anomalies land in
+    :attr:`direct` as they are proven."""
+
+    def __init__(self) -> None:
+        self.txns: List[txn_ops.Txn] = []
+        self.fails: List[txn_ops.FailedTxn] = []
+        self._live: Dict[Any, Any] = {}     # proc -> invoke op
+        self._keys: Dict[Any, _KeyState] = {}
+        self.direct: List[Dict[str, Any]] = []
+        self.counters: Dict[str, int] = {}
+        self._edges: Set[Tuple[int, int, int]] = set()
+        self._fresh: List[Tuple[int, int, int]] = []
+        # stream positions drive the commit order: every fed op advances
+        # _pos (txn or not), so relative start/commit order matches what
+        # post-hoc indexing would assign the same stream
+        self._pos = 0
+        self._live_start: Dict[Any, int] = {}   # proc -> invoke pos
+        self.starts: List[int] = []             # per tid
+        self.ends: List[int] = []               # per tid; -1 = crashed
+        self._cm_fresh: List[Tuple[int, int]] = []
+
+    # -- ingestion -------------------------------------------------------
+    def feed_block(self, ops: Sequence[Any]) -> None:
+        """Pair txn invocations and completions across block boundaries
+        and run settled inference over the completions."""
+        for op in ops:
+            pos = self._pos
+            self._pos += 1
+            if op.process == "nemesis" or op.f != "txn":
+                continue
+            if op.type == "invoke":
+                self._live[op.process] = op
+                self._live_start[op.process] = pos
+                continue
+            inv = self._live.pop(op.process, None)
+            if inv is None:
+                continue                    # completion without invoke
+            start = self._live_start.pop(op.process, pos)
+            if op.type == "fail":
+                self.fails.append(txn_ops.FailedTxn(
+                    op=inv, micros=tuple(txn_ops.micro_ops(inv.value))))
+                self._register_fail(self.fails[-1])
+            elif op.type == "ok":
+                value = op.value if op.value is not None else inv.value
+                self._add_txn(inv.with_(value=value),
+                              tuple(txn_ops.micro_ops(value)),
+                              crashed=False, start=start, end=pos)
+            elif op.type == "info":
+                self._add_txn(inv, _blank_reads(inv.value), crashed=True,
+                              start=start)
+
+    def resolve_stragglers(self) -> None:
+        """The stream is over: still-pending invocations resolve as
+        crashed (reads blanked, as post-hoc ``collect`` does), then
+        still-pending reads finalize — a value with no appender now is
+        a phantom or an aborted read."""
+        for p, inv in sorted(self._live.items(),
+                             key=lambda kv: kv[1].index):
+            self._add_txn(inv, _blank_reads(inv.value), crashed=True,
+                          start=self._live_start.get(p, self._pos))
+        self._live.clear()
+        self._live_start.clear()
+        for hk, ks in self._keys.items():
+            still = ks.pending
+            ks.pending = []
+            for tid_r, vs in still:
+                self._finalize_read(hk, ks, tid_r, vs, final=True)
+
+    # -- internals -------------------------------------------------------
+    def _bump(self, name: str, n: int = 1) -> None:
+        _bump(self.counters, name, n)
+
+    def _key(self, k: Any) -> _KeyState:
+        hk = hashable(k)
+        ks = self._keys.get(hk)
+        if ks is None:
+            ks = self._keys[hk] = _KeyState()
+        return ks
+
+    def _register_fail(self, f: txn_ops.FailedTxn) -> None:
+        for kind, k, v in f.micros:
+            if kind == txn_ops.APPEND:
+                ks = self._key(k)
+                ks.failed_vals.setdefault(hashable(v), f.op.index)
+
+    def _add_txn(self, op: Any, micros: Tuple, crashed: bool,
+                 start: int = -1, end: int = -1) -> None:
+        tid = len(self.txns)
+        self.txns.append(txn_ops.Txn(tid=tid, op=op, micros=micros,
+                                     crashed=crashed, end=end))
+        # commit-order in-edges: every txn added earlier committed (if
+        # at all) at a smaller stream position, so the only new cm edges
+        # a txn brings are into itself, u -> tid whenever u's commit
+        # precedes this txn's start
+        if tid and start >= 0:
+            ends = np.asarray(self.ends, np.int64)
+            for u in np.nonzero((ends >= 0) & (ends < start))[0]:
+                self._cm_fresh.append((int(u), tid))
+        self.starts.append(start)
+        self.ends.append(end)
+        touched: List[Any] = []
+        for kind, k, v in micros:
+            hk = hashable(k)
+            ks = self._key(k)
+            if kind == txn_ops.APPEND:
+                hv = hashable(v)
+                if hv in ks.appenders:
+                    self.direct.append(
+                        {"type": "duplicate-append", "key": k,
+                         "value": v, "txns": [ks.appenders[hv], tid]})
+                    self._bump("duplicate_append")
+                    ks.poisoned = True
+                    continue
+                ks.appenders[hv] = tid
+                if crashed:
+                    ks.crashed_vals.add(hv)
+                touched.append(hk)
+            elif kind == txn_ops.READ and v is not None:
+                ks.pending.append((tid, hashable_seq(v)))
+                touched.append(hk)
+        # settlement: new appends may unblock reads queued on this key
+        for hk in dict.fromkeys(touched):
+            self._settle_key(hk, self._keys[hk])
+
+    def _settle_key(self, hk: Any, ks: _KeyState) -> None:
+        progressed = True
+        while progressed:
+            progressed = False
+            still: List[Tuple[int, Tuple[Any, ...]]] = []
+            for tid_r, vs in ks.pending:
+                if all(v in ks.appenders for v in vs):
+                    self._process_read(hk, ks, tid_r, vs)
+                    progressed = True
+                elif any(v in ks.failed_vals
+                         and v not in ks.appenders for v in vs):
+                    # a value only a FAILED txn ever appended: G1a
+                    self._finalize_read(hk, ks, tid_r, vs)
+                    progressed = True
+                else:
+                    still.append((tid_r, vs))
+            ks.pending = still
+
+    def _finalize_read(self, hk: Any, ks: _KeyState, tid_r: int,
+                       vs: Tuple[Any, ...],
+                       final: bool = False) -> None:
+        """A read that can never settle cleanly: each unknown value is a
+        G1a when a failed txn appended it, a phantom when the stream is
+        over and nobody did. Mid-stream (``final=False``) only the
+        proven-aborted values are attributed: an unknown value may be an
+        in-flight append. The key poisons either way."""
+        if all(v in ks.appenders for v in vs):
+            self._process_read(hk, ks, tid_r, vs)
+            return
+        for v in vs:
+            if v in ks.appenders:
+                continue
+            if v in ks.failed_vals:
+                self.direct.append({"type": "G1a", "key": hk,
+                                    "value": v,
+                                    "failed-op-index":
+                                        ks.failed_vals[v]})
+                self._bump("aborted_read")
+            elif final:
+                self.direct.append(
+                    {"type": "incompatible-order", "key": hk,
+                     "value": v,
+                     "cause": "read observed a value never appended"})
+                self._bump("phantom_value")
+        ks.poisoned = True
+
+    def _edge(self, u: int, v: int, et: int) -> None:
+        if u == v:
+            return
+        e = (u, v, et)
+        if e not in self._edges:
+            self._edges.add(e)
+            self._fresh.append(e)
+            obs.count(f"txn.edges.{EDGE_NAMES[et]}")
+
+    def _incompatible(self, hk: Any, ks: _KeyState, tid_r: int,
+                      vs: Tuple[Any, ...]) -> None:
+        self.direct.append(
+            {"type": "incompatible-order", "key": hk, "txn": tid_r,
+             "cause": "read is not a prefix of the recovered order",
+             "version": list(vs), "order": list(ks.order)})
+        self._bump("incompatible_order")
+        ks.poisoned = True
+
+    def _process_read(self, hk: Any, ks: _KeyState, tid_r: int,
+                      vs: Tuple[Any, ...]) -> None:
+        """A settled read: validate prefix-compatibility, extend the
+        recovered order, and emit the wr/ww/rw edges it proves."""
+        if ks.poisoned:
+            return
+        L = len(vs)
+        cur = ks.order
+        if len(set(vs)) != L:
+            self.direct.append(
+                {"type": "incompatible-order", "key": hk,
+                 "cause": "duplicate value in one read",
+                 "version": list(vs)})
+            self._bump("incompatible_order")
+            ks.poisoned = True
+            return
+        if L > len(cur):
+            if tuple(cur) != vs[:len(cur)]:
+                self._incompatible(hk, ks, tid_r, vs)
+                return
+            # extend: every value has a known appender (settled), so the
+            # new positions' ww edges and the rw edges of readers parked
+            # at the old frontier emit now
+            for i in range(len(cur), L):
+                hv = vs[i]
+                w = ks.appenders[hv]
+                if hv in ks.crashed_vals:
+                    self._bump("crashed_recovered")
+                ks.order.append(hv)
+                ks.writers.append(w)
+                if i > 0:
+                    self._edge(ks.writers[i - 1], w, WW)
+                for parked in ks.readers_by_len.pop(i, ()):
+                    self._edge(parked, w, RW)
+        elif tuple(vs) != tuple(cur[:L]):
+            self._incompatible(hk, ks, tid_r, vs)
+            return
+        if L:
+            self._edge(ks.writers[L - 1], tid_r, WR)
+        if L < len(ks.order):
+            self._edge(tid_r, ks.writers[L], RW)
+        else:
+            ks.readers_by_len.setdefault(L, []).append(tid_r)
+
+    # -- views -----------------------------------------------------------
+    @property
+    def n(self) -> int:
+        return len(self.txns)
+
+    def pending_reads(self) -> int:
+        return sum(len(ks.pending) for ks in self._keys.values())
+
+    def drain_new_edges(self) -> Tuple[np.ndarray, np.ndarray,
+                                       np.ndarray]:
+        """Edges emitted since the last drain, as (src, dst, et) int32
+        arrays: the device closure's dirty-block delta."""
+        fresh, self._fresh = self._fresh, []
+        if not fresh:
+            z = np.zeros(0, np.int32)
+            return z, z.copy(), z.copy()
+        arr = np.asarray(fresh, np.int64)
+        return (arr[:, 0].astype(np.int32),
+                arr[:, 1].astype(np.int32),
+                arr[:, 2].astype(np.int32))
+
+    def drain_new_cm(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Commit-order edges proven since the last drain, as (src, dst)
+        int32 arrays: the lattice closure's fourth lane (:data:`CM`)
+        delta. Apart from :meth:`drain_new_edges` because cm is no
+        :class:`DepGraph` edge type (post-hoc it comes from the txn
+        intervals)."""
+        fresh, self._cm_fresh = self._cm_fresh, []
+        if not fresh:
+            z = np.zeros(0, np.int32)
+            return z, z.copy()
+        arr = np.asarray(fresh, np.int64)
+        return arr[:, 0].astype(np.int32), arr[:, 1].astype(np.int32)
+
+    def intervals(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-tid (start, commit) stream positions: what the lattice's
+        host reference needs to rebuild the commit order exactly as the
+        incremental cm lane saw it."""
+        return (np.asarray(self.starts, np.int64),
+                np.asarray(self.ends, np.int64))
+
+    def graph(self) -> DepGraph:
+        """The accumulated dependency graph (the host booleans and the
+        witness walk read it)."""
+        n = len(self.txns)
+        dt = txn_ops.idx_dtype(max(n, 1))
+        if self._edges:
+            es = np.array(sorted(self._edges), np.int64)
+            src = es[:, 0].astype(dt)
+            dst = es[:, 1].astype(dt)
+            et = es[:, 2].astype(np.int8)
+        else:
+            src = np.zeros(0, dt)
+            dst = np.zeros(0, dt)
+            et = np.zeros(0, np.int8)
+        return DepGraph(n=n, src=src, dst=dst, et=et,
+                        txns=tuple(self.txns),
+                        direct=tuple(self.direct),
+                        counters=dict(self.counters))
+
+
+def _blank_reads(value: Any) -> Tuple:
+    """A crashed txn's micro-ops, its reads blanked (their values were
+    never observed), as post-hoc ``collect`` does."""
+    return tuple((k, key, None) if k == txn_ops.READ else (k, key, v)
+                 for k, key, v in txn_ops.micro_ops(value))

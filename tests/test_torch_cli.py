@@ -331,7 +331,7 @@ def test_run_without_card_exits_2_before_any_op(monkeypatch, tmp_path,
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--online"], "Queue 1 item 2"),
+    (["--online", "--suite", "set"], "Queue 1 item 15"),
     (["--suite", "mutex"], "Queue 1 item 15"),
     (["--suite", "queue", "--device", "cpu"], "Queue 1 item 15"),
     (["--suite", "etcd"], "Queue 1 item 15")])

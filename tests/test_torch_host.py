@@ -190,6 +190,8 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.checkers.linear_report",
             "jepsen_tpu_torch.store",
             "jepsen_tpu_torch.cli",
+            "jepsen_tpu_torch.checkers.online",
+            "jepsen_tpu_torch.serve.session",
             "jepsen_tpu_torch.__main__"} <= imported
 
 

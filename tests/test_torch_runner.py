@@ -822,10 +822,15 @@ def test_no_card_fails_before_any_op(monkeypatch, tmp_path):
 
 
 def test_online_check_is_not_ported():
+    """``online-check`` runs the online monitor beside the workers: a
+    short valid run reports its result and stays valid."""
     t = reg_pt.register_test(n_ops=10, device="cpu")
     t["online-check"] = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        core_pt.run(t)
+    done = core_pt.run(t)
+    online = done["results"]["online-check"]
+    assert online["valid"] is True and online["mode"] == "incremental"
+    assert online["ops-checked"] == len(done["history"])
+    assert done["results"]["results"]["linear"]["valid"] is True
     h = core_pt.History(observer=lambda op: 1 / 0)
     assert h.append(invoke(0, "read")).index == 0     # the observer hook
 
