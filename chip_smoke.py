@@ -123,12 +123,17 @@ user's entry points and checks the results:
   frontier (:func:`phase_carry`) on K1 at cas-100k and on K4 at wide
   cas-100k, each with its corrupted twin, in 256-op blocks, against
   ``NativeStreamEngine`` (violation, settled returns, the final set);
-  K9 bit for bit against its plain version at (4, 8,192, 256) beside
-  its bound and the library's ``bmm`` join (:func:`phase_join`); and
-  ``TxnSessionEngine`` (:func:`phase_txn_session`) over the 6,003-txn
-  write-skew history in 128-op blocks at K = 3 and K = 4, every block's
-  booleans against the f32 cross-check, the close against the post-hoc
-  check on K8, the last block's K9 launches against the plain version.
+  K9's join, one launch for both packings, bit for bit against its
+  plain version at (4, 8,192, 256) and (4, 8,192, 8,192) beside its
+  bound, both tile forms and the library's ``bmm`` join, and the
+  update's column gather by K9 and by torch ops (:func:`phase_join`);
+  and ``TxnSessionEngine`` (:func:`phase_txn_session`) over the
+  6,003-txn write-skew history in 128-op blocks at K = 3 and K = 4 in
+  the default precision (the word update on K8 and K9 runs no float32
+  product), every block's booleans against the f32 cross-check (TF32
+  allowed around it alone), the close against the post-hoc check on K8,
+  the last block's K9 launches against the plain version, the launches
+  of both kernels and the session's peak device memory.
 
 Depths cut to make room (``PERF.md`` section 4): K1's plain version on
 the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
@@ -2734,30 +2739,31 @@ def phase_carry():
 # (TXN_LATTICE) in blocks of TXN_SESSION_BLOCK ops (64 txns), at K = 3
 # and at every lattice level (K = 4)
 TXN_SESSION_BLOCK = 128
-# K9 against its plain version: (K, Np, d) at the dense envelope with a
-# 256-node dirty block, and the density of A's bits there
-TXN_JOIN_SHAPE = (4, 8_192, 256)
+# K9 against its plain version: the session's join, (K, Np, d) at the
+# dense envelope with a 256-node dirty block and with the lattice
+# session's last blocks' d = Np, and the density of A's (thru's) bits
+TXN_JOIN_SHAPES = ((4, 8_192, 256), (4, 8_192, 8_192))
 TXN_JOIN_DENSITY = 0.5
 
 
-def join_bound(K, Np, d):
-    """K9's bound: the larger of its bytes (A, B and C read once, the
-    output written once) over the memory rate and 2·K·Np·d·Np single-bit
-    operations over :data:`B1_RATE`."""
-    NW, DW = Np // 32, -(-d // 32)
-    nbytes = 4 * (K * Np * DW + K * d * NW + 2 * K * Np * NW)
-    ops = 2 * K * Np * d * Np
+def join_bound(K, M, N, KW, both=True):
+    """K9's bound: the larger of its bytes (A, B, C and, with ``both``,
+    CT read once, each output written once) over the memory rate and
+    ``2·K·M·N·32·KW`` single-bit operations over :data:`B1_RATE`."""
+    OW, TW = -(-N // 32), -(-M // 32)
+    words = K * (M * KW + N * KW + 2 * M * OW + (2 * N * TW if both else 0))
+    nbytes, ops = 4 * words, 2 * K * M * N * 32 * KW
     t_bytes, t_ops = nbytes / HBM_RATE, ops / B1_RATE
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
             f"bytes={nbytes} b1_ops={ops}")
 
 
-def join_library_ms(thru, right, C, reps):
+def join_library_ms(thru, right, C, CT, reps):
     """The library's join: one exact ``torch.bmm`` of the dense ``thru``
     by the dense ``right`` in bf16 and in fp16 (0/1 inputs, sums of ones:
-    ``> 0`` is exact), then ``> 0``, the packing and the OR with ``C``;
-    each must equal K9's output. ms by dtype."""
+    ``> 0`` is exact), then ``> 0``, both packings and the OR with ``C``
+    and ``CT``; each must equal the other. ms by dtype, and the output."""
     from jepsen_tpu_torch.txn import cycles
 
     out, want = {}, None
@@ -2765,88 +2771,168 @@ def join_library_ms(thru, right, C, reps):
         a, b = thru.to(dt), right.to(dt)
 
         def lib():
-            return C | cycles.pack_rows_torch(torch.bmm(a, b) > 0)
+            prod = torch.bmm(a, b) > 0
+            return (C | cycles.pack_rows_torch(prod),
+                    CT | cycles.pack_rows_torch(prod.transpose(1, 2)))
 
         got = lib()
-        if want is not None and not torch.equal(got, want):
+        if want is not None and not all(map(torch.equal, got, want)):
             raise AssertionError(f"join library {name} differs")
         want = got
         out[name] = event_ms(lib, reps)
+        del a, b, got
     return out, want
 
 
-def phase_join():
-    """K9 against its plain version, bit for bit, at
-    :data:`TXN_JOIN_SHAPE` (random A bits of density
-    :data:`TXN_JOIN_DENSITY`): event_ms, device_ms, the plain version's
-    time, the bound and the library's join. Returns the kernels line's
-    numbers."""
+def k9_form_ms(A, B, C, CT, reps):
+    """K9 in each of its two tile forms on the same operands (the C entry
+    point, past the wrapper and its count): ms by form."""
     from jepsen_tpu_torch.txn import cycles
 
-    K, Np, d = TXN_JOIN_SHAPE
-    NW = Np // 32
+    lib = cycles._inc_lib()
+    K, M, KW = A.shape
+    N = B.shape[1]
+    out = torch.empty((K, M, -(-N // 32)), dtype=torch.int32, device=CARD)
+    outT = None if CT is None else torch.empty(
+        (K, N, -(-M // 32)), dtype=torch.int32, device=CARD)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(form):
+        err = lib.jt_txn_inc_join(
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), cycles._ptr(CT),
+            out.data_ptr(), cycles._ptr(outT), K, M, N, KW, form, stream)
+        if err:
+            raise RuntimeError(f"K9 form {form}: CUDA error {err}")
+
+    return {form: event_ms(lambda: run(form), reps) for form in (0, 1)}
+
+
+def gather_torch(Cw, dd, Dp, rows=1_024):
+    """The update's column gather ``C[:, :, dd]``, packed over ``dd``
+    into ``Dp / 32`` words, by torch ops on bools ``rows`` rows at a time
+    (no ``[K, Np, d]`` tensor): the other way to the K9 launch the
+    update makes."""
+    from jepsen_tpu_torch.txn import cycles
+
+    K, Np, _NW = Cw.shape
+    out = torch.empty((K, Np, Dp // 32), dtype=torch.int32, device=Cw.device)
+    dw, db = dd >> 5, (dd & 31).to(torch.int32)
+    for r0 in range(0, Np, rows):
+        bits = ((Cw[:, r0:r0 + rows][:, :, dw] >> db) & 1).bool()
+        out[:, r0:r0 + rows] = cycles.pack_bits(
+            torch.nn.functional.pad(bits, (0, Dp - len(dd))))
+    return out
+
+
+def gather_line(K, Np, d, g):
+    """The column gather at (K, Np, d) both ways, K9 against torch ops on
+    bools, equal bit for bit: ms of each."""
+    from jepsen_tpu_torch.txn import cycles
+
+    Cw = torch.randint(-2**31, 2**31 - 1, (K, Np, Np // 32), generator=g,
+                       device=CARD, dtype=torch.int32)
+    dd = torch.randperm(Np, generator=g, device=CARD)[:d]
+    Dp = 32 * -(-d // 32)
+    St_w = torch.zeros((Dp, Np // 32), dtype=torch.int32, device=CARD)
+    St_w[torch.arange(d, device=CARD), dd >> 5] = cycles._to_int32(
+        torch.ones_like(dd) << (dd & 31))
+
+    def k9():
+        return cycles.inc_join(Cw, St_w.expand(K, Dp, Np // 32).contiguous(),
+                               rows_only=True)[0]
+
+    if not torch.equal(k9(), gather_torch(Cw, dd, Dp)):
+        raise AssertionError(f"gather ({K}, {Np}, {d}): K9 and torch differ")
+    return event_ms(k9, 10), event_ms(lambda: gather_torch(Cw, dd, Dp), 3)
+
+
+def phase_join():
+    """K9 against its plain version, bit for bit in both packings, at
+    each of :data:`TXN_JOIN_SHAPES` (``A`` = thru packed over the dirty
+    columns, bits of density :data:`TXN_JOIN_DENSITY`; ``B`` = right's
+    transpose; random old words): event_ms, device_ms, the plain
+    version's time, the bound, both tile forms and the library's join;
+    then the update's column gather by K9 and by torch ops. Returns the
+    kernels line's numbers, those of the last shape."""
+    from jepsen_tpu_torch.txn import cycles
+
+    out, errs = {}, []
     g = torch.Generator(device=CARD).manual_seed(15)
-    thru = torch.rand((K, Np, d), generator=g, device=CARD) \
-        < TXN_JOIN_DENSITY
-    right = torch.rand((K, d, Np), generator=g, device=CARD) < 0.05
-    C = torch.randint(-2**31, 2**31 - 1, (K, Np, NW), generator=g,
-                      device=CARD, dtype=torch.int32)
-    A, B = cycles.pack_bits(thru), cycles.pack_rows_torch(right)
-    got = cycles.inc_join(A, B, C)
-    want, p_ms = plain_ms(lambda: cycles.inc_join_plain(A, B, C))
-    err = int((got.long() - want.long()).abs().max())
-    if err or not torch.equal(got, want):
-        raise AssertionError("K9 differs from its plain version")
-    ms = event_ms(lambda: cycles.inc_join(A, B, C), 20)
-    dev = device_ms(lambda: cycles.inc_join(A, B, C), 50)
-    libs, lib_out = join_library_ms(thru, right, C, 5)
-    if not torch.equal(lib_out, got):
-        raise AssertionError("K9 differs from the library's join")
-    b_ms, b_by, b_txt = join_bound(K, Np, d)
-    lib_name = min(libs, key=libs.get)
-    log(f"K9 txn_inc_join K={K} Np={Np} d={d} (A density "
-        f"{TXN_JOIN_DENSITY}): bit-identical to its plain version and the "
-        f"library's join; event_ms={ms:.6f} {dev_text(dev)} plain_ms="
-        f"{p_ms:.3f} bound_ms={b_ms:.6f} ({b_by}; {b_txt}) = "
-        f"{ms / b_ms:.2f}x the bound; library "
-        + ", ".join(f"{k} {v:.6f} ms" for k, v in libs.items())
-        + f" (fastest {lib_name}: K9 {libs[lib_name] / ms:.2f}x its speed)")
-    return {"max_abs_err": err, "ms": ms,
-            "device_ms": dev["total"] if dev else None, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": libs[lib_name]}
+    for K, Np, d in TXN_JOIN_SHAPES:
+        NW, DW = Np // 32, -(-d // 32)
+        thru = torch.rand((K, Np, d), generator=g, device=CARD) \
+            < TXN_JOIN_DENSITY
+        right = torch.rand((K, d, Np), generator=g, device=CARD) < 0.05
+        C, CT = (torch.randint(-2**31, 2**31 - 1, (K, Np, NW), generator=g,
+                               device=CARD, dtype=torch.int32)
+                 for _ in range(2))
+        A = cycles.pack_bits(thru)
+        B = cycles.pack_bits(right.transpose(1, 2))
+
+        def k9():
+            return cycles.inc_join(A, B, C, CT)
+
+        got = k9()
+        want, p_ms = plain_ms(lambda: cycles.inc_join_plain(A, B, C, CT))
+        err = max(int((x.long() - y.long()).abs().max())
+                  for x, y in zip(got, want))
+        errs.append(err)
+        if err or not all(map(torch.equal, got, want)):
+            raise AssertionError(f"K9 at ({K}, {Np}, {d}) differs from "
+                                 f"its plain version")
+        ms = event_ms(k9, 20)
+        dev = device_ms(k9, 50)
+        forms = k9_form_ms(A, B, C, CT, 10)
+        libs, lib_out = join_library_ms(thru, right, C, CT, 5)
+        if not all(map(torch.equal, lib_out, got)):
+            raise AssertionError("K9 differs from the library's join")
+        del lib_out, thru, right
+        b_ms, b_by, b_txt = join_bound(K, Np, Np, DW)
+        lib_name = min(libs, key=libs.get)
+        log(f"K9 txn_inc_join join K={K} M=N={Np} d={d} (KW={DW}, A density "
+            f"{TXN_JOIN_DENSITY}, both packings in one launch, form "
+            f"{cycles.join_form(Np, Np)}): bit-identical to its plain "
+            f"version and the library's join; event_ms={ms:.6f} "
+            f"{dev_text(dev)} plain_ms={p_ms:.3f} bound_ms={b_ms:.6f} "
+            f"({b_by}; {b_txt}) = {ms / b_ms:.2f}x the bound; forms: small "
+            f"{forms[0]:.6f} ms, big {forms[1]:.6f} ms; library "
+            + ", ".join(f"{k} {v:.6f} ms" for k, v in libs.items())
+            + f" (fastest {lib_name}: K9 {libs[lib_name] / ms:.2f}x its "
+            f"speed)")
+        k9_ms, t_ms = gather_line(K, Np, d, g)
+        log(f"K9 the update's column gather K={K} Np={Np} d={d}: K9 "
+            f"{k9_ms:.6f} ms, torch ops on bools {t_ms:.6f} ms (equal bit "
+            f"for bit; the update takes K9)")
+        out = {"max_abs_err": max(errs), "ms": ms,
+               "device_ms": dev["total"] if dev else None, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": libs[lib_name]}
+        del A, B, C, CT, got, want
+    return out
 
 
 def phase_txn_session():
     """The transactional streaming session on the card:
     ``TxnSessionEngine`` over :data:`TXN_LATTICE`'s history with a write
     skew, in :data:`TXN_SESSION_BLOCK`-op blocks, serializable (K = 3)
-    and at every lattice level (K = 4, Np growing to 8,192). Every
+    and at every lattice level (K = 4, Np growing to 8,192), in the
+    default precision (no float32 product runs in the engine). Every
     block's booleans against the f32 cross-check (``inc_update_f32`` on
-    the same operands, on the card), the close verdict against the
-    post-hoc ``txn.check_history`` on K8, and the session's last K9
-    launches against K9's plain version bit for bit. Returns the
-    readings."""
+    the same operands, on the card, with TF32 allowed around it alone),
+    the close verdict against the post-hoc ``txn.check_history`` on K8,
+    and the session's last block's K9 launches against K9's plain
+    version bit for bit. Returns the readings."""
     from jepsen_tpu_torch import fixtures, history
 
     t_phase = time.perf_counter()
     h = fixtures.gen_txn_history(**TXN_LATTICE)
     h = history.index(h + [op.with_(index=-1) for op in
                            fixtures.txn_anomaly_block("write-skew")])
-    out = {}
-    # the session's ladder and joins, and the cross-check, are float32
-    # torch.bmm on 0/1 operands, thresholded at 0: exact in TF32 as in
-    # full float32 (the inputs are exact, a sum of ones never rounds to
-    # 0), so the phase allows TF32, as a user may
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        for consistency in (None, "all"):
-            out[consistency] = txn_session_run(h, consistency)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    log(f"txn session phase: {time.perf_counter() - t_phase:.1f} s "
-        f"(TF32 allowed)")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("txn session phase: TF32 is allowed on entry")
+    out = {consistency: txn_session_run(h, consistency)
+           for consistency in (None, "all")}
+    log(f"txn session phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2861,19 +2947,47 @@ def txn_session_run(h, consistency):
     eng = session.TxnSessionEngine(consistency=consistency)
     clo = eng.closure
     f32 = {"C": None, "A": None, "s": 0.0, "blocks": 0, "d": []}
+    mem = {"session": 0, "update": 0}
+    # host seconds of the closure's add_block and, inside it, of the word
+    # update (synchronised on both sides); the rest of a block is the
+    # engine's inference and host work
+    secs = {"closure": 0.0, "update": 0.0}
     real_add, real_join = clo.add_block, cycles.inc_join
+    real_update = cycles.inc_update_word
     joins = []
 
+    def update(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_update(*args)
+        torch.cuda.synchronize()
+        secs["update"] += time.perf_counter() - t0
+        return res
+
     def add_block(n, src, dst, et):
+        torch.cuda.synchronize()
+        mem["session"] = max(mem["session"], torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         got = real_add(n, src, dst, et)
+        secs["closure"] += time.perf_counter() - t0
+        mem["update"] = max(mem["update"],
+                            torch.cuda.max_memory_allocated() - base)
         ops = [torch.as_tensor(a, device=CARD) for a in
                cycles.block_operands(np.asarray(src), np.asarray(dst),
                                      np.asarray(et), clo.Np,
                                      clo.lattice)]
+        # the cross-check's float32 products on 0/1 operands, thresholded
+        # at 0, are exact in TF32 as in full float32: TF32 here only
         t0 = time.perf_counter()
-        f32["C"], f32["A"], want = cycles.inc_update_f32(
-            f32["C"], f32["A"], clo.Np, *ops, clo.contracts)
-        want = want.cpu().numpy()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            f32["C"], f32["A"], want = cycles.inc_update_f32(
+                f32["C"], f32["A"], clo.Np, *ops, clo.contracts)
+            want = want.cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
         f32["s"] += time.perf_counter() - t0
         f32["blocks"] += 1
         f32["d"].append(len(ops[4]))
@@ -2883,9 +2997,9 @@ def txn_session_run(h, consistency):
                                  f"f32 cross-check {want}")
         return got
 
-    def join(A, B, C):
-        res = real_join(A, B, C)
-        joins[:] = joins[-1:] + [(A, B, C, res)]
+    def join(A, B, C=None, CT=None, rows_only=False):
+        res = real_join(A, B, C, CT, rows_only)
+        joins[:] = joins[-3:] + [((A, B, C, CT, rows_only), res)]
         return res
 
     def feed():
@@ -2895,14 +3009,17 @@ def txn_session_run(h, consistency):
         return eng.close_incremental()
 
     clo.add_block = add_block
-    cycles.inc_join = join
+    cycles.inc_join, cycles.inc_update_word = join, update
+    torch.cuda.reset_peak_memory_stats()
     try:
         res, dt, la, _spans, _ = drive(feed)
     finally:
-        cycles.inc_join = real_join
+        cycles.inc_join, cycles.inc_update_word = real_join, real_update
+    mem["session"] = max(mem["session"], torch.cuda.max_memory_allocated())
     blocks = f32["blocks"]
-    expect(f"txn session {label}", la, txn_inc_join=2 * blocks,
-           txn_closure=0)
+    ladder = sum(cycles.n_iter(max(d, 2)) for d in f32["d"])
+    expect(f"txn session {label}", la, txn_inc_join=4 * blocks,
+           txn_closure=ladder)
     kw = {} if consistency is None else {"consistency": consistency}
     post, post_dt, post_la, _s, _l = drive(
         lambda: txn.check_history(h, **kw))
@@ -2912,26 +3029,43 @@ def txn_session_run(h, consistency):
             res["anomalies"] != post["anomalies"]:
         raise AssertionError(f"txn session {label}: {res} against the "
                              f"post-hoc {post}")
-    for A, B, C, got in joins:
-        if not torch.equal(got, cycles.inc_join_plain(A, B, C)):
+    for args, got in joins:
+        want = cycles.inc_join_plain(*args)
+        if not torch.equal(got[0], want[0]) or (
+                got[1] is not None and not torch.equal(got[1], want[1])):
             raise AssertionError(f"txn session {label}: K9 differs "
                                  f"from its plain version")
-    shapes = [(tuple(A.shape), tuple(B.shape)) for A, B, _C, _g in joins]
-    j_ms = [event_ms(lambda: cycles.inc_join(*j[:3]), 5) for j in joins]
+    shapes = [(tuple(a[0].shape), tuple(a[1].shape), "rows" if a[4]
+               else "both") for a, _g in joins]
+    j_ms = [event_ms(lambda: cycles.inc_join(*a), 5) for a, _g in joins]
     wall = dt - f32["s"]
     per = 1e3 * wall / blocks
-    log(f"txn session {label} ({eng.infer.n} txns, {blocks} blocks of {TXN_SESSION_BLOCK} ops, K = "
-        f"{clo.K}, Np {clo.Np}, dirty width up to {max(f32['d'])}): "
-        f"invalid, anomalies {res['anomalies']}, booleans equal the "
-        f"f32 cross-check at every block and the post-hoc check "
+    log(f"txn session {label} ({eng.infer.n} txns, {blocks} blocks of "
+        f"{TXN_SESSION_BLOCK} ops, K = {clo.K}, Np {clo.Np}, dirty width "
+        f"up to {max(f32['d'])}; torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} in the engine): invalid, "
+        f"anomalies {res['anomalies']}, booleans equal the f32 "
+        f"cross-check at every block and the post-hoc check "
         f"({post['engine']}, {post_dt:.4f} s) at close; session "
         f"{wall:.3f} s ({per:.3f} ms a block; the cross-check's "
-        f"{f32['s']:.3f} s not counted); K9 launches "
-        f"{la['txn_inc_join']}; the last block's K9 launches (A, B "
-        f"shapes {shapes}) bit-identical to the plain version, "
-        f"event_ms " + ", ".join(f"{x:.6f}" for x in j_ms))
+        f"{f32['s']:.3f} s not counted): the closure's add_block "
+        f"{1e3 * secs['closure'] / blocks:.3f} ms a block, of which the "
+        f"word update on K8 and K9 {1e3 * secs['update'] / blocks:.3f} ms "
+        f"and the block's operands and verdict fetch the rest; inference "
+        f"and the engine's host work "
+        f"{1e3 * (wall - secs['closure']) / blocks:.3f} ms; launches K9 "
+        f"{la['txn_inc_join']}, K8 {la['txn_closure']} (the ladders); "
+        f"max_memory_allocated over the session "
+        f"{mem['session'] / 2**20:.1f} MiB (the cross-check's float32 "
+        f"masks included), the word update's own peak above what was "
+        f"allocated before it {mem['update'] / 2**20:.1f} MiB; the last "
+        f"block's K9 launches ({shapes}) bit-identical to the plain "
+        f"version, event_ms " + ", ".join(f"{x:.6f}" for x in j_ms))
     return {"block_ms": per, "blocks": blocks,
-            "launches": la["txn_inc_join"], "last_join_ms": j_ms}
+            "closure_ms": 1e3 * secs["closure"] / blocks,
+            "update_ms": 1e3 * secs["update"] / blocks,
+            "launches": la["txn_inc_join"], "ladder": la["txn_closure"],
+            "last_join_ms": j_ms, "peak_mib": mem["session"] / 2**20}
 
 
 def main() -> int:

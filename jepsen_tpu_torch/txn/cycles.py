@@ -38,12 +38,14 @@ takes the host only by decision.
 A streaming session closes its graph block by block instead
 (:class:`IncrementalClosure`, the reference's ``_inc_word_call``): the
 closed words stay on the device, and each block's new edges re-close
-only the dirty rows and columns. Its last step, the join of the closure
-through the dirty block, is one launch of the hand-written kernel K9
+only the dirty rows and columns, all on packed words: the dirty block's
+ladder on K8, the gathers, the left join and the join of the closure
+through the dirty block on the hand-written kernel K9
 (``csrc/txn_inc_join.cu``, :func:`inc_join`; plain version
-:func:`inc_join_plain`) for each packing. The reference's f32 update,
-``_inc_call``, is :func:`inc_update_f32`, a cross-check the tests and
-``chip_smoke.py`` call directly.
+:func:`inc_join_plain`), a single-bit product that writes both
+packings in one launch. The reference's f32 update, ``_inc_call``, is
+:func:`inc_update_f32`, a cross-check the tests and ``chip_smoke.py``
+call directly.
 """
 from __future__ import annotations
 
@@ -64,7 +66,8 @@ _MAX_DENSE_DEFAULT = 8192
 
 # K8 launches (one a squaring), counted where the wrapper launches it
 KERNEL_LAUNCHES = 0
-# K9 launches (two an append block), counted where the wrapper launches it
+# K9 launches (four an append block), counted where the wrapper launches
+# it
 INC_JOIN_LAUNCHES = 0
 
 # the plain step's largest [K, rows, Np, NW] intermediate, in elements
@@ -358,11 +361,11 @@ def lattice_booleans(graph: DepGraph, starts: np.ndarray, ends: np.ndarray,
 # append costs
 #
 #   1. scatter the new edges into the words (Cw, CwT, Arw_w);
-#   2. close H = C[D, D], a [d, d] squaring ladder over the dirty block;
-#   3. the skinny join thru = (C v I)[:, D] . H (f32 torch.bmm, as the
-#      reference leaves these einsums to XLA);
-#   4. C' = C v thru . (C v I)[D, :], OR-reduced straight into the words
-#      of both packings: K9, once for Cw and once for CwT;
+#   2. close H = C[D, D], a [d, d] squaring ladder over the dirty block
+#      (K8, on H's words gathered from the columns D by K9);
+#   3. the skinny join thru = (C v I)[:, D] . H (K9, rows only);
+#   4. C' = C v thru . (C v I)[D, :], straight into the words of both
+#      packings (one K9);
 #   5. the verdict, as for the one-shot closure.
 #
 # Geometry: Np pads to powers of two (at least a word) and regrows by
@@ -424,41 +427,63 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return pack_rows_torch(bits)
 
 
-def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 [..., NW] -> bool [..., n], the first ``n`` bits."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = ((words[..., None] >> shifts) & 1).ne(0)
-    return bits.reshape(*words.shape[:-1], -1)[..., :n]
+def join_form(M: int, N: int) -> int:
+    """K9's tile form for an ``M x N`` product: K8's rule
+    (:func:`square_form`) on the longer side. A skinny product at Np =
+    8,192 is faster on the big tile, half of whose columns may lie past
+    ``N`` (``chip_smoke.py`` times both forms at the session's shapes)."""
+    return square_form(max(M, N))
 
 
-def inc_join_plain(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
-                   ) -> torch.Tensor:
-    """K9's join in torch ops, the reference's masked OR-reduce:
-    ``out[b, i, :] = C[b, i, :] | OR_{k : bit k of A[b, i]} B[b, k, :]``
-    in a fresh tensor. ``A`` int32[K, Np, DW] (bits over B's rows),
-    ``B`` int32[K, d, NW], ``C`` int32[K, Np, NW]. The OR over k runs in
-    order, one row of B a step (rows no A bit names are skipped)."""
-    d = B.shape[1]
-    bits = unpack_bits(A, min(d, 32 * A.shape[2]))       # [K, Np, d]
-    out = C.clone()
-    for k in torch.nonzero(bits.any((0, 1))).flatten().tolist():
-        out |= torch.where(bits[:, :, k, None], B[:, k, None, :], 0)
-    return out
+def inc_join_plain(A: torch.Tensor, B: torch.Tensor,
+                   C: Optional[torch.Tensor] = None,
+                   CT: Optional[torch.Tensor] = None,
+                   rows_only: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K9's product in torch ops: ``prod[b, i, j] = any_k (A[b, i, k] &
+    B[b, j, k])`` over the packed k words of ``A`` int32[K, M, KW] and
+    ``B`` int32[K, N, KW], then ``(C | pack_bits(prod), CT |
+    pack_bits(prodᵀ))`` in fresh tensors (``C`` [K, M, ceil(N/32)] and
+    ``CT`` [K, N, ceil(M/32)] zero when None; the second None with
+    ``rows_only``). Chunked over rows so the ``[K, rows, N, KW]``
+    intermediate stays at most :data:`_PLAIN_ELEMS` elements."""
+    K, M, KW = A.shape
+    N = B.shape[1]
+    rows = max(1, _PLAIN_ELEMS // (K * N * KW))
+    prod = torch.empty((K, M, N), dtype=torch.bool, device=A.device)
+    for r0 in range(0, M, rows):
+        blk = A[:, r0:r0 + rows, None, :] & B[:, None, :, :]
+        prod[:, r0:r0 + rows] = (blk != 0).any(-1)
+    out = pack_bits(prod)
+    if C is not None:
+        out = C | out
+    if rows_only:
+        return out, None
+    outT = pack_bits(prod.transpose(1, 2))
+    return out, (outT if CT is None else CT | outT)
 
 
-def _check_join(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> None:
-    dev = C.device
-    for name, t in (("A", A), ("B", B), ("C", C)):
-        if t.device != dev or t.dtype != torch.int32 \
-                or not t.is_contiguous() or t.dim() != 3:
+def _check_join(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor],
+                CT: Optional[torch.Tensor], rows_only: bool) -> None:
+    dev = A.device
+    named = [("A", A), ("B", B), ("C", C), ("CT", CT)]
+    for name, t in named:
+        if t is not None and (t.device != dev or t.dtype != torch.int32
+                              or not t.is_contiguous() or t.dim() != 3):
             raise ValueError(f"txn inc_join: {name} must be a contiguous "
                              f"int32 [K, rows, words] tensor on {dev}")
-    K, Np, NW = C.shape
-    if A.shape[:2] != (K, Np) or B.shape[0] != K or B.shape[2] != NW \
-            or B.shape[1] > 32 * A.shape[2] or B.shape[1] < 1:
-        raise ValueError(f"txn inc_join: inconsistent shapes "
-                         f"A{tuple(A.shape)} B{tuple(B.shape)} "
-                         f"C{tuple(C.shape)}")
+    K, M, KW = A.shape
+    N = B.shape[1]
+    want = {"B": (K, N, KW), "C": (K, M, -(-N // 32)),
+            "CT": (K, N, -(-M // 32))}
+    if rows_only and CT is not None:
+        raise ValueError("txn inc_join: CT given in rows-only mode")
+    if min(K, M, N, KW) < 1 or any(
+            t is not None and tuple(t.shape) != want[name]
+            for name, t in named[1:]):
+        shapes = " ".join(f"{name}{tuple(t.shape)}" for name, t in named
+                          if t is not None)
+        raise ValueError(f"txn inc_join: inconsistent shapes {shapes}")
 
 
 _INC_LIB = None
@@ -469,43 +494,54 @@ def _inc_lib():
     if _INC_LIB is None:
         from jepsen_tpu_torch import _build
         lib = _build.load("txn_inc_join")
-        lib.jt_txn_inc_join.argtypes = [ctypes.c_void_p] * 4 + \
+        lib.jt_txn_inc_join.argtypes = [ctypes.c_void_p] * 6 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.jt_txn_inc_join.restype = ctypes.c_int
         _INC_LIB = lib
     return _INC_LIB
 
 
-def _inc_join_cuda(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
-                   ) -> torch.Tensor:
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _inc_join_cuda(A: torch.Tensor, B: torch.Tensor,
+                   C: Optional[torch.Tensor], CT: Optional[torch.Tensor],
+                   rows_only: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     global INC_JOIN_LAUNCHES
-    _check_join(A, B, C)
-    K, Np, NW = C.shape
+    K, M, KW = A.shape
+    N = B.shape[1]
     lib = _inc_lib()
-    out = torch.empty_like(C)
-    with torch.cuda.device(C.device):
+    out = torch.empty((K, M, -(-N // 32)), dtype=torch.int32,
+                      device=A.device)
+    outT = None if rows_only else torch.empty(
+        (K, N, -(-M // 32)), dtype=torch.int32, device=A.device)
+    with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.jt_txn_inc_join(A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                                  out.data_ptr(), K, Np, A.shape[2],
-                                  B.shape[1], NW, stream)
+        err = lib.jt_txn_inc_join(A.data_ptr(), B.data_ptr(), _ptr(C),
+                                  _ptr(CT), out.data_ptr(), _ptr(outT), K,
+                                  M, N, KW, join_form(M, N), stream)
     if err != 0:
         raise RuntimeError(f"txn inc_join kernel launch failed: CUDA "
                            f"error {err}")
     INC_JOIN_LAUNCHES += 1
-    return out
+    return out, outT
 
 
-def inc_join(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
-             ) -> torch.Tensor:
-    """The join with :func:`inc_join_plain`'s contract: K9 for tensors on
-    the card (asynchronous, on the current stream), the plain version
-    for tensors on the CPU."""
-    if C.device.type == "cuda":
-        return _inc_join_cuda(A, B, C)
-    if C.device.type == "cpu":
-        _check_join(A, B, C)
-        return inc_join_plain(A, B, C)
-    raise ValueError(f"txn inc_join: unsupported device {C.device}")
+def inc_join(A: torch.Tensor, B: torch.Tensor,
+             C: Optional[torch.Tensor] = None,
+             CT: Optional[torch.Tensor] = None, rows_only: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The product with :func:`inc_join_plain`'s contract: K9 for tensors
+    on the card (one launch writes both packings; asynchronous, on the
+    current stream), the plain version for tensors on the CPU."""
+    _check_join(A, B, C, CT, rows_only)
+    if A.device.type == "cuda":
+        return _inc_join_cuda(A, B, C, CT, rows_only)
+    if A.device.type == "cpu":
+        return inc_join_plain(A, B, C, CT, rows_only)
+    raise ValueError(f"txn inc_join: unsupported device {A.device}")
 
 
 def _scatter_bits(words: torch.Tensor, rows: torch.Tensor,
@@ -542,7 +578,18 @@ def inc_update_word(Cw: torch.Tensor, CwT: torch.Tensor,
     ``_inc_word_call``, on the words' device): returns ``(Cw, CwT, Arw_w,
     verdict)``, fresh tensors, the verdict ``K + len(contracts)`` bools
     as :func:`word_verdict` gives them. Operands as
-    :func:`block_operands` gives them, as tensors on the same device."""
+    :func:`block_operands` gives them, as tensors on the same device
+    (``elane`` and ``erw`` of any type: nonzero is an edge). ``CwT``
+    must be ``Cw``'s transpose packing, as the carried state keeps it:
+    the rows ``(C ∨ I)[D, :]`` are read from it.
+
+    Every step is on packed words, a boolean product on K8 or K9: with
+    ``D = dsel``'s valid nodes and ``S[m, l] = [m == D[l]]``, the
+    gathers ``(C ∨ I)[:, D]`` and ``((C ∨ I)[D, :])ᵀ`` (K9 against
+    ``Sᵀ``, then ``S`` ORed in), the dirty block ``H = C[D, D]`` closed
+    by ``n_iter(|dsel|)`` squarings (K8; at least a word wide), ``thru =
+    (C ∨ I)[:, D]·H*`` (K9, rows only) and the join ``C ∨ thru·(C ∨
+    I)[D, :]`` in both packings (one K9)."""
     K, Np, NW = Cw.shape
     dev = Cw.device
     s = esrc.clamp(min=0).long()
@@ -551,29 +598,33 @@ def inc_update_word(Cw: torch.Tensor, CwT: torch.Tensor,
     Cw = _scatter_bits(Cw, s, d, el)
     CwT = _scatter_bits(CwT, d, s, el)
     Arw_w = _scatter_bits(Arw_w, s, d, erw != 0)
+    nd = len(dsel)
+    Dp = _pad_n_words(nd)                      # K8 squares whole words
+    DW = Dp // 32
     dd = dsel.clamp(min=0).long()
     valid = dsel >= 0
-    vf = valid.float()
-    dw = dd >> 5
-    db = (dd & 31).to(torch.int32)
-    # the dirty block from the packed rows: H[b, j, k] = bit dd[k] of
-    # row dd[j]
-    rows_w = Cw[:, dd, :] * valid.to(torch.int32)[None, :, None]
-    H = (((rows_w[:, :, dw] >> db) & 1).float()
-         * vf[None, :, None] * vf[None, None, :])
-    for _ in range(n_iter(max(len(dd), 2))):
-        H = torch.where(torch.bmm(H, H) > 0, 1.0, H)
-    # left = (C v I)[:, dd] as dense f32 [K, Np, d]; thru = left . H
-    eyeD = (torch.arange(Np, device=dev)[:, None] == dd[None, :]).float() \
-        * vf[None, :]
-    left = torch.maximum(((Cw[:, :, dw] >> db) & 1).float() * vf, eyeD[None])
-    thru = torch.bmm(left, H).gt(0)
-    del left, H
-    # right = (C v I)[dd, :] kept packed; the join by K9 in each packing
-    right_w = rows_w | pack_rows_torch(eyeD.T.bool())[None]
-    Cw = inc_join(pack_bits(thru), right_w, Cw)
-    CwT = inc_join(pack_bits(unpack_bits(right_w, Np).transpose(1, 2)),
-                   pack_rows_torch(thru.transpose(1, 2)), CwT)
+    vl = torch.arange(nd, device=dev)[valid]
+    vd = dd[valid]
+    # St_w: row l of Sᵀ, bit D[l] (rows past the valid ones zero); S_w:
+    # row m of S, bit l where m = D[l] (D's nodes are distinct)
+    St_w = torch.zeros((Dp, NW), dtype=torch.int32, device=dev)
+    St_w[vl, vd >> 5] = _to_int32(torch.ones_like(vd) << (vd & 31))
+    S_w = torch.zeros((Np, DW), dtype=torch.int32, device=dev)
+    S_w[vd, vl >> 5] = _to_int32(torch.ones_like(vl) << (vl & 31))
+    sel = St_w.expand(K, Dp, NW).contiguous()
+    cols, _ = inc_join(Cw, sel, rows_only=True)      # C[i, D[l]]
+    rows, _ = inc_join(CwT, sel, rows_only=True)     # C[D[l], j], row j
+    # the dirty block, row- and transpose-packed: rows D of each gather
+    keep = valid.to(torch.int32)[None, :, None]
+    Hw = torch.zeros((K, Dp, DW), dtype=torch.int32, device=dev)
+    HwT = torch.zeros_like(Hw)
+    Hw[:, :nd] = cols[:, dd] * keep
+    HwT[:, :nd] = rows[:, dd] * keep
+    for _ in range(n_iter(max(nd, 2))):
+        Hw, HwT = square_step(Hw, HwT)
+    # thru = left·H*, packed over D; then C ∨ thru·right in both packings
+    thru_w, _ = inc_join(cols | S_w, HwT, rows_only=True)
+    Cw, CwT = inc_join(thru_w, rows | S_w, Cw, CwT)
     return Cw, CwT, Arw_w, word_verdict(Cw, CwT, Arw_w, contracts)
 
 
@@ -683,9 +734,11 @@ class IncrementalClosure:
                 f"session graph {n_txns} txns > dense cap {self._cap}")
         if self._Cw is None or n_txns > self.Np:
             self._regrow(max(n_txns, 1))
+        esrc, edst, elane, erw, dsel = block_operands(
+            np.asarray(src), np.asarray(dst), np.asarray(et), self.Np,
+            self.lattice)
         ops = [torch.as_tensor(a, device=self.device) for a in
-               block_operands(np.asarray(src), np.asarray(dst),
-                              np.asarray(et), self.Np, self.lattice)]
+               (esrc, edst, elane != 0, erw != 0, dsel)]
         self._Cw, self._CwT, self._Arw_w, out = inc_update_word(
             self._Cw, self._CwT, self._Arw_w, *ops, self.contracts)
         self.updates += 1

@@ -6,7 +6,10 @@ plain version, K4's, the torch walk), ``serve.session``'s
 ``TxnSessionEngine``, ``txn.infer.IncrementalInfer``,
 ``txn.cycles.IncrementalClosure`` (K = 3 and K = 4, regrowth, the dense
 cap) with its f32 cross-check, and K9's plain version, against a numpy
-replay of the reference's join and the reference's own update.
+replay of the reference's join and the product written in numpy (M !=
+N, k axes of 1-256 words); the word update against the reference's
+``_inc_word_call`` at dirty widths 8-128, and with ``torch.bmm``
+raising and no float tensor made.
 """
 import numpy as np
 import pytest
@@ -410,8 +413,10 @@ def _numpy_join(Cw, thru, right_w):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_inc_join_plain_against_numpy_replay(seed):
-    """K9's plain version, in both of the update's packings, against a
-    numpy replay of the reference's join; then the port's whole word
+    """K9's plain version, one call for both of the update's packings,
+    against a numpy replay of the reference's join: ``A`` is ``thru``
+    packed over the dirty columns and ``B`` ``right``'s transpose packed
+    over its rows, so ``prod = thru·right``; then the port's whole word
     update against the reference's ``_inc_word_call`` on a block with
     duplicate edges and padded ``dsel``."""
     import jax.numpy as jnp
@@ -426,16 +431,18 @@ def test_inc_join_plain_against_numpy_replay(seed):
         .astype(np.uint32)
     CwT = rng.integers(0, 2**32, (K, Np, NW), dtype=np.uint64) \
         .astype(np.uint32)
-    add, addT, thruT_w = _numpy_join(Cw, thru, right_w)
+    add, addT, _thruT_w = _numpy_join(Cw, thru, right_w)
     t = torch.from_numpy
-    got = cyc_pt.inc_join_plain(cyc_pt.pack_bits(t(thru)),
-                                t(right_w.view(np.int32)),
-                                t(Cw.view(np.int32)))
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), Cw | add)
-    right = cyc_pt.unpack_bits(t(right_w.view(np.int32)), Np)
-    gotT = cyc_pt.inc_join(cyc_pt.pack_bits(right.transpose(1, 2)),
-                           t(thruT_w.view(np.int32)), t(CwT.view(np.int32)))
-    np.testing.assert_array_equal(gotT.numpy().view(np.uint32), CwT | addT)
+    right = np.unpackbits(right_w.view(np.uint8), axis=-1,
+                          bitorder="little").reshape(K, d, Np) != 0
+    A, B = t(_pack_np(thru)), t(_pack_np(right.transpose(0, 2, 1)))
+    for fn in (cyc_pt.inc_join_plain, cyc_pt.inc_join):
+        got, gotT = fn(A, B, t(Cw.view(np.int32)), t(CwT.view(np.int32)))
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), Cw | add)
+        np.testing.assert_array_equal(gotT.numpy().view(np.uint32),
+                                      CwT | addT)
+        rows, none = fn(A, B, t(Cw.view(np.int32)), rows_only=True)
+        assert none is None and torch.equal(rows, got)
     # the whole update: duplicate edges, dsel padded past the dirty set
     lattice = bool(seed % 2)
     e = 24
@@ -468,3 +475,124 @@ def test_inc_join_plain_against_numpy_replay(seed):
         np.testing.assert_array_equal(a.numpy().view(np.uint32),
                                       np.asarray(b))
     np.testing.assert_array_equal(pt[3].numpy(), np.asarray(rf[3]))
+
+
+def _pack_np(bits):
+    """bool [..., n] -> int32 [..., ceil(n / 32)], little bit order."""
+    n = bits.shape[-1]
+    bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, -n % 32)])
+    return np.ascontiguousarray(np.packbits(
+        bits, axis=-1, bitorder="little")).view(np.int32)
+
+
+@pytest.mark.parametrize("K,M,N,KW", [(2, 40, 72, 1), (3, 96, 33, 2),
+                                      (1, 64, 130, 8), (2, 48, 20, 256)])
+def test_inc_join_plain_shapes(K, M, N, KW):
+    """K9's contract at M != N and k axes of 1, 2, 8 and 256 words: the
+    plain version (and the CPU wrapper) against the product written in
+    numpy, both packings and the rows-only mode, with and without the
+    old words."""
+    rng = np.random.default_rng(M * N + KW)
+    p = (0.5 / (32 * KW)) ** 0.5          # half a common bit a pair
+    bits = [rng.random((K, r, 32 * KW)) < p for r in (M, N)]
+    A, B = (_pack_np(x) for x in bits)
+    prod = (bits[0].astype(np.int64) @ bits[1].transpose(0, 2, 1)
+            .astype(np.int64)) > 0
+    assert prod.any() and not prod.all()
+    C = _pack_np(rng.random((K, M, N)) < 0.1)
+    CT = _pack_np(rng.random((K, N, M)) < 0.1)
+    t = torch.from_numpy
+    for fn in (cyc_pt.inc_join_plain, cyc_pt.inc_join):
+        out, outT = fn(t(A), t(B), t(C), t(CT))
+        np.testing.assert_array_equal(out.numpy(), C | _pack_np(prod))
+        np.testing.assert_array_equal(
+            outT.numpy(), CT | _pack_np(prod.transpose(0, 2, 1)))
+        bare, bareT = fn(t(A), t(B))
+        np.testing.assert_array_equal(bare.numpy(), _pack_np(prod))
+        np.testing.assert_array_equal(
+            bareT.numpy(), _pack_np(prod.transpose(0, 2, 1)))
+        rows, none = fn(t(A), t(B), t(C), rows_only=True)
+        assert none is None and torch.equal(rows, out)
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+@pytest.mark.parametrize("width", [8, 40, 64, 128])
+def test_inc_update_word_against_reference(width, lattice):
+    """The whole word update (gathers and join on K9's plain version,
+    the ladder on K8's) against the reference's ``_inc_word_call`` word
+    for word, at dirty widths 8, 40, 64 and Np = 128, on carried words
+    with both packings of one random graph."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(width + lattice)
+    Np, K = 128, 4 if lattice else 3
+    contracts = cyc_pt.LATTICE_CONTRACTS if lattice else (1,)
+    mask = rng.random((K, Np, Np)) < 0.02
+    Cw0, CwT0 = _pack_np(mask), _pack_np(mask.transpose(0, 2, 1))
+    A0 = _pack_np(rng.random((Np, Np)) < 0.02)
+    nodes = rng.permutation(Np)[:width].astype(np.int32)
+    extra = rng.integers(0, width, (2, width))
+    src = np.concatenate([nodes, nodes[extra[0]], nodes[:4]])
+    dst = np.concatenate([np.roll(nodes, 1), nodes[extra[1]],
+                          np.roll(nodes, 1)[:4]])
+    et = rng.integers(0, 4 if lattice else 3, len(src)).astype(np.int32)
+    ops = cyc_pt.block_operands(src, dst, et, Np, lattice)
+    assert (ops[4] >= 0).sum() == width
+    t = torch.from_numpy
+    pt = cyc_pt.inc_update_word(t(Cw0), t(CwT0), t(A0),
+                                *map(torch.as_tensor, ops), contracts)
+    rf = cyc_ref._inc_word_call(Np, len(ops[4]), len(ops[0]), K,
+                                contracts)(
+        jnp.asarray(Cw0.view(np.uint32)), jnp.asarray(CwT0.view(np.uint32)),
+        jnp.asarray(A0.view(np.uint32)), *map(jnp.asarray, ops))
+    for a, b in zip(pt[:3], rf[:3]):
+        np.testing.assert_array_equal(a.numpy().view(np.uint32),
+                                      np.asarray(b))
+    np.testing.assert_array_equal(pt[3].numpy(), np.asarray(rf[3]))
+
+
+def test_word_update_runs_no_bmm_and_no_float(monkeypatch):
+    """``IncrementalClosure.add_block`` runs no matrix product and makes
+    no floating-point tensor (every op it dispatches is watched), and a
+    lattice ``TxnSessionEngine`` session runs to the reference's
+    verdicts with ``torch.bmm`` raising."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.dtypes = set(), set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.add(func.overloadpacket.__name__)
+            self.dtypes |= {x.dtype for x in tree_leaves(out)
+                            if isinstance(x, torch.Tensor)}
+            return out
+
+    def boom(*a, **k):
+        raise AssertionError("a matrix product in the word update")
+
+    for name in ("bmm", "matmul", "mm"):
+        monkeypatch.setattr(torch, name, boom)
+        monkeypatch.setattr(torch.Tensor, name, boom)
+    watch = Watch()
+    clo = cyc_pt.IncrementalClosure(lattice=True, device="cpu")
+    ref = cyc_ref.IncrementalClosure(lattice=True)
+    for n, fresh, _edges in _inc_blocks(11, lattice=True):
+        src, dst, et = _arrs(fresh)
+        with watch:
+            got = clo.add_block(n, src, dst, et)
+        assert got == ref.add_block(n, src, dst, et), n
+    assert {"index_put_", "bitwise_or", "any"} <= watch.ops
+    assert not {"bmm", "mm", "matmul", "baddbmm", "addmm"} & watch.ops
+    assert not {torch.float16, torch.bfloat16, torch.float32,
+                torch.float64} & watch.dtypes
+    hp, hr = _txn_hists(40, 3, 4, 7, "write-skew")
+    eng = ses_pt.TxnSessionEngine(consistency="all", device="cpu")
+    ses = ses_ref.TxnSessionEngine(consistency="all")
+    for i in range(0, len(hp), 24):
+        assert eng.advance_block(hp[i:i + 24]) == \
+            ses.advance_block(hr[i:i + 24]), i
+    res = eng.close_incremental()
+    assert res == ses.close_incremental() and res["valid"] is False
