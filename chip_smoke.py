@@ -44,7 +44,8 @@ user's entry points and checks the results:
 - more than 32 states: a 100,000-op cas history over 40 values and a
   100,000-op multi-register history (``algorithm="reach"``, the dense
   engine alone; one K4 launch each), the corrupted
-  cas one against the CPU run, and 2,000 keys over 40 values (one K5
+  cas one (and a corrupted 30,000-op one against the CPU run), and
+  2,000 keys over 40 values (one K5
   launch) against the CPU run; K4 and K5 build P's nibble image tables
   first (held bit for bit against their plain version on both
   alphabets), each of their launches logs the form it took (the set in
@@ -114,6 +115,17 @@ user's entry points and checks the results:
   ``python -m jepsen_tpu_torch run --mode sloppy`` (exit 1, the run
   dir's files), ``recheck`` of that dir (exit 1, the same failing op)
   and ``run`` (exit 0), each in its own process;
+- the other suites of ``run`` (:func:`phase_suites`), each at its
+  builder's defaults (5 nodes, concurrency 5, its own nemesis, 5 s):
+  mutex (linearizable; sloppy under a permanent partition, invalid),
+  set, counter, queue (safe, and ``universe=6``), etcd over HTTP, redis
+  over RESP and the list-append ``txn_test`` (fake tier), in both
+  modes, each ``linear`` verdict as ``wgl-native``'s (an invalid one at
+  the CPU dense engine's failing op and dead event), each ``txn``
+  result as the host SCC's, K1 launched by mutex, etcd and redis, K8 by
+  every txn graph with edges, the set's and the queue's route logged;
+  then ``run --suite queue --mode sloppy`` (the broker's ``lossy``) and
+  ``run --suite mutex``, each in its own process;
 - online checking (:func:`phase_online`): the same runs with
   ``online-check`` in process, linearizable (the monitor valid) and
   sloppy (the monitor stops the workers early; its violation equal to
@@ -137,7 +149,10 @@ user's entry points and checks the results:
 
 Depths cut to make room (``PERF.md`` section 4): K1's plain version on
 the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
-all of them), no CPU run at the long keys.
+all of them), no CPU run at the long keys, the wide CPU run at
+:data:`WIDE_CPU_OPS` ops, no CPU run of the chain's three valid checks
+whose corrupted twins take the same walk on the CPU; the command lines
+started in batches.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -185,6 +200,9 @@ BATCH_N = 32
 # the corrupted history the CPU run holds chunk-lockstep's answer against
 # (35,133 returns: just past reach_chunklock.MIN_RETURNS)
 CPU_REF_OPS = 48_000
+# the corrupted wide (40-value) history the CPU run holds K4's answer
+# against; the card also checks the corrupted wide cas-100k alone
+WIDE_CPU_OPS = 30_000
 SMALL_BATCH_N, SMALL_BATCH_BAD = 8, (2, 5)
 
 
@@ -1092,19 +1110,44 @@ INSTANCES = [("cas S=4", "cas", dict(values=3)),
              ("cas S=16", "cas", dict(values=12)),
              ("cas S=32", "cas", dict(values=25)),
              ("multi S=128", "multi", dict(keys=3, values=4)),
-             ("multi S=256", "multi", dict(keys=4, values=3))]
+             ("multi S=256", "multi", dict(keys=4, values=3)),
+             # the set suite's shape: the block form at 2^W * NW = 1,024
+             # (mask, word) pairs, more threads than its registers allow
+             # one block
+             ("bounded set S=1024", "set", dict(adds=10, processes=5))]
+
+
+def set_history(adds, processes):
+    """A bounded-set history of rounds of ``processes`` concurrent adds
+    of fresh elements (W = ``processes``; 2^adds states), then a read of
+    the whole set."""
+    from jepsen_tpu_torch import history
+    from jepsen_tpu_torch.op import invoke, ok
+
+    h = []
+    for first in range(0, adds, processes):
+        vals = range(first, min(adds, first + processes))
+        h += [invoke(p, "add", v) for p, v in enumerate(vals)]
+        h += [ok(p, "add", v) for p, v in enumerate(vals)]
+    h += [invoke(0, "read", None), ok(0, "read", list(range(adds)))]
+    return history.index(h)
 
 
 def phase_k4_instances():
     """K4 against its plain version, bit for bit, at :data:`INSTANCES`
-    (1,000 ops, 4 processes each)."""
+    (1,000 ops, 4 processes each; the set's history by
+    :func:`set_history`)."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checkers import reach_pallas
 
     for label, kind, kw in INSTANCES:
-        model = models.cas_register() if kind == "cas" else \
-            models.multi_register()
-        P, rs, _ = history_operands(gen(kind, 1_000, 4, 0, **kw), model)
+        if kind == "set":
+            h, model = set_history(**kw), models.bounded_set(12)
+        else:
+            h = gen(kind, 1_000, 4, 0, **kw)
+            model = models.cas_register() if kind == "cas" else \
+                models.multi_register()
+        P, rs, _ = history_operands(h, model)
         W, S, O1 = rs.W, P.shape[1], P.shape[0]
         args = reach_pallas.operands_from_numpy(
             P, rs.ret_slot, rs.slot_ops, one_hot(P, 1 << W), device="cuda")
@@ -1499,17 +1542,22 @@ def same_result(label, got, want, keys=CHAIN_KEYS):
                                  f"{got.get(key)} cpu={want.get(key)}")
 
 
-def chain_check(label, fn, expect_valid, expect_engine, **launches):
+def chain_check(label, fn, expect_valid, expect_engine, cpu=True,
+                **launches):
     """One check of the chain on the card (``fn(device)``), held against
-    the same check on the CPU and against the expected verdict and
-    engine; each named kernel launched as ``launches`` says. Returns
-    the card's result and its launches by kernel."""
+    the same check on the CPU (unless ``cpu`` is false: a valid check
+    whose corrupted twin takes the same walk on both) and against the
+    expected verdict and engine; each named kernel launched as
+    ``launches`` says. Returns the card's result and its launches by
+    kernel."""
     res, dt, la, spans, ledger, counters = chain_drive(lambda: fn(CARD))
     expect(label, la, **launches)
-    t0 = time.perf_counter()
-    ref = fn("cpu")
-    cpu_s = time.perf_counter() - t0
-    same_result(label, res, ref)
+    cpu_text = "no cpu run (its twin's agrees)"
+    if cpu:
+        t0 = time.perf_counter()
+        ref = fn("cpu")
+        cpu_text = f"{time.perf_counter() - t0:.3f} s on cpu, agrees"
+        same_result(label, res, ref)
     if res["valid"] is not expect_valid or res.get("engine") != \
             expect_engine:
         raise AssertionError(f"{label}: {res.get('valid')} by "
@@ -1523,8 +1571,7 @@ def chain_check(label, fn, expect_valid, expect_engine, **launches):
         f"{res.get('frontier-cap')} product-space="
         f"{res.get('product-space')} selected {sel}; "
         f"{walk_line(dt, spans, counters)}; launches "
-        f"{ {k: v for k, v in la.items() if v} }; {cpu_s:.3f} s on cpu, "
-        f"agrees")
+        f"{ {k: v for k, v in la.items() if v} }; {cpu_text}")
     return res, la
 
 
@@ -1623,11 +1670,12 @@ def phase_chain():
                 lin(models.register(), w75), True, "wgl-native-fallback",
                 batch_walk=0, lane_walk=0)
     # W = 33 under a tight config budget: the frontier's dense-product
-    # quotient decides, valid, then corrupted (dead event 562)
+    # quotient decides, valid, then corrupted (dead event 562); the CPU
+    # runs only the corrupted one (the valid one's took 25 s)
     w33 = gen("register", 2000, 5, 5, crash_p=0.02, values=3)
     chain_check("W=33 register-2000, max_configs 1000",
                 lin(models.register(), w33, max_configs=1000), True,
-                "frontier-fallback")
+                "frontier-fallback", cpu=False)
     w33_bad = fixtures.corrupt(w33, seed=1)
     res, _ = chain_check("corrupted W=33 register-2000, max_configs 1000",
                          lin(models.register(), w33_bad, max_configs=1000),
@@ -1635,7 +1683,8 @@ def phase_chain():
     if res["dead-event"] != 562:
         raise AssertionError(f"corrupted W=33: dead event "
                              f"{res['dead-event']}, want 562")
-    # the reference's scaling row: the dense product, then the rows
+    # the reference's scaling row: the dense product, then the rows (the
+    # valid rows' walk held against the CPU by its corrupted twin's)
     row = gen("register", 1200, 4, 11, crash_p=0.01, values=2)
     row_bad = fixtures.corrupt(row, seed=1)
     for label, h, valid in (("scaling row", row, True),
@@ -1646,21 +1695,24 @@ def phase_chain():
                                       quotient=quotient, device=dev)
             res, _ = chain_check(f"{label} register-1200, "
                                  f"quotient={quotient}", fr, valid,
-                                 "frontier")
+                                 "frontier", cpu=quotient or not valid)
             if valid and quotient and res["product-space"] != [4, 16, 63]:
                 raise AssertionError(f"{label}: {res['product-space']}")
             if valid and not quotient and res["frontier-cap"] != 2048:
                 raise AssertionError(f"{label}: {res['frontier-cap']}")
-    # the sparse-live quotient walk
-    for label, h, kw, valid in (
+    # the sparse-live quotient walk (the valid burst of 13 held against
+    # the CPU by its corrupted twin's)
+    for label, h, kw, valid, cpu in (
             ("same-op bursts 26 x 3, 6 crashed", same_op_burst(ops),
-             dict(max_dense=1 << 10), True),
-            ("burst of 13", burst(ops), dict(max_dense=1 << 18), True),
+             dict(max_dense=1 << 10), True, True),
+            ("burst of 13", burst(ops), dict(max_dense=1 << 18), True,
+             False),
             ("corrupted burst of 13", burst(ops, corrupt=True),
-             dict(max_dense=1 << 18), False)):
+             dict(max_dense=1 << 18), False, True)):
         def q(dev, h=h, kw=kw):
             return quotient_check(h, dev, **kw)
-        res, _ = chain_check(f"sparse-live {label}", q, valid, None)
+        res, _ = chain_check(f"sparse-live {label}", q, valid, None,
+                             cpu=cpu)
         if res["walk"] != "sparse-live":
             raise AssertionError(f"{label}: walk {res['walk']}")
     # multi-register: the per-key decomposition on the keyed lanes
@@ -2162,8 +2214,9 @@ def phase_cli():
     two corrupted (one lockstep batch on K2); ``--algorithm
     reach-chunked`` on the big history, valid and corrupted (K1's forward
     pass, K2's basis walk); ``--algorithm competition`` and ``linear`` on
-    the corrupted small one. Each verdict, failing op and dead event
-    equals the in-process dense engine's on the card. In process:
+    the corrupted small one; these seven started together. Each verdict,
+    failing op and dead event equals the in-process dense engine's on
+    the card. In process, after they end:
     ``reach-chunked`` against ``reach`` on the big history, and K2's
     largest basis launch of a :data:`CLI_SMALL_OPS`-op history and a
     full-basis launch (E = D) held bit for bit against
@@ -2205,23 +2258,53 @@ def phase_cli():
         log(f"cli fixtures: {len(CLI_FIXTURES)} processes at once, "
             f"{time.perf_counter() - t0:.3f} s")
 
-        # -- a big cas history, auto and reach-chunked --------------------
+        # -- the other commands' inputs and the in-process answers --------
         big = gen("cas", CLI_BIG_OPS, 5, 0)
         big_bad = gen("cas", CLI_BIG_OPS, 5, 0, corrupt=True)
         p_big, p_bad = write("history.jsonl", big), write("bad.jsonl",
                                                           big_bad)
         want_big, want_bad = reach(big), reach(big_bad)
-        rc, out, info = cli_run("check big", ["check", p_big])
+        paths, wants = [], []
+        for i in range(CLI_RECHECK_N):
+            h = gen("cas", CLI_SMALL_OPS, 5, 2000 + i,
+                    corrupt=i in CLI_RECHECK_BAD)
+            paths.append(write(f"h{i}.jsonl", h))
+            wants.append(reach(h))
+        small_bad = gen("cas", CLI_SMALL_OPS, 5, 0, corrupt=True)
+        p_small = write("small_bad.jsonl", small_bad)
+        want_small = reach(small_bad)
+        h = fixtures.gen_txn_history(**TXN_LATTICE)
+        h_txn = history.index(h + [op.with_(index=-1) for op in
+                                   fixtures.txn_anomaly_block("write-skew")])
+        p_txn = write("txn.jsonl", h_txn)
+        want_txn = facade.auto_check_txn(h_txn, {"device": CARD})
+
+        # -- the commands, started together (each its own process) --------
+        commands = (("check big", ["check", p_big]),
+                    ("reach-chunked valid", ["check", p_big, "--algorithm",
+                                             "reach-chunked"]),
+                    ("reach-chunked corrupted", ["check", p_bad,
+                                                 "--algorithm",
+                                                 "reach-chunked"]),
+                    ("recheck", ["recheck", *paths]),
+                    ("competition", ["check", p_small, "--algorithm",
+                                     "competition"]),
+                    ("linear", ["check", p_small, "--algorithm", "linear"]),
+                    ("txn", ["check", p_txn]))
+        t0 = time.perf_counter()
+        started = [(label, cli_start(cli_args(*args)))
+                   for label, args in commands]
+        ran = {label: cli_finish(label, proc, t0) for label, proc in started}
+        ran_s = time.perf_counter() - t0
+
+        rc, out, info = ran["check big"]
         res = json.loads(out)
         cli_same("check big", res, want_big)
         cli_line(f"check cas-{CLI_BIG_OPS} history.jsonl", rc, res, info)
         if CARD == "cuda" and CLI_BIG_OPS >= 100_000:
             expect("cli check cas-100k", info["launches"], batch_walk=2)
-        for label, path, want in (("valid", p_big, want_big),
-                                  ("corrupted", p_bad, want_bad)):
-            rc, out, info = cli_run(f"reach-chunked {label}",
-                                    ["check", path, "--algorithm",
-                                     "reach-chunked"])
+        for label, want in (("valid", want_big), ("corrupted", want_bad)):
+            rc, out, info = ran[f"reach-chunked {label}"]
             res = json.loads(out)
             cli_same(f"reach-chunked {label}", res, want)
             routes = {d["phase"]: d for d in info["ledger"]
@@ -2237,8 +2320,48 @@ def phase_cli():
                      f"{routes['forward']['engine']} basis groups "
                      f"(chunks, configs)={basis}")
 
-        # in process: reach-chunked against reach on the same history,
-        # and K2's largest basis launch against its plain version
+        # -- recheck of several paths: one lockstep batch -----------------
+        rc, out, info = ran["recheck"]
+        lines = [json.loads(ln) for ln in out.strip().splitlines()]
+        for i, (ln, want) in enumerate(zip(lines, wants)):
+            cli_same(f"recheck path {i}", ln, want)
+        if rc != 1 or len(lines) != CLI_RECHECK_N:
+            raise AssertionError(f"cli recheck: exit {rc}, {lines}")
+        if CARD == "cuda":
+            expect("cli recheck", info["launches"], batch_walk=1,
+                   lane_walk=2 * len(CLI_RECHECK_BAD))
+        cli_line(f"recheck {CLI_RECHECK_N} x cas-{CLI_SMALL_OPS}, "
+                 f"{len(CLI_RECHECK_BAD)} corrupted", rc,
+                 {"valid": [ln["valid"] for ln in lines]}, info)
+
+        # -- competition and linear on a corrupted small history ----------
+        for algorithm in ("competition", "linear"):
+            rc, out, info = ran[algorithm]
+            res = json.loads(out)
+            cli_same(algorithm, res, want_small)
+            extra = ""
+            if algorithm == "competition":
+                rec = [d for d in info["ledger"]
+                       if d["stage"] == "competition"]
+                extra = (f" winner={res.get('winner')} losers stopped in "
+                         f"{rec[0]['stop_s']:.4f} s")
+            cli_line(f"check cas-{CLI_SMALL_OPS} corrupted --algorithm "
+                     f"{algorithm}", rc, res, info, extra)
+
+        # -- a txn history: the closure on K8 -----------------------------
+        rc, out, info = ran["txn"]
+        res = json.loads(out)
+        cli_same("txn", res, want_txn, ("valid", "anomalies", "engine"))
+        if CARD == "cuda":
+            expect_any("cli txn", info["launches"], "txn_closure")
+        cli_line(f"check txn {len(h_txn)} ops", rc, res, info,
+                 f" anomalies={res.get('anomalies')}")
+        log(f"cli commands: {len(commands)} processes at once, "
+            f"{ran_s:.3f} s")
+
+        # in process, with no command running: reach-chunked against
+        # reach on the big history, and K2's basis launches against their
+        # plain version
         def chunked(h):
             return Linearizable(cas, algorithm="reach-chunked",
                                 device=CARD).check(None, h)
@@ -2274,58 +2397,6 @@ def phase_cli():
         if CARD == "cuda":
             basis_vs_plain(f"cas-{CLI_FULL_BASIS_OPS} full basis",
                            max(calls, key=lambda a: a[3].numel()))
-
-        # -- recheck of several paths: one lockstep batch -----------------
-        paths, wants = [], []
-        for i in range(CLI_RECHECK_N):
-            h = gen("cas", CLI_SMALL_OPS, 5, 2000 + i,
-                    corrupt=i in CLI_RECHECK_BAD)
-            paths.append(write(f"h{i}.jsonl", h))
-            wants.append(reach(h))
-        rc, out, info = cli_run("recheck", ["recheck", *paths])
-        lines = [json.loads(ln) for ln in out.strip().splitlines()]
-        for i, (ln, want) in enumerate(zip(lines, wants)):
-            cli_same(f"recheck path {i}", ln, want)
-        if rc != 1 or len(lines) != CLI_RECHECK_N:
-            raise AssertionError(f"cli recheck: exit {rc}, {lines}")
-        if CARD == "cuda":
-            expect("cli recheck", info["launches"], batch_walk=1,
-                   lane_walk=2 * len(CLI_RECHECK_BAD))
-        cli_line(f"recheck {CLI_RECHECK_N} x cas-{CLI_SMALL_OPS}, "
-                 f"{len(CLI_RECHECK_BAD)} corrupted", rc,
-                 {"valid": [ln["valid"] for ln in lines]}, info)
-
-        # -- competition and linear on a corrupted small history ----------
-        small_bad = gen("cas", CLI_SMALL_OPS, 5, 0, corrupt=True)
-        p_small = write("small_bad.jsonl", small_bad)
-        want = reach(small_bad)
-        for algorithm in ("competition", "linear"):
-            rc, out, info = cli_run(algorithm, ["check", p_small,
-                                                "--algorithm", algorithm])
-            res = json.loads(out)
-            cli_same(algorithm, res, want)
-            extra = ""
-            if algorithm == "competition":
-                rec = [d for d in info["ledger"]
-                       if d["stage"] == "competition"]
-                extra = (f" winner={res.get('winner')} losers stopped in "
-                         f"{rec[0]['stop_s']:.4f} s")
-            cli_line(f"check cas-{CLI_SMALL_OPS} corrupted --algorithm "
-                     f"{algorithm}", rc, res, info, extra)
-
-        # -- a txn history: the closure on K8 -----------------------------
-        h = fixtures.gen_txn_history(**TXN_LATTICE)
-        h = history.index(h + [op.with_(index=-1) for op in
-                               fixtures.txn_anomaly_block("write-skew")])
-        p_txn = write("txn.jsonl", h)
-        want = facade.auto_check_txn(h, {"device": CARD})
-        rc, out, info = cli_run("txn", ["check", p_txn])
-        res = json.loads(out)
-        cli_same("txn", res, want, ("valid", "anomalies", "engine"))
-        if CARD == "cuda":
-            expect_any("cli txn", info["launches"], "txn_closure")
-        cli_line(f"check txn {len(h)} ops", rc, res, info,
-                 f" anomalies={res.get('anomalies')}")
     log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2409,8 +2480,8 @@ def phase_run():
     with its route and launches; ``independent_test()`` at its defaults,
     key by key against its CPU run. Then three command lines, each in
     its own process: ``run --mode sloppy`` (exit 1, the run dir's
-    files), ``recheck`` of that dir (exit 1, the same failing op), and
-    ``run`` (exit 0)."""
+    files) and ``run`` (exit 0), started together, then ``recheck`` of
+    the sloppy run's dir (exit 1, the same failing op)."""
     import tempfile
 
     from jepsen_tpu_torch import Linearizable, core, history, models, obs
@@ -2499,15 +2570,17 @@ def phase_run():
             f"{ {k: v for k, v in la.items() if v} }; every key agrees "
             f"with the CPU run")
 
-        # -- the command line, each in its own process --------------------
+        # -- the command line, each in its own process (both runs started
+        # together, then the recheck) ------------------------------------
         root = os.path.join(tmp, "cli")
         runs = {}
+        t0 = time.perf_counter()
+        started = {mode: cli_start(cli_args(
+            "run", "--suite", "register", "--time-limit",
+            str(RUN_TIME_LIMIT), "--store-root", os.path.join(root, mode),
+            "--mode", mode)) for mode in ("sloppy", "linearizable")}
         for mode, rc_want in (("sloppy", 1), ("linearizable", 0)):
-            args = ["run", "--suite", "register", "--time-limit",
-                    str(RUN_TIME_LIMIT), "--store-root", root]
-            if mode == "sloppy":
-                args += ["--mode", "sloppy"]
-            rc, out, info = cli_run(f"run {mode}", cli_args(*args))
+            rc, out, info = cli_finish(f"run {mode}", started[mode], t0)
             line = json.loads(out.strip().splitlines()[-1])
             if rc != rc_want or line["valid"] is not (rc_want == 0):
                 raise AssertionError(f"cli run {mode}: exit {rc} {line}")
@@ -2530,6 +2603,202 @@ def phase_run():
                 cli_line("recheck of the sloppy run dir", rc, res, info)
     log(f"run phase: {time.perf_counter() - t_phase:.1f} s")
 
+
+
+# -- the other suites of run ---------------------------------------------------
+
+# each suite at its builder's defaults (5 nodes, concurrency 5, its own
+# nemesis, 5 s), seed RUN_SEED
+SUITE_TIME_LIMIT = 5.0
+# the sub-checkers that judge the system (the others draw and count)
+SUITE_VERDICTS = ("linear", "set", "counter", "queue", "total-queue", "txn")
+SUITE_TXN_KEYS = ("valid", "anomalies", "edge-counts", "txns")
+
+
+def split_halves(cluster):
+    """The reference tests' permanent partition {n1, n2} | {n3, n4, n5},
+    installed before a sloppy run so that both sides serve it."""
+    for a in ("n1", "n2"):
+        for b in ("n3", "n4", "n5"):
+            cluster.drop_link(a, b)
+            cluster.drop_link(b, a)
+
+
+def suite_cases():
+    """``(label, build, model, verdict, kernel)`` for :func:`phase_suites`:
+    ``build()`` makes the test map (the check on the card), ``model`` is
+    the ``linear`` check's model (``"txn"`` for the txn check, None where
+    the test map has no device check), ``verdict`` the verdict the run
+    must reach (None: held only against the other engines) and
+    ``kernel`` the kernel its check must launch (a txn check launches K8
+    when its graph has edges)."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.suites import (counter, etcd, mutex, queue, redis,
+                                         set_suite, txn)
+
+    kw = dict(time_limit=SUITE_TIME_LIMIT, seed=RUN_SEED)
+
+    def partitioned_mutex():
+        t = mutex.mutex_test(mode="sloppy", with_nemesis=False, **kw)
+        split_halves(t["cluster"])
+        return t
+
+    cas = models.cas_register()
+    return [
+        ("mutex linearizable", lambda: mutex.mutex_test(**kw),
+         models.mutex(), True, "lane_walk"),
+        ("mutex sloppy, partitioned", partitioned_mutex, models.mutex(),
+         False, "lane_walk"),
+        ("set linearizable", lambda: set_suite.set_test(**kw),
+         models.bounded_set(12), True, None),
+        ("set sloppy", lambda: set_suite.set_test(mode="sloppy", **kw),
+         models.bounded_set(12), None, None),
+        ("counter linearizable", lambda: counter.counter_test(**kw), None,
+         True, None),
+        ("counter sloppy", lambda: counter.counter_test(mode="sloppy", **kw),
+         None, None, None),
+        ("queue safe", lambda: queue.queue_test(**kw), None, True, None),
+        ("queue safe universe=6", lambda: queue.queue_test(universe=6, **kw),
+         models.bounded_queue(6), True, None),
+        ("etcd linearizable", lambda: etcd.etcd_test(**kw), cas, True,
+         "lane_walk"),
+        ("etcd sloppy", lambda: etcd.etcd_test(mode="sloppy", **kw), cas,
+         None, "lane_walk"),
+        ("redis linearizable", lambda: redis.redis_test(**kw), cas, True,
+         "lane_walk"),
+        ("redis sloppy", lambda: redis.redis_test(mode="sloppy", **kw), cas,
+         None, "lane_walk"),
+        ("txn fake linearizable", lambda: txn.txn_test(**kw), "txn", True,
+         None),
+        ("txn fake sloppy", lambda: txn.txn_test(mode="sloppy", **kw), "txn",
+         None, None),
+    ]
+
+
+def suite_linear(label, lin, h, model, ledger):
+    """A suite's ``linear`` result against ``wgl-native`` on the same
+    history, and an invalid one against the port's CPU dense engine
+    (failing op and dead event); returns the route's text."""
+    from jepsen_tpu_torch import Linearizable
+
+    routes = [r for r in ledger if r["stage"] == "reach"
+              and r["event"] == "route"]
+    if len(routes) != 1:
+        raise AssertionError(f"suite {label}: routes {routes}")
+    route = routes[0]
+    t0 = time.perf_counter()
+    wgl = Linearizable(model, algorithm="wgl-native").check(None, h)
+    wgl_s = time.perf_counter() - t0
+    if wgl["valid"] is not lin["valid"]:
+        raise AssertionError(f"suite {label}: wgl-native {wgl['valid']}, "
+                             f"the card {lin['valid']}")
+    text = (f"route {route['engine']} (states {route['states']}, slots "
+            f"{route['slots']}), engine {lin.get('engine')}; wgl-native "
+            f"agrees ({wgl_s:.3f} s)")
+    if lin["valid"] is False:
+        t0 = time.perf_counter()
+        ref = Linearizable(model, algorithm="reach", device="cpu",
+                           opts={"should_abort": lambda: False}
+                           ).check(None, h)
+        same_result(f"suite {label}", lin, ref, ("valid", "op",
+                                                 "dead-event"))
+        text += (f"; failing op index {lin['op']['index']} dead event "
+                 f"{lin['dead-event']}, as the CPU dense engine finds them "
+                 f"({time.perf_counter() - t0:.3f} s)")
+    return text
+
+
+def phase_suites():
+    """The other suites of ``run`` on the card, in process, each at its
+    builder's defaults (:func:`suite_cases`): mutex (linearizable, and
+    sloppy under a permanent partition: invalid), set, counter, queue
+    (safe, and at ``universe=6``), etcd over HTTP, redis over RESP and
+    the list-append ``txn_test`` on the fake tier, in both modes. Each
+    ``linear`` result is held against ``wgl-native`` (and an invalid one
+    against the port's CPU dense engine), each ``txn`` result against
+    the host SCC on the same history; the kernels the checks must take
+    launched (K1 for mutex, etcd and redis, K8 for every txn graph with
+    edges), the set's and the queue's route recorded. Then ``run --suite
+    queue --mode sloppy`` (the broker's ``lossy``) and ``run --suite
+    mutex``, each in its own process, started together."""
+    import tempfile
+
+    from jepsen_tpu_torch import core, txn
+
+    t_phase = time.perf_counter()
+    for label, build, model, verdict, kernel in suite_cases():
+        t = build()
+        done, dt, la, spans, ledger = drive(lambda: core.run(t))
+        res, h = done["results"], done["history"]
+        subs = res["results"]
+        judged = {k: subs[k]["valid"] for k in SUITE_VERDICTS if k in subs}
+        if verdict is True and not all(v is True for v in judged.values()):
+            raise AssertionError(f"suite {label}: {judged}")
+        if model == "txn":
+            r = subs["txn"]
+            t0 = time.perf_counter()
+            host = txn.check_history(h, force_host=True)
+            same_txn(f"suite {label}", r, host, SUITE_TXN_KEYS)
+            if r["edges"]:
+                expect(f"suite {label}", la, txn_closure=None)
+            text = (f"txn {r['engine']}: {r['txns']} txns, {r['edges']} "
+                    f"edges {r['edge-counts']}, anomalies "
+                    f"{r.get('anomalies')}; the host SCC agrees "
+                    f"({time.perf_counter() - t0:.3f} s)")
+        elif model is not None:
+            lin = subs["linear"]
+            if verdict is False and lin["valid"] is not False:
+                raise AssertionError(f"suite {label}: {lin}")
+            text = suite_linear(label, lin, h, model, ledger)
+        else:
+            text = "no device check (host checkers only)"
+        if kernel is not None:
+            expect(f"suite {label}", la, **{kernel: None})
+        workers = spans["run.workers"]
+        walls = ", ".join(f"{k} {spans.get(k, 0.0):.4f} s" for k in RUN_SPANS
+                          if k in spans)
+        infos = sum(1 for op in h
+                    if op.type == "info" and op.process != "nemesis")
+        log(f"suite {label}: valid={res['valid']} "
+            f"{ {k: v.get('valid') for k, v in subs.items()} } ops={len(h)} "
+            f"info={infos}; workers {len(h) / workers:.1f} ops/s; spans "
+            f"{walls}; wall {dt:.4f} s; {text}; launches "
+            f"{ {k: v for k, v in la.items() if v} }")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-suites-") as tmp:
+        commands = ((["--suite", "queue", "--mode", "sloppy"],
+                     "queue-lossy"),
+                    (["--suite", "mutex"], "mutex-linearizable"))
+        t0 = time.perf_counter()
+        started = [cli_start(cli_args(
+            "run", *args, "--time-limit", str(SUITE_TIME_LIMIT), "--seed",
+            str(RUN_SEED), "--store-root", os.path.join(tmp, name)))
+            for args, name in commands]
+        for (args, name), proc in zip(commands, started):
+            rc, out, info = cli_finish(f"run {' '.join(args)}", proc, t0)
+            line = json.loads(out.strip().splitlines()[-1])
+            stored = json.load(open(os.path.join(line["dir"],
+                                                 "results.json")))
+            judged = {k: stored["results"][k]["valid"]
+                      for k in SUITE_VERDICTS if k in stored["results"]}
+            la = info["launches"]
+            if line["name"] != name or rc != (0 if line["valid"] is True
+                                              else 1) or \
+                    stored["valid"] is not line["valid"] or \
+                    line["valid"] is not all(
+                        v is True for v in judged.values()):
+                raise AssertionError(f"cli run {args}: exit {rc} {line} "
+                                     f"{judged}")
+            if name.startswith("mutex"):
+                if line["valid"] is not True:
+                    raise AssertionError(f"cli run {args}: {line}")
+                expect(f"cli run {args}", la, lane_walk=None)
+            log(f"cli run {' '.join(args)}: exit {rc} name={line['name']} "
+                f"valid={line['valid']} {judged} ops={line['ops']}; process "
+                f"{info['wall_s']:.3f} s, command {info['main_s']:.4f} s; "
+                f"launches K1 {la['lane_walk']} K2 {la['batch_walk']} K4 "
+                f"{la['wide_walk']}")
+    log(f"suites phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- online checking: run --online, the streaming monitor ---------------------
@@ -2644,10 +2913,12 @@ def phase_online():
 # -- the streaming session engines --------------------------------------------
 
 # the carry's histories (fixtures.gen_history "cas", processes=5, seed=0,
-# and the corrupted twins) and the append block, in ops
-CARRY_OPS, CARRY_BLOCK = 100_000, 256
-CARRY_CASES = (("cas-100k", {}, "lane_walk"),
-               ("wide cas-100k", WIDE_CAS, "wide_walk"))
+# and the corrupted twins; the wide feeds' time is their some 150 memo
+# rebuilds, which a shorter history does not cut) and the append block,
+# in ops
+CARRY_BLOCK = 256
+CARRY_CASES = (("cas-100k", {}, "lane_walk", 100_000),
+               ("wide cas-100k", WIDE_CAS, "wide_walk", 100_000))
 
 
 def carry_feed(eng, hist, times):
@@ -2683,10 +2954,10 @@ def phase_carry():
 
     t_phase = time.perf_counter()
     out = {}
-    for label, kw, kernel in CARRY_CASES:
+    for label, kw, kernel, n_ops in CARRY_CASES:
         for corrupt in (False, True):
             name = f"{'corrupted ' if corrupt else ''}{label}"
-            h = gen("cas", CARRY_OPS, 5, 0, corrupt=corrupt, **kw)
+            h = gen("cas", n_ops, 5, 0, corrupt=corrupt, **kw)
             host = online.NativeStreamEngine(models.cas_register())
             t_host = []
             t0 = time.perf_counter()
@@ -3307,21 +3578,32 @@ def main() -> int:
     res, dt, la, spans, _ = drive(lambda: linearizable(bad))
     expect("corrupted wide cas-100k", la, wide_walk=2, lane_walk=0,
            batch_walk=0, keyed_walk=0, wide_keyed=0)
+    if res["valid"] is not False or res["engine"] != "reach-pallas" or \
+            not res["final-configs"]:
+        raise AssertionError(f"corrupted wide cas-100k: {res}")
+    # against the CPU run on a shorter corrupted wide history (the CPU
+    # run's time grows with the history), which the card checks too
+    mid = gen("cas", WIDE_CPU_OPS, 5, 0, corrupt=True, **WIDE_CAS)
+    res_mid, dt_mid, la_mid, _, _ = drive(lambda: linearizable(mid))
+    expect(f"corrupted wide cas-{WIDE_CPU_OPS}", la_mid, wide_walk=2,
+           lane_walk=0, batch_walk=0, keyed_walk=0, wide_keyed=0)
     t0 = time.perf_counter()
-    ref = one_thread(lambda: linearizable(bad, device="cpu"))
+    ref = one_thread(lambda: linearizable(mid, device="cpu"))
     cpu_s = time.perf_counter() - t0
     for key in ("valid", "engine", "op", "dead-event", "max-linearized",
                 "final-configs", "previous-ok"):
-        if res.get(key) != ref.get(key):
-            raise AssertionError(f"corrupted wide cas-100k: {key} differs "
-                                 f"cuda={res.get(key)} cpu={ref.get(key)}")
-    if res["valid"] is not False or not res["final-configs"]:
-        raise AssertionError(f"corrupted wide cas-100k: {res}")
+        if res_mid.get(key) != ref.get(key):
+            raise AssertionError(f"corrupted wide cas-{WIDE_CPU_OPS}: {key} "
+                                 f"differs cuda={res_mid.get(key)} "
+                                 f"cpu={ref.get(key)}")
+    if res_mid["valid"] is not False or not res_mid["final-configs"]:
+        raise AssertionError(f"corrupted wide cas-{WIDE_CPU_OPS}: {res_mid}")
     log(f"main path corrupted wide cas-100k: {res['engine']} "
         f"valid={res['valid']} dead-event={res['dead-event']} {dt:.4f} s on "
         f"cuda ({split(dt, spans)}; launches {la}: the walk and the "
-        f"witness prefix), {cpu_s:.3f} s on cpu; verdict, op, dead event "
-        f"and witness agree")
+        f"witness prefix); corrupted wide cas-{WIDE_CPU_OPS}: dead-event="
+        f"{res_mid['dead-event']} {dt_mid:.4f} s on cuda, {cpu_s:.3f} s on "
+        f"cpu; verdict, op, dead event and witness agree")
 
     # the union's 41 states are outside K2's envelope: the native keyed
     # lane on K5; every key has at most 32 states of its own, so K1
@@ -3344,6 +3626,10 @@ def main() -> int:
 
     # -- the test runner ------------------------------------------------
     phase_run()
+
+    # -- the other suites of run: mutex, set, counter, queue, etcd, redis,
+    # txn ---------------------------------------------------------------
+    phase_suites()
 
     # -- online checking and the streaming session engines: K9 ---------
     phase_online()

@@ -15,9 +15,12 @@ else 1; a fault in a check prints its traceback and exits 1.
 for the plain PyTorch versions; without a card the default fails with
 the port's :func:`~jepsen_tpu_torch.device.default_device` error (exit
 2) before anything runs (``run`` generates no op), and nothing runs on
-the CPU by itself. ``run`` takes the register suites (``register``,
-``register-independent``), with ``--online`` watching the history while
-it streams and ending the run at the first violation; the other suites,
+the CPU by itself. ``run`` takes every suite of the reference's:
+``register``, ``register-independent``, ``mutex``, ``set``,
+``counter``, ``queue`` (``--mode sloppy`` is the broker's ``lossy``),
+``etcd`` (over HTTP) and ``redis`` (over RESP), with ``--online``
+watching the history while it streams and ending the run at the first
+violation (a suite whose test map has no model only logs a warning);
 ``serve`` and ``check-serve`` are not ported yet and exit 2 naming
 their ``ROADMAP.md`` item.
 """
@@ -36,9 +39,6 @@ _NOT_PORTED = {
     "check-serve": "'check-serve' (the checking daemon) is not ported yet "
                    "(ROADMAP.md, Queue 1 item 3)",
 }
-
-
-_SUITES_NOT_PORTED = ("mutex", "queue", "set", "counter", "etcd", "redis")
 
 
 def _add_common(ap: argparse.ArgumentParser) -> None:
@@ -66,13 +66,13 @@ def _nodes_from(args) -> Optional[list]:
     return None
 
 
-def _run_not_ported(args) -> Optional[str]:
-    """Why ``run`` cannot take these arguments yet, or None."""
-    if args.suite in _SUITES_NOT_PORTED:
-        return (f"suite {args.suite!r} is not ported yet (ROADMAP.md, "
-                f"Queue 1 item 15); this port runs 'register' and "
-                f"'register-independent'")
-    return None
+def _suite_mode(mode: str, cluster_cls) -> str:
+    """Translate the CLI's linearizable/sloppy vocabulary positionally
+    through a fake-system class's ``MODES`` (first = safe, second =
+    deliberately buggy) — e.g. sloppy → FakeBroker's "lossy"."""
+    from jepsen_tpu_torch.fake import FakeCluster
+    base = FakeCluster.MODES
+    return cluster_cls.MODES[base.index(mode)] if mode in base else mode
 
 
 def _cmd_run(args, dev) -> int:
@@ -80,7 +80,10 @@ def _cmd_run(args, dev) -> int:
     in-process fake cluster, then the check on ``dev``. One JSON line a
     run; exit 0 when every run is valid, else 1."""
     from jepsen_tpu_torch import core
-    from jepsen_tpu_torch.suites import register
+    from jepsen_tpu_torch.fake import FakeBroker
+    from jepsen_tpu_torch.suites import (counter as counter_suite, etcd,
+                                         mutex, queue, redis, register,
+                                         set_suite)
 
     logging.basicConfig(
         level=logging.INFO,
@@ -95,6 +98,36 @@ def _cmd_run(args, dev) -> int:
         "register-independent": lambda: register.independent_test(
             mode=args.mode, concurrency=args.concurrency,
             seed=args.seed, store=True, device=dev),
+        "mutex": lambda: mutex.mutex_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True,
+            algorithm=args.algorithm, nodes=nodes or 5, device=dev),
+        "queue": lambda: queue.queue_test(
+            mode=_suite_mode(args.mode, FakeBroker),
+            time_limit=args.time_limit, concurrency=args.concurrency,
+            seed=args.seed, with_nemesis=not args.no_nemesis, store=True,
+            nodes=nodes or 5, device=dev),
+        "set": lambda: set_suite.set_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True, nodes=nodes or 5,
+            device=dev),
+        "counter": lambda: counter_suite.counter_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True, nodes=nodes or 5,
+            device=dev),
+        "etcd": lambda: etcd.etcd_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True,
+            algorithm=args.algorithm, nodes=nodes or 5, device=dev),
+        "redis": lambda: redis.redis_test(
+            mode=args.mode, time_limit=args.time_limit,
+            concurrency=args.concurrency, seed=args.seed,
+            with_nemesis=not args.no_nemesis, store=True,
+            algorithm=args.algorithm, nodes=nodes or 5, device=dev),
     }
     if args.suite not in builders:
         print(f"unknown suite {args.suite!r}; have {sorted(builders)}",
@@ -237,7 +270,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     runp = sub.add_parser("run", help="run a test suite")
     _add_common(runp)
     runp.add_argument("--suite", default="register",
-                      help="'register' or 'register-independent'")
+                      help="register, register-independent, mutex, set, "
+                           "counter, queue, etcd or redis")
     runp.add_argument("--mode", default="linearizable",
                       choices=["linearizable", "sloppy"])
     runp.add_argument("--algorithm", default="auto")
@@ -286,11 +320,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"jepsen_tpu_torch: {_NOT_PORTED[argv[0]]}", file=sys.stderr)
         return 2
     args = ap.parse_args(argv)
-    if args.cmd == "run":
-        why = _run_not_ported(args)
-        if why:
-            print(f"jepsen_tpu_torch: {why}", file=sys.stderr)
-            return 2
     from jepsen_tpu_torch import device as _device
     try:
         dev = _device.resolve(args.device)

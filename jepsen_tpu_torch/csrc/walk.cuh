@@ -737,8 +737,16 @@ int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
   if (err != cudaSuccess) return (int)err;
   int threads = 32;
   if (!warp) {
+    // a thread a (mask, word) pair, as many as the instance's registers
+    // let one block launch (the block form's loops stride by
+    // blockDim.x): K4 and K5 at 2^W * NW >= 1024 would otherwise ask
+    // for more registers than a block has (cudaErrorLaunchOutOfResources)
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
     threads = ((1 << a.W) * g.NW + 31) / 32 * 32;
-    if (threads > 1024) threads = 1024;
+    const int cap = attr.maxThreadsPerBlock / 32 * 32;
+    if (threads > cap) threads = cap;
   }
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();

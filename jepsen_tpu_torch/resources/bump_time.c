@@ -1,4 +1,5 @@
-/* Clock-fault helper, compiled on DB nodes by jepsen_tpu.nemesis.ClockNemesis
+/* Clock-fault helper, compiled on DB nodes by
+ * jepsen_tpu_torch.nemesis.ClockNemesis
  * (role of the upstream jepsen resources/bump-time.c; independent
  * implementation).
  *

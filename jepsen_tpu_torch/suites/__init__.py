@@ -1,8 +1,9 @@
 """Per-DB test suites — upstream top-level dirs (``etcd/``, ``zookeeper/``
 …), each a small project wiring client + db + generator + checker into a
 test map. Here: exemplar suites against the in-proc fake cluster (and
-real systems when reachable). The port has the register suites
-(:mod:`.register`); the others are not ported yet."""
+real systems when reachable): :mod:`.register`, :mod:`.mutex`,
+:mod:`.set_suite`, :mod:`.counter`, :mod:`.queue`, :mod:`.etcd` (HTTP),
+:mod:`.redis` (RESP) and the list-append :mod:`.txn`."""
 from __future__ import annotations
 
 from typing import Optional

@@ -330,15 +330,30 @@ def test_run_without_card_exits_2_before_any_op(monkeypatch, tmp_path,
     assert os.listdir(tmp_path) == []
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--online", "--suite", "set"], "Queue 1 item 15"),
-    (["--suite", "mutex"], "Queue 1 item 15"),
-    (["--suite", "queue", "--device", "cpu"], "Queue 1 item 15"),
-    (["--suite", "etcd"], "Queue 1 item 15")])
-def test_run_not_ported_yet_exits_2(args, item, tmp_path, capsys):
-    rc = cli_pt.main(["run", "--store-root", str(tmp_path)] + args)
-    assert rc == 2 and item in capsys.readouterr().err
-    assert os.listdir(tmp_path) == []
+@pytest.mark.parametrize("args,name", [
+    (["--online", "--suite", "set"], "set-linearizable"),
+    (["--suite", "mutex"], "mutex-linearizable"),
+    (["--suite", "queue"], "queue-safe"),
+    (["--suite", "etcd"], "etcd-linearizable")])
+def test_run_not_ported_yet_exits_2(args, name, tmp_path, capsys, caplog):
+    """Each suite of the reference's ``run``, on the port with ``--device
+    cpu``: the reference's exit code and JSON line, its run dir's files;
+    ``--online`` on a suite whose test map has no model only logs the
+    reference's warning."""
+    args = ["run", "--time-limit", "1", "--seed", "5"] + args
+    rc_ref, out_ref = _run(cli_ref.main, args + [
+        "--store-root", str(tmp_path / "ref")], capsys)
+    rc_pt, out_pt = _run(cli_pt.main, args + [
+        "--store-root", str(tmp_path / "pt")] + CPU, capsys)
+    line, want = _one(out_pt), _one(out_ref)
+    assert rc_pt == rc_ref == 0
+    assert set(line) == set(want) == RUN_KEYS
+    assert line["name"] == want["name"] == name
+    assert line["valid"] is want["valid"] is True and line["ops"] > 0
+    assert sorted(os.listdir(line["dir"])) == sorted(os.listdir(want["dir"]))
+    warned = [r for r in caplog.records if "jepsen_tpu_torch" in r.pathname
+              and "online-check requested" in r.getMessage()]
+    assert len(warned) == ("--online" in args)
 
 
 def test_run_check_fault_exits_with_traceback(tmp_path):
