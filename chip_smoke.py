@@ -1,6 +1,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve 256     # the daemon's phase alone
+
+With ``--serve N`` it builds the kernels and runs only ``phase_serve``,
+with N cas requests (and ``min(N, 64)`` again at ``pipeline_k`` 1 and
+4): the daemon's measurement at a traffic the full run has no time for.
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
@@ -14,9 +19,8 @@ user's entry points and checks the results:
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
   one against K1, with no torch returns walk: K1 reports the dead
   return itself; its walk split stage by stage,
-  ``tools/walk_split.py``; and a corrupted 48,000-op history, just past
-  chunk-lockstep's floor, against the CPU run), and on a 1,000,000-op
-  one;
+  ``tools/walk_split.py``), and on a 1,000,000-op one (generated in a
+  worker process while the kernels are checked);
 - the same on a 30,000-op history, below chunk-lockstep's floor (K1);
   K1 and K2 walk P's nibble image tables, built by one
   ``pack_tables`` launch and copied into each block's shared memory
@@ -107,7 +111,7 @@ user's entry points and checks the results:
   bit for bit against their plain version;
 - the test runner (:func:`phase_run`): ``core.run`` of the register
   suite at the README command's width (5 nodes, concurrency 5, the
-  partition nemesis, 10 s), linearizable (valid, as ``wgl-native`` finds
+  partition nemesis, :data:`RUN_TIME_LIMIT` s), linearizable (valid, as ``wgl-native`` finds
   it on the same history) and sloppy (invalid at the CPU dense engine's
   failing op and dead event, ``wgl-native`` agreeing, ``linear.svg``
   written), each with its route (K1 below chunk-lockstep's floor) and
@@ -116,7 +120,8 @@ user's entry points and checks the results:
   dir's files), ``recheck`` of that dir (exit 1, the same failing op)
   and ``run`` (exit 0), each in its own process;
 - the other suites of ``run`` (:func:`phase_suites`), each at its
-  builder's defaults (5 nodes, concurrency 5, its own nemesis, 5 s):
+  builder's defaults (5 nodes, concurrency 5, its own nemesis,
+  :data:`SUITE_TIME_LIMIT` s):
   mutex (linearizable; sloppy under a permanent partition, invalid),
   set, counter, queue (safe, and ``universe=6``), etcd over HTTP, redis
   over RESP and the list-append ``txn_test`` (fake tier), in both
@@ -152,7 +157,10 @@ the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
 all of them), no CPU run at the long keys, the wide CPU run at
 :data:`WIDE_CPU_OPS` ops, no CPU run of the chain's three valid checks
 whose corrupted twins take the same walk on the CPU; the command lines
-started in batches.
+started in batches; no CPU run of a corrupted cas-48k; the runner's runs
+at :data:`RUN_TIME_LIMIT` and the suites' at :data:`SUITE_TIME_LIMIT`
+seconds; the cas-1M history and the check daemon's traffic generated
+by worker processes (:func:`pool`) while the kernels are checked.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
 (:func:`event_ms`, the wrapper's host work included), and for the short
@@ -197,9 +205,6 @@ ONE_KEY_OPS = 30_000
 # check_batch: the bench's batch rung (32 cas-100k histories from
 # fixtures.gen_packed), and 8 cas-30k histories, two corrupted
 BATCH_N = 32
-# the corrupted history the CPU run holds chunk-lockstep's answer against
-# (35,133 returns: just past reach_chunklock.MIN_RETURNS)
-CPU_REF_OPS = 48_000
 # the corrupted wide (40-value) history the CPU run holds K4's answer
 # against; the card also checks the corrupted wide cas-100k alone
 WIDE_CPU_OPS = 30_000
@@ -273,6 +278,24 @@ def gen(kind, n_ops, processes, seed, corrupt=False, **kw):
     h = fixtures.gen_history(kind, n_ops=n_ops, processes=processes,
                              seed=seed, **kw)
     return fixtures.corrupt(h, seed=seed) if corrupt else h
+
+
+# worker processes that generate histories while the main process checks
+# kernels (history generation is Python, one core a history); created by
+# pool(), shut down at exit
+POOL = None
+
+
+def pool():
+    global POOL
+    if POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        POOL = ProcessPoolExecutor(
+            max_workers=max(1, min(2, (os.cpu_count() or 2) - 2)),
+            mp_context=multiprocessing.get_context("spawn"))
+    return POOL
 
 
 def event_ms(fn, n: int) -> float:
@@ -2403,7 +2426,7 @@ def phase_cli():
 # -- the test runner (python -m jepsen_tpu_torch run) -----------------------
 
 # the README's command: 5 nodes, concurrency 5, the partition nemesis
-RUN_TIME_LIMIT, RUN_SEED = 10.0, 7
+RUN_TIME_LIMIT, RUN_SEED = 5.0, 7
 RUN_SPANS = ("run.setup", "run.workers", "run.teardown", "run.check",
              "run.store")
 RUN_FILES = ("test.json", "results.json", "results.edn", "history.jsonl",
@@ -2608,8 +2631,8 @@ def phase_run():
 # -- the other suites of run ---------------------------------------------------
 
 # each suite at its builder's defaults (5 nodes, concurrency 5, its own
-# nemesis, 5 s), seed RUN_SEED
-SUITE_TIME_LIMIT = 5.0
+# nemesis, SUITE_TIME_LIMIT seconds), seed RUN_SEED
+SUITE_TIME_LIMIT = 4.0
 # the sub-checkers that judge the system (the others draw and count)
 SUITE_VERDICTS = ("linear", "set", "counter", "queue", "total-queue", "txn")
 SUITE_TXN_KEYS = ("valid", "anomalies", "edge-counts", "txns")
@@ -2822,6 +2845,521 @@ def online_replay(hist, found):
     eng = online.NativeStreamEngine(models.cas_register())
     eng.feed_many(hist[:found["prefix-ops"]])
     return eng.advance() or eng.tail_alarm() or eng.advance(run_over=True)
+
+
+# -- the check daemon ----------------------------------------------------------
+
+# phase_serve's traffic: SERVE_N cas histories of SERVE_OPS ops (seeds 0
+# to SERVE_N - 1, every eighth corrupted) POSTed by SERVE_TENANTS tenant
+# threads, SERVE_CHUNK a worker task; SERVE_RERUN of them again at each
+# pipeline window; a group of SERVE_WIDE_N wide multi-register histories
+# of SERVE_WIDE_OPS ops queued before the lanes start (one K5 group).
+# The HTTP threads' admission (parse, pack, the journal's EDN copy of
+# the history) and the lane's host work share the interpreter lock, which
+# bounds the daemon at about 2 requests/s of this traffic: 256 requests
+# take some 115 s, so the full run's depth is cut to SERVE_N (and
+# SERVE_RERUN); ``--serve 256`` runs the phase alone at that traffic
+# (PERF.md sections 5 and 6)
+SERVE_N, SERVE_OPS, SERVE_TENANTS, SERVE_CHUNK = 40, (2_000, 10_000), 8, 8
+SERVE_RERUN = 8
+SERVE_WIDE_N, SERVE_WIDE_OPS = 8, 5_000
+# the `check` command's time on cas-100k (PERF.md section 5)
+CHECK_COMMAND_S = 5.4661
+SERVE_KEYS = ("valid", "op", "dead-event", "max-linearized",
+              "final-configs", "previous-ok")
+# the route each singleton takes from inside the daemon: cas-100k on
+# chunk-lockstep (two K2 launches), cas-30k on K1, the wide cas-100k on K4
+SERVE_ROUTES = {"cas-100k": "reach-chunklock", "cas-30k": "reach-lane",
+                "wide cas-100k": "reach-pallas"}
+# the host time of the daemon's parts (seconds, summed over the run):
+# admission on the HTTP threads, the lane's stage, collect, blocking
+# checks, publish and stats file
+SERVE_HOST = ("serve.admit.parse_s", "serve.admit.pack_s",
+              "serve.admit.journal_s", "serve.lane.stage_s",
+              "lockstep.union_prep_s", "lockstep.marshal_s",
+              "serve.lane.collect_s", "lockstep.fetch_s",
+              "lockstep.results_s", "serve.lane.check_s",
+              "serve.lane.publish_s", "serve.lane.stats_s")
+
+
+def gen_to_file(path, *args):
+    """A worker task: :func:`gen` ``(*args)`` pickled into ``path`` (the
+    main process loads it where it is used: a result handed back through
+    the pool would be unpickled on the pool's thread, holding the
+    interpreter lock while the kernel phases run)."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(gen(*args), f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+def load_pickle(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        out = pickle.load(f)
+    os.unlink(path)
+    return out
+
+
+def serve_ops(seed: int, lo: int, hi: int) -> int:
+    """The length of the serve phase's history ``seed``: spread over
+    ``[lo, hi]``."""
+    return lo + (seed * 7_919) % (hi - lo + 1)
+
+
+def serve_bodies(seeds, lo: int, hi: int, tenants: int):
+    """A worker task: the serve phase's cas histories ``seeds``, each as
+    ``(seed, its POST body, its packed history)``."""
+    from jepsen_tpu_torch import history
+
+    out = []
+    for s in seeds:
+        h = gen("cas", serve_ops(s, lo, hi), 5, s, corrupt=s % 8 == 7)
+        body = json.dumps({"model": "cas-register",
+                           "tenant": f"tenant-{s % tenants}",
+                           "history": [o.to_dict() for o in h]}).encode()
+        out.append((s, body, history.pack(h)))
+    return out
+
+
+def serve_submit():
+    """Start generating the serve phase's traffic in the pool."""
+    return [pool().submit(serve_bodies, range(i, min(i + SERVE_CHUNK,
+                                                     SERVE_N)),
+                          *SERVE_OPS, SERVE_TENANTS)
+            for i in range(0, SERVE_N, SERVE_CHUNK)]
+
+
+def http_json(url, method="GET", body=None, ctype="application/json"):
+    """``(status, parsed body)`` of one request to the daemon."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_wait(url, ids, timeout=600.0):
+    """Poll ``GET /check/<id>`` until each request is terminal: ``{id:
+    (status code, body)}`` and when the last one was seen done."""
+    out, pending = {}, list(ids)
+    end = time.monotonic() + timeout
+    while pending:
+        if time.monotonic() > end:
+            raise AssertionError(f"serve: {len(pending)} requests never "
+                                 f"finished")
+        rest = []
+        for rid in pending:
+            code, st = http_json(f"{url}/check/{rid}")
+            if st.get("status") in ("queued", "dispatched"):
+                rest.append(rid)
+            else:
+                out[rid] = (code, st)
+        pending = rest
+        if pending:
+            time.sleep(0.02)
+    return out, time.perf_counter()
+
+
+def serve_post_all(url, bodies):
+    """POST ``bodies`` (``(key, bytes, content type)``) from
+    :data:`SERVE_TENANTS` threads, body i on thread i mod the tenants,
+    each retried after its ``Retry-After`` on a 429: ``{key: id}``, the
+    first POST's time and the 429s."""
+    import threading
+
+    ids, errs, t_first, n429 = {}, [], [], [0]
+    lock = threading.Lock()
+
+    def tenant(t):
+        try:
+            for key, body, ctype in bodies[t::SERVE_TENANTS]:
+                with lock:
+                    if not t_first:
+                        t_first.append(time.perf_counter())
+                code, resp = http_json(f"{url}/check", "POST", body, ctype)
+                while code == 429:
+                    with lock:
+                        n429[0] += 1
+                    time.sleep(float(resp.get("retry-after-s", 1.0)))
+                    code, resp = http_json(f"{url}/check", "POST", body,
+                                           ctype)
+                if code != 202:
+                    raise AssertionError(f"serve POST {key}: {code} {resp}")
+                ids[key] = resp["id"]
+        except Exception as e:                          # noqa: BLE001
+            errs.append(e)
+
+    threads = [threading.Thread(target=tenant, args=(t,))
+               for t in range(SERVE_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    return ids, t_first[0], n429[0]
+
+
+def serve_norm(res, keys=SERVE_KEYS):
+    """A result's verdict fields as JSON would carry them (the witness
+    configs sorted)."""
+    out = {}
+    for k in keys:
+        v = res.get(k)
+        if k == "final-configs" and v is not None:
+            v = sorted(json.dumps(c, sort_keys=True, default=str) for c in v)
+        out[k] = json.loads(json.dumps(v, sort_keys=True, default=str))
+    return out
+
+
+def serve_process(root):
+    """``python -m jepsen_tpu_torch check-serve --port 0`` on ``root``:
+    ``(process, base url)`` once its first line names its port."""
+    os.makedirs(root, exist_ok=True)
+    err = open(os.path.join(root, "check-serve.stderr"), "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch",
+         *cli_args("check-serve", "--port", "0", "--store-root", root)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    return proc
+
+
+def serve_process_url(proc):
+    line = proc.stdout.readline()
+    m = re.search(r"http://([^/]+)/", line)
+    if m is None:
+        proc.kill()
+        raise AssertionError(f"check-serve: first line {line!r}")
+    return f"http://{m.group(1)}"
+
+
+def serve_process_stop(label, proc):
+    """SIGTERM, then exit 0 with the clean-shutdown line last."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=120)
+    last = json.loads(out.strip().splitlines()[-1])
+    if proc.returncode != 0 or last.get("shutdown") != "clean":
+        raise AssertionError(f"check-serve {label}: exit {proc.returncode}"
+                             f" {last.get('shutdown')}")
+    return last
+
+
+def phase_serve(singles, futures):
+    """The check daemon on the card (:class:`serve.Daemon` in process,
+    the defaults: group 32, one lane, ``pipeline_k`` 4): the serve
+    phase's cas histories (``futures``, from the pool) and ``singles``
+    (cas-100k on chunk-lockstep, cas-30k on K1, wide cas-100k on K4, the
+    6,003-txn history on K8) POSTed by :data:`SERVE_TENANTS` tenant
+    threads over loopback, after a group of wide multi-register
+    histories queued before the lanes start (K5); cas-100k last, alone
+    on the idle daemon. Every verdict against
+    the standalone chain on the card, the invalid ones' verdict against
+    ``wgl-native``; no result degraded or an error, no retry, no breaker
+    route to the host, no device fault, groups staged, and K1, K2, K4,
+    K5 and K8 launched from inside the daemon. Then SERVE_RERUN of the
+    cas requests at ``pipeline_k`` 1 and 4 (the same verdicts), and a
+    ``check-serve`` process: four requests (a profiler capture of its
+    first dispatch), SIGTERM (exit 0), a restart
+    on its store root that replays nothing and answers from its
+    journal."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    procs = []
+    try:
+        serve_body(singles, futures, tmp, procs, t_phase)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_body(singles, futures, tmp, procs, t_phase):
+    """:func:`phase_serve`'s checks; the processes it starts go into
+    ``procs``."""
+    from jepsen_tpu_torch import history, models, obs, serve
+    from jepsen_tpu_torch.checkers import facade, wgl_native
+    from jepsen_tpu_torch.serve.http import parse_check_body
+
+    dev = None if CARD == "cuda" else CARD
+    # the daemon passes an abort hook to every check; the standalone
+    # chain gets one too, so that both take the same route
+    kw = {"device": CARD, "should_abort": lambda: False}
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into the phase]"
+    proc = serve_process(os.path.join(tmp, "process"))
+    procs.append(proc)
+    traffic = [x for f in futures for x in f.result()]
+    log(f"serve traffic: {len(traffic)} cas histories of {SERVE_OPS[0]}-"
+        f"{SERVE_OPS[1]} ops, generated by worker processes, waited "
+        f"{time.perf_counter() - t_phase:.2f} s for them")
+    # JSON turns the multi-register values' integer keys into strings
+    # (EDN would keep them, at 1.2 s a parse): the standalone chain checks
+    # the histories as the daemon reads them
+    wide_bodies = [json.dumps({
+        "model": "multi-register", "tenant": f"tenant-{i}",
+        "history": [o.to_dict() for o in gen(
+            "multi", SERVE_WIDE_OPS, 5, 100 + i, corrupt=i == 3,
+            **WIDE_MULTI)]}).encode() for i in range(SERVE_WIDE_N)]
+    # the wide cas-100k names the engines' default max_states: the same
+    # walk, and an option set of its own, so that it does not coalesce
+    # with the cas-100k of the same length (requests coalesce by model,
+    # options and length)
+    opts = {"wide cas-100k": {"max_states": 100_000}}
+    singles_body = {name: json.dumps({
+        "model": model, "tenant": "tenant-big", "options": opts.get(name, {}),
+        "history": [o.to_dict() for o in h]}).encode()
+        for name, (model, h) in singles.items()}
+
+    d = serve.Daemon(port=0, store_root=os.path.join(tmp, "in-process"),
+                     device=dev)
+    d.start(dispatch=False)
+    url = f"http://127.0.0.1:{d.port}"
+    # queued before the lanes start, so that they coalesce into one
+    # group; POST /profile: torch.profiler around the first dispatch
+    wide_ids = {f"wide-{i}": http_json(f"{url}/check", "POST", b)[1]["id"]
+                for i, b in enumerate(wide_bodies)}
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    c0, h0 = obs.counters(), obs.histograms()
+    t0 = time.perf_counter()
+    d.dispatcher.start()
+    warm_s = time.perf_counter() - t0
+    bodies = [(name, b, "application/json")
+              for name, b in singles_body.items() if name != "cas-100k"]
+    bodies += [(s, b, "application/json") for s, b, _p in traffic]
+    ids, t_first, n429 = serve_post_all(url, bodies)
+    ids.update(wide_ids)
+    done, t_last = serve_wait(url, ids.values())
+    # cas-100k alone on the idle daemon: parse, pack and check
+    t_big = time.perf_counter()
+    code, resp = http_json(f"{url}/check", "POST", singles_body["cas-100k"])
+    ids["cas-100k"] = resp["id"]
+    big_done, t_big1 = serve_wait(url, [resp["id"]])
+    done.update(big_done)
+    torch.cuda.synchronize()
+    la = launches()
+    c1, h1 = obs.counters(), obs.histograms()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    for name, n in la.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    expect("serve", la, lane_walk=None, batch_walk=None, wide_walk=None,
+           wide_keyed=None, txn_closure=None)
+    delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in set(c1) | set(c0)}
+    for key in ("serve.retry.attempts", "serve.breaker.degraded_dispatches",
+                "serve.device_faults", "serve.errors"):
+        if delta.get(key, 0):
+            raise AssertionError(f"serve: {key} = {delta[key]}")
+    if delta.get("pipeline.staged", 0) < 1:
+        raise AssertionError(f"serve: no group staged {delta}")
+    res = {}
+    for key, rid in ids.items():
+        code, st = done[rid]
+        if code != 200 or st["status"] != "done"                 or st["result"].get("degraded"):
+            raise AssertionError(f"serve {key}: {code} {st.get('status')} "
+                                 f"{st.get('result')}")
+        res[key] = st
+    d.shutdown()
+    log(f"serve traffic done{at()}")
+
+    # the standalone chain on the card, and wgl-native for the invalid
+    std = dict(zip([s for s, _b, _p in traffic],
+                   facade.auto_check_many_packed(
+                       models.cas_register(), [p for _s, _b, p in traffic],
+                       kw)))
+    for name, r in zip(wide_ids, facade.auto_check_many_packed(
+            models.multi_register(), [history.pack(parse_check_body(
+                b, "application/json")[2]) for b in wide_bodies], kw)):
+        std[name] = r
+    txn_keys = ("valid", "anomalies", "anomaly", "witness", "edges",
+                "edge-counts", "txns")
+    for name, (model, h) in singles.items():
+        if model == "txn-list-append":
+            std[name] = facade.auto_check_txn(h, kw)
+        else:
+            std[name] = facade.auto_check_packed(
+                getattr(models, model.replace("-", "_"))(), history.pack(h),
+                dict(kw, **opts.get(name, {})))
+    n_bad = n_same_op = 0
+    for key, st in res.items():
+        keys = txn_keys if key == "txn" else SERVE_KEYS
+        if not isinstance(key, int):
+            # a singleton's or the wide group's route is the standalone
+            # chain's; the cas traffic's groups depend on its timing
+            keys += ("engine",)
+        got, want = serve_norm(st["result"], keys), serve_norm(std[key],
+                                                                keys)
+        if got != want:
+            raise AssertionError(f"serve {key}: the daemon's {got} differs "
+                                 f"from the standalone chain's {want}")
+        if st["result"]["valid"] is False and key in std \
+                and isinstance(key, int):
+            n_bad += 1
+            p = traffic[key][2]
+            # wgl-native's verdict; its op is the one its search could
+            # not place, the dense engine's the return that empties the
+            # set, so they may differ (counted, as phase_run does)
+            w = wgl_native.check_packed(models.cas_register(), p)
+            if w["valid"] is not False:
+                raise AssertionError(f"serve {key}: wgl-native {w}")
+            n_same_op += serve_norm(w, ("op",)) == serve_norm(
+                st["result"], ("op",))
+    if n_bad != sum(1 for s, _b, _p in traffic if s % 8 == 7):
+        raise AssertionError(f"serve: {n_bad} invalid cas histories")
+    routes = {k: res[k]["result"].get("engine") for k in SERVE_ROUTES}
+    if routes != SERVE_ROUTES:
+        raise AssertionError(f"serve: the singletons' routes {routes}")
+
+    wall = t_last - t_first
+    n_req = len(ids) - 1
+    e2e = obs.hist_delta(h1.get("serve.e2e_s"), h0.get("serve.e2e_s"))
+    qw = obs.hist_delta(h1.get("serve.queue_wait_s"),
+                        h0.get("serve.queue_wait_s"))
+    dw = obs.hist_delta(h1.get("serve.dispatch_wall_s"),
+                        h0.get("serve.dispatch_wall_s"))
+    lat = sorted((res[k]["submitted-at"], res[k]["latency-s"])
+                 for k in ids if isinstance(k, int))
+    steady = float(np.median([x for _t, x in lat[1:]]))
+    engines = {}
+    for k, st in res.items():
+        e = st["result"].get("engine", "?")
+        engines[e] = engines.get(e, 0) + 1
+    log(f"serve in process (group 32, 1 lane, pipeline_k 4; warm start "
+        f"{warm_s:.3f} s before the lanes took work): {n_req} requests "
+        f"({len(traffic)} cas {SERVE_OPS[0]}-{SERVE_OPS[1]} ops, "
+        f"{n_bad} invalid as wgl-native finds them, {n_same_op} at its "
+        f"failing op; {', '.join(singles)}; "
+        f"{SERVE_WIDE_N} wide multi-register of {SERVE_WIDE_OPS} ops; "
+        f"then cas-100k alone) in {wall:.3f} s = {n_req / wall:.2f} "
+        f"requests/s before cas-100k ({n429} POSTs "
+        f"answered 429 and retried); every verdict as the standalone "
+        f"chain's on the card; engines {engines}{at()}")
+    log(f"serve latency: e2e p50 {obs.hist_quantile(e2e, 0.5):.4f} s, p99 "
+        f"{obs.hist_quantile(e2e, 0.99):.4f} s ({e2e['count']} done); "
+        f"queue wait p50 {obs.hist_quantile(qw, 0.5):.4f} s; the first "
+        f"cas request {lat[0][1]:.4f} s against the rest's median "
+        f"{steady:.4f} s; cas-100k alone {res['cas-100k']['latency-s']:.4f}"
+        f" s in the daemon, {t_big1 - t_big:.4f} s from its POST to its "
+        f"verdict (the check command: {CHECK_COMMAND_S} s, PERF.md), cas-30k "
+        f"{res['cas-30k']['latency-s']:.4f} s, wide cas-100k "
+        f"{res['wide cas-100k']['latency-s']:.4f} s, txn "
+        f"{res['txn']['latency-s']:.4f} s")
+    host = {k: delta.get(k, 0.0) for k in SERVE_HOST}
+    admit = sum(host[k] for k in SERVE_HOST[:3])
+    lane = sum(host[k] for k in ("serve.lane.stage_s", "serve.lane.collect_s",
+                                 "serve.lane.check_s", "serve.lane.publish_s",
+                                 "serve.lane.stats_s"))
+    parts = {k: v for k, v in host.items()
+             if k not in ("serve.lane.stage_s", "serve.lane.collect_s")}
+    top = sorted(parts.items(), key=lambda kv: -kv[1])[:3]
+    log(f"serve host time: admission {admit:.4f} s on the HTTP threads "
+        f"(parse {host['serve.admit.parse_s']:.4f}, pack "
+        f"{host['serve.admit.pack_s']:.4f}, journal "
+        f"{host['serve.admit.journal_s']:.4f}); the lane {lane:.4f} s (stage "
+        f"{host['serve.lane.stage_s']:.4f}: union prep "
+        f"{host['lockstep.union_prep_s']:.4f}, marshal and launch "
+        f"{host['lockstep.marshal_s']:.4f}; collect "
+        f"{host['serve.lane.collect_s']:.4f}: fetch "
+        f"{host['lockstep.fetch_s']:.4f}, results "
+        f"{host['lockstep.results_s']:.4f}; blocking checks "
+        f"{host['serve.lane.check_s']:.4f}; publish "
+        f"{host['serve.lane.publish_s']:.4f}; stats file "
+        f"{host['serve.lane.stats_s']:.4f}); the largest parts "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in top)}; wall {wall:.4f} s")
+    log(f"serve window: pipeline.staged {delta.get('pipeline.staged', 0):g} "
+        f"groups, overlap_s {delta.get('pipeline.overlap_s', 0):.4f}, "
+        f"stall_s {delta.get('pipeline.stall_s', 0):.4f}; device_s "
+        f"{delta.get('serve.device_s', 0):.4f} against the dispatch wall "
+        f"{dw['sum']:.4f} s ({int(dw['count'])} dispatches), pad_waste_s "
+        f"{delta.get('serve.pad_waste_s', 0):g}; peak device memory "
+        f"{peak_mib:.1f} MiB; launches {la}")
+
+    # the same SERVE_RERUN cas requests at pipeline_k 1 and 4, fresh
+    # daemons; the check-serve process restarts meanwhile
+    url_p = serve_process_url(proc)
+    # POST /profile: torch.profiler around the process's first dispatch
+    code, armed = http_json(f"{url_p}/profile", "POST", b'{"dispatches": 1}')
+    if code != 202:
+        raise AssertionError(f"check-serve /profile: {code} {armed}")
+    four = [traffic[i] for i in range(4)]
+    pids, _, _ = serve_post_all(url_p, [(s, b, "application/json")
+                                        for s, b, _p in four])
+    pdone, _ = serve_wait(url_p, pids.values())
+    end = time.monotonic() + 60
+    while True:
+        prof = http_json(f"{url_p}/stats")[1]["profile"]
+        if not prof["active"] and prof["device-records"] is not None:
+            break
+        if time.monotonic() > end:
+            raise AssertionError(f"check-serve /profile: {prof}")
+        time.sleep(0.05)
+    for s, rid in pids.items():
+        code, st = pdone[rid]
+        if code != 200 or serve_norm(st["result"]) != serve_norm(
+                res[s]["result"]):
+            raise AssertionError(f"check-serve {s}: {code} {st}")
+    first = serve_process_stop("first", proc)
+    proc = serve_process(os.path.join(tmp, "process"))
+    procs.append(proc)
+    for k in (1, 4):
+        dk = serve.Daemon(port=0, store_root=os.path.join(tmp, f"k{k}"),
+                          device=dev, pipeline_k=k)
+        dk.start()
+        uk = f"http://127.0.0.1:{dk.port}"
+        c_k = obs.counters()
+        kids, t_k, _ = serve_post_all(uk, [(s, b, "application/json") for s, b,
+                                        _p in traffic[:SERVE_RERUN]])
+        kdone, t_k1 = serve_wait(uk, kids.values())
+        staged = obs.counters().get("pipeline.staged", 0) \
+            - c_k.get("pipeline.staged", 0)
+        for s, rid in kids.items():
+            if serve_norm(kdone[rid][1]["result"]) != serve_norm(
+                    res[s]["result"]):
+                raise AssertionError(f"serve pipeline_k={k} {s} differs")
+        if (staged > 0) != (k > 1):
+            raise AssertionError(f"serve pipeline_k={k}: {staged} staged")
+        dk.shutdown()
+        rate = SERVE_RERUN / (t_k1 - t_k)
+        log(f"serve pipeline_k={k}: {SERVE_RERUN} cas requests in "
+            f"{t_k1 - t_k:.3f} s = {rate:.2f} requests/s, "
+            f"{staged:g} groups staged, the verdicts of the first run"
+            f"{at()}")
+    url_p = serve_process_url(proc)
+    rid0 = pids[four[0][0]]
+    code, st = http_json(f"{url_p}/check/{rid0}")
+    _c, pst = http_json(f"{url_p}/stats")
+    if code != 200 or not st.get("recovered-from-journal") \
+            or serve_norm(st["result"]) != serve_norm(res[four[0][0]]["result"]) \
+            or pst["counters"].get("serve.journal.replayed", 0) \
+            or pst.get("journal", {}).get("pending"):
+        raise AssertionError(f"check-serve restart: {code} {st} "
+                             f"{pst.get('journal')}")
+    serve_process_stop("restart", proc)
+    log(f"check-serve process: 4 requests as in process, a torch.profiler "
+        f"capture (POST /profile) of its first dispatch with "
+        f"{prof['device-records']} device records, SIGTERM exit 0 "
+        f"{{'shutdown': 'clean'}} "
+        f"({first['counters'].get('serve.completed', 0):g} completed); the "
+        f"restart replayed nothing and answered "
+        f"{rid0} from its journal{at()}")
 
 
 def phase_online():
@@ -3348,6 +3886,7 @@ def main() -> int:
                                   history, models)
     from jepsen_tpu_torch.checkers import reach_lane
 
+
     name = torch.cuda.get_device_name(0)
     card = smi()
     log(f"device: {name} (count {torch.cuda.device_count()}); "
@@ -3355,6 +3894,15 @@ def main() -> int:
 
     build_s = _build.build_all()
     log(f"build: {build_s:.3f} s for {list(_build.sources())}")
+    # generated by worker processes while the kernels are checked (after
+    # the build: the nvcc processes want the cores)
+    import tempfile
+
+    big_future = pool().submit(
+        gen_to_file, os.path.join(tempfile.gettempdir(),
+                                  f"chip-smoke-cas-1M-{os.getpid()}.pickle"),
+        "cas", 1_000_000, 5, 1)
+    serve_futures = serve_submit()
     for lib in _native.LIBRARIES:
         native_s = _native.build(lib)
         log(f"build: {native_s:.3f} s for the host library "
@@ -3374,7 +3922,7 @@ def main() -> int:
     P, rs, M = history_operands(h100k, models.cas_register())
     k2 = phase_k2(P, rs, M)
     t0 = time.perf_counter()
-    big = gen("cas", 1_000_000, 5, 1)
+    big = load_pickle(big_future.result())
     gen_s = time.perf_counter() - t0
     phase_native([("cas-100k", h100k), ("cas-1M", big)])
     t0 = time.perf_counter()
@@ -3448,26 +3996,9 @@ def main() -> int:
     # witness prefix
     expect("corrupted cas-100k", la, batch_walk=2, lane_walk=2,
            keyed_walk=0)
-    # against the CPU run on a corrupted history of CPU_REF_OPS ops, just
-    # past chunk-lockstep's floor (the CPU run's time grows with the
-    # history); at cas-100k the card's answer is held against K1's dead
-    # return and the walk split below
-    mid = gen("cas", CPU_REF_OPS, 5, 0, corrupt=True)
-    res_mid, dt_mid, la_mid, _, _ = drive(lambda: linearizable(mid))
-    expect(f"corrupted cas-{CPU_REF_OPS}", la_mid, batch_walk=2,
-           lane_walk=2, keyed_walk=0)
-    t0 = time.perf_counter()
-    ref = linearizable(mid, device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if res_mid.get("engine") != "reach-chunklock":
-        raise AssertionError(f"corrupted cas-{CPU_REF_OPS}: {res_mid}")
-    for key in ("valid", "engine", "op", "dead-event", "max-linearized",
-                "final-configs", "previous-ok", "chunks", "basis-max",
-                "rescues"):
-        if res_mid.get(key) != ref.get(key):
-            raise AssertionError(f"corrupted cas-{CPU_REF_OPS}: {key} "
-                                 f"differs cuda={res_mid.get(key)} "
-                                 f"cpu={ref.get(key)}")
+    # held against K1's dead return and the walk split below (the CPU
+    # run of a corrupted cas-48k is cut: PERF.md section 4; the CPU tests
+    # hold chunk-lockstep's invalid route against the reference)
     Pb, rsb, Mb = history_operands(bad, models.cas_register())
     R0 = np.zeros((Pb.shape[1], Mb), bool)
     R0[0, 0] = True
@@ -3480,9 +4011,7 @@ def main() -> int:
     log(f"main path corrupted cas-100k: {res['engine']} "
         f"valid={res['valid']} dead-event={res['dead-event']} (return "
         f"{dead_k1}, as K1 finds it) {dt:.4f} s on cuda ({split(dt, spans)}; "
-        f"launches {la}); corrupted cas-{CPU_REF_OPS}: dead-event="
-        f"{res_mid['dead-event']} {dt_mid:.4f} s on cuda, {cpu_s:.3f} s on "
-        f"cpu; verdict, op, dead event, witness and chunk counts agree")
+        f"launches {la})")
     # the walk stage by stage, each stage synchronised: no torch returns
     # walk, K1 once on the dead chunk and once for the witness
     from jepsen_tpu_torch.tools import walk_split
@@ -3502,8 +4031,9 @@ def main() -> int:
     log(f"scale cas-1M: {res['engine']} valid={res['valid']} "
         f"chunks={res['chunks']} basis-max={res['basis-max']} "
         f"rescues={res['rescues']} {dt:.4f} s = {1_000_000 / dt:.1f} ops/s; "
-        f"{split(dt, spans)}; history generation {gen_s:.2f} s not "
-        f"counted; launches {la}")
+        f"{split(dt, spans)}; history generated in a worker process, "
+        f"{gen_s:.2f} s to wait for and load it, not counted; launches "
+        f"{la}")
 
     small = gen("cas", 30_000, 5, 0)
     res, dt, la, spans, _ = drive(lambda: linearizable(small))
@@ -3631,6 +4161,15 @@ def main() -> int:
     # txn ---------------------------------------------------------------
     phase_suites()
 
+    # -- the check daemon: K1, K2, K4, K5 and K8 behind HTTP ------------
+    h_txn = fixtures.gen_txn_history(**TXN_LATTICE)
+    h_txn = history.index(h_txn + [op.with_(index=-1) for op in
+                                   fixtures.txn_anomaly_block("write-skew")])
+    phase_serve({"cas-100k": ("cas-register", h100k),
+                 "cas-30k": ("cas-register", small),
+                 "wide cas-100k": ("cas-register", wide),
+                 "txn": ("txn-list-append", h_txn)}, serve_futures)
+
     # -- online checking and the streaming session engines: K9 ---------
     phase_online()
     phase_carry()
@@ -3680,5 +4219,39 @@ def main() -> int:
     return 0
 
 
+def serve_main(n: int) -> int:
+    """``--serve N``: the kernels built, then :func:`phase_serve` alone
+    with N cas requests."""
+    global SERVE_N, SERVE_RERUN
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import _build, _native, fixtures, history
+
+    log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
+    SERVE_N, SERVE_RERUN = n, min(n, 64)
+    log(f"build: {_build.build_all():.3f} s")
+    for lib in _native.LIBRARIES:
+        _native.build(lib)
+    futures = serve_submit()
+    h_txn = fixtures.gen_txn_history(**TXN_LATTICE)
+    h_txn = history.index(h_txn + [op.with_(index=-1) for op in
+                                   fixtures.txn_anomaly_block("write-skew")])
+    phase_serve({"cas-100k": ("cas-register", gen("cas", 100_000, 5, 0)),
+                 "cas-30k": ("cas-register", gen("cas", 30_000, 5, 0)),
+                 "wide cas-100k": ("cas-register",
+                                   gen("cas", 100_000, 5, 0, **WIDE_CAS)),
+                 "txn": ("txn-list-append", h_txn)}, futures)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        if sys.argv[1:2] == ["--serve"]:
+            rc = serve_main(int(sys.argv[2]))
+        else:
+            rc = main()
+    finally:
+        if POOL is not None:
+            POOL.shutdown(cancel_futures=True)
+    sys.exit(rc)

@@ -437,6 +437,27 @@ def auto_check_many_packed(model: Model, packed_list,
     return out
 
 
+def stage_check_many_packed(model: Model, packed_list, kw: Mapping):
+    """The staging half of :func:`auto_check_many_packed` for the check
+    daemon's lanes: only the lockstep lane, its collect deferred
+    (:func:`reach.stage_check_many`: the union prep, every group's K2
+    walk queued on ``kw["device"]``, default the card, nothing fetched).
+    Returns a :class:`reach.StagedMany`, whose ``collect()`` gives the
+    results :func:`auto_check_many_packed` would, or None when the lane
+    would not take the batch, and the caller then runs
+    :func:`auto_check_many_packed`. A fault propagates."""
+    from jepsen_tpu_torch.checkers import reach
+
+    ekw = _engine_kw(kw, _REACH_MANY_KW)
+    ekw["device"] = _device.resolve(kw.get("device"))
+    with obs.span("facade.stage-many", histories=len(packed_list)):
+        staged = reach.stage_check_many(model, packed_list, **ekw)
+    if staged is not None:
+        obs.engine_selected("reach-many", histories=len(packed_list),
+                            engines=["reach-lockstep"], staged=True)
+    return staged
+
+
 # keyword subsets understood by each engine; user opts are filtered so one
 # checker config can carry opts for every algorithm it may route to.
 _REACH_KW = ("max_states", "max_slots", "max_dense", "should_abort",

@@ -493,14 +493,13 @@ _ABORTED = {"valid": "unknown", "cause": "aborted", "engine": "reach"}
 
 
 def _chunklock_skip(S_pad: int, M: int, W: int, n_returns: int,
-                    lane_ok: bool, should_abort) -> Optional[str]:
+                    lane_ok: bool) -> Optional[str]:
     """Why chunk-lockstep does not take this history, or None when it
-    does: it runs as one piece (no abort hook), from
-    :data:`reach_chunklock.MIN_RETURNS` returns, up to the exact
-    ladder's cap on slots, and in the walk kernels' envelope (K1 carries
-    its rescues and its death location)."""
-    if should_abort is not None:
-        return "should-abort"
+    does: from :data:`reach_chunklock.MIN_RETURNS` returns, up to the
+    exact ladder's cap on slots, and in the walk kernels' envelope (K1
+    carries its rescues and its death location). An abort hook does not
+    keep it out, as it does in the reference: the walk polls the hook
+    between its phases (:func:`reach_chunklock.walk_chunklock`)."""
     if n_returns < reach_chunklock.MIN_RETURNS:
         return "below-min-returns"
     if W > reach_chunklock._FAST_PASSES:
@@ -568,16 +567,20 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
     obs.decision("reach-word", "skipped", cause="not-ported", **geom)
     P_np = _build_P(memo, S_pad)
     lane_ok = reach_lane.lane_fits(S_pad, M, memo.n_ops)
-    skip = _chunklock_skip(S_pad, M, W, rs.n_returns, lane_ok, should_abort)
+    skip = _chunklock_skip(S_pad, M, W, rs.n_returns, lane_ok)
     if skip is None:
         # chunk-lockstep: K2 walks the stream's chunks together, K1
         # carries the rescues and the death location. An error here is
         # a fault of the engine and propagates: no other walk hides it
         obs.decision("reach", "route", engine="reach-chunklock", **geom)
-        with obs.span("reach.walk", engine="reach-chunklock",
-                      returns=int(rs.n_returns)):
-            dead, diag = reach_chunklock.walk_chunklock(
-                P_np, rs.ret_slot, rs.slot_ops, M, device=dev)
+        try:
+            with obs.span("reach.walk", engine="reach-chunklock",
+                          returns=int(rs.n_returns)):
+                dead, diag = reach_chunklock.walk_chunklock(
+                    P_np, rs.ret_slot, rs.slot_ops, M,
+                    should_abort=should_abort, device=dev)
+        except reach_lane.Aborted:
+            return dict(_ABORTED)
         out = _lane_verdict("reach-chunklock", dead, _time.monotonic() - t0,
                             stream, memo, packed, rs, P_np, S_pad, M, W, dev)
         out.update(diag)
@@ -1060,7 +1063,7 @@ def _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets, groups,
     the one before. Returns each live history's dead return index (-1:
     linearizable)."""
     dead = np.full(n_live, -1, np.int64)
-    st = dispatch_core.DispatchState(dead, device)
+    st = dispatch_core.DispatchState(dead, device, P)
     prep_s, dispatch_s = prep_base_s, 0.0
     gdiags: List[dict] = []
     for g in groups:
@@ -1083,38 +1086,49 @@ def _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets, groups,
 _BATCH_GROUP = 32
 
 
+def _lockstep_plan(model: Model, packed_list: Sequence[h.PackedHistory],
+                   live: Sequence[int], *, max_states: int, max_slots: int,
+                   max_dense: int, u_box: Optional[dict]):
+    """The lockstep lane's prep: one union prep and its length buckets
+    (:func:`reach_batch.plan_buckets`) of at most :data:`_BATCH_GROUP`
+    lanes. Returns ``(sa, u, groups)``, or a string, the cause of the
+    lane's decline: fewer than two live histories, a union alphabet
+    that explodes or is unhashable, a history over ``max_slots`` under
+    the union's no-op classification, or a union geometry outside K2's
+    envelope or the budgets."""
+    if len(live) < 2:
+        return "histories"
+    sa = _union_stage_a_shared(model, packed_list, live, max_states, u_box)
+    if sa is None:
+        return "union"
+    u = _union_prep_shared(sa, max_slots, u_box)
+    if u is None:
+        return "slots"
+    cause = _union_skip(sa, u[1], max_dense, reach_batch.fits)
+    if cause is not None:
+        return cause
+    return sa, u, reach_batch.plan_buckets(u[6], group=_BATCH_GROUP)
+
+
 def _check_many_lockstep(model: Model,
                          packed_list: Sequence[h.PackedHistory],
                          live: Sequence[int], *, max_states: int,
                          max_slots: int, max_dense: int, t0: float,
                          diag: Optional[dict], u_box: Optional[dict],
                          device) -> Optional[List[Dict[str, Any]]]:
-    """The lockstep lane on K2: one union prep, the live histories packed
-    into length buckets (:func:`reach_batch.plan_buckets`) of at most
-    :data:`_BATCH_GROUP` lanes, each group one K2 launch staged while the
-    one before it walks (:func:`_dispatch_lockstep_groups`). Returns the
-    results, or None when the lane declines, with the cause recorded:
-    fewer than two live histories, a union alphabet that explodes or is
-    unhashable, a history over ``max_slots`` under the union's no-op
-    classification, or a union geometry outside K2's envelope or the
-    budgets. A fault in the lane propagates."""
-    def skip(cause: str) -> None:
-        obs.decision("reach-lockstep", "skipped", cause=cause,
+    """The lockstep lane on K2: :func:`_lockstep_plan`, then each group
+    one K2 launch staged while the one before it walks
+    (:func:`_dispatch_lockstep_groups`). Returns the results, or None
+    when the lane declines, with the cause recorded. A fault in the lane
+    propagates."""
+    plan = _lockstep_plan(model, packed_list, live, max_states=max_states,
+                          max_slots=max_slots, max_dense=max_dense,
+                          u_box=u_box)
+    if isinstance(plan, str):
+        obs.decision("reach-lockstep", "skipped", cause=plan,
                      histories=len(packed_list))
-
-    if len(live) < 2:
-        return skip("histories")
-    sa = _union_stage_a_shared(model, packed_list, live, max_states, u_box)
-    if sa is None:
-        return skip("union")
-    u = _union_prep_shared(sa, max_slots, u_box)
-    if u is None:
-        return skip("slots")
-    P, W, M, ret_flat, ops_flat, key_W, key_R, offsets = u
-    cause = _union_skip(sa, W, max_dense, reach_batch.fits)
-    if cause is not None:
-        return skip(cause)
-    groups = reach_batch.plan_buckets(key_R, group=_BATCH_GROUP)
+        return None
+    sa, (P, W, M, ret_flat, ops_flat, key_W, key_R, offsets), groups = plan
     with obs.span("reach.walk", engine="reach-lockstep",
                   histories=len(live)):
         dead = _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets,
@@ -1123,6 +1137,112 @@ def _check_many_lockstep(model: Model,
     return _union_results("reach-lockstep", model, packed_list, live, dead,
                           sa, key_W, key_R, t0, max_states, max_slots,
                           max_dense, device)
+
+
+class StagedMany:
+    """A :func:`check_many` batch on the lockstep lane, staged and not
+    collected: the union prep ran and every group's K2 walk is queued on
+    the card (:meth:`dispatch_core.DispatchState.stage`), nothing
+    fetched. Made by :func:`stage_check_many`; a lane of the check
+    daemon keeps several in flight, so that it stages batch k+1 while
+    the card walks batch k. :meth:`collect` gives exactly the results
+    the lane's synchronous scheduler gives (the same kernels, the same
+    assembly); a fault in it propagates."""
+
+    __slots__ = ("model", "packed_list", "live", "sa", "key_W", "key_R",
+                 "st", "gdiags", "prep_s", "dispatch_s", "t0",
+                 "max_states", "max_slots", "max_dense", "device")
+
+    def __init__(self, model, packed_list, live, sa, key_W, key_R, st,
+                 gdiags, prep_s, dispatch_s, t0, max_states, max_slots,
+                 max_dense, device):
+        self.model = model
+        self.packed_list = packed_list
+        self.live = live
+        self.sa = sa
+        self.key_W = key_W
+        self.key_R = key_R
+        self.st = st
+        self.gdiags = gdiags
+        self.prep_s = prep_s
+        self.dispatch_s = dispatch_s
+        self.t0 = t0
+        self.max_states = max_states
+        self.max_slots = max_slots
+        self.max_dense = max_dense
+        self.device = device
+
+    def ready(self) -> bool:
+        """True when every group has walked (its event has completed)."""
+        return self.st.ready()
+
+    def collect(self) -> List[Dict[str, Any]]:
+        """Fetch every group's verdicts, in order, and assemble the
+        results, aligned with the batch."""
+        with obs.span("reach.walk", engine="reach-lockstep",
+                      histories=len(self.live), staged=True):
+            self.st.collect(0)
+        _lockstep_accounting(self.gdiags, self.prep_s, self.dispatch_s,
+                             self.st.fetch_s, None)
+        obs.decision("reach-many", "route", cause="lockstep",
+                     histories=len(self.packed_list))
+        # the collect's two parts, read by the serve metrics: the fetch
+        # (the wait on the card, the dead lanes' location) and the
+        # results' assembly (the witnesses' re-walks included)
+        obs.count("lockstep.fetch_s", self.st.fetch_s)
+        t_res = _time.monotonic()
+        out = _union_results("reach-lockstep", self.model,
+                             self.packed_list, self.live, self.st.dead,
+                             self.sa, self.key_W, self.key_R, self.t0,
+                             self.max_states, self.max_slots,
+                             self.max_dense, self.device)
+        obs.count("lockstep.results_s", _time.monotonic() - t_res)
+        return out
+
+
+def stage_check_many(model: Model, packed_list: Sequence[h.PackedHistory],
+                     *, max_states: int = 100_000, max_slots: int = 20,
+                     max_dense: int = 1 << 22, should_abort=None,
+                     device=None) -> Optional[StagedMany]:
+    """The staging half of :func:`check_many`'s lockstep lane on
+    ``device`` (default: the card): :func:`_lockstep_plan`, then every
+    group marshalled and its K2 walk queued, nothing fetched. Returns a
+    :class:`StagedMany`, or None where :func:`check_many` would not take
+    the lane (``should_abort`` already fired, or the lane declines);
+    the caller then runs :func:`check_many`. There is no vmapped stage
+    (``reach-vmapped`` is not ported). A fault propagates."""
+    dev = _device.resolve(device)
+    if should_abort is not None and should_abort():
+        return None
+    t0 = _time.monotonic()
+    live = [i for i, p in enumerate(packed_list) if p.n and p.n_ok]
+    plan = _lockstep_plan(model, packed_list, live, max_states=max_states,
+                          max_slots=max_slots, max_dense=max_dense,
+                          u_box=None)
+    # the stage's two parts, read by the serve metrics: the union prep
+    # (here) and the groups' marshalling and launches (below)
+    obs.count("lockstep.union_prep_s", _time.monotonic() - t0)
+    if isinstance(plan, str):
+        return None
+    sa, (P, W, M, ret_flat, ops_flat, key_W, key_R, offsets), groups = plan
+    st = dispatch_core.DispatchState(np.full(len(live), -1, np.int64), dev,
+                                     P)
+    gdiags: List[dict] = []
+    prep_s, dispatch_s = sa.pack_s, 0.0
+    for g in groups:
+        ta = _time.monotonic()
+        with obs.span("lockstep.prep", lanes=len(g)):
+            prep = reach_batch.prepare_returns_batch(
+                P, _flat_lanes(ret_flat, offsets, g),
+                _flat_lanes(ops_flat, offsets, g), M)
+        tb = _time.monotonic()
+        prep_s += tb - ta
+        gdiags.append(st.stage(g, prep))
+        dispatch_s += _time.monotonic() - tb
+    obs.count("lockstep.marshal_s", prep_s - sa.pack_s + dispatch_s)
+    return StagedMany(model, packed_list, live, sa, key_W, key_R, st,
+                      gdiags, prep_s, dispatch_s, t0, max_states,
+                      max_slots, max_dense, dev)
 
 
 def _check_many_native(model: Model, packed_list: Sequence[h.PackedHistory],

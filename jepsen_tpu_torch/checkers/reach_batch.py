@@ -275,13 +275,19 @@ def _alive_lanes(final: torch.Tensor, H: int, S: int) -> torch.Tensor:
     return (final.view(-1, H, S) > 0.5).any(2).any(0)
 
 
-def dispatch_prepared(prep: BatchPrepared, *, device=None) -> BatchInflight:
+def dispatch_prepared(prep: BatchPrepared, *, device=None,
+                      P_dev: Optional[torch.Tensor] = None) -> BatchInflight:
     """Copy a prepared group to ``device`` (default: the card) and queue
     its capped walk, one K2 launch, on the current stream; nothing is
-    fetched and nothing waits. Pair with :func:`collect_returns_batch`."""
+    fetched and nothing waits. ``P_dev`` is the group's P already on
+    ``device`` (the groups of one batch share it), else P is copied
+    too. Pair with :func:`collect_returns_batch`."""
     dev = _device.resolve(device)
     B, W, M, S, H, O1, R_pad = prep.geom
-    args = tuple(torch.as_tensor(a, device=dev) for a in prep.host)
+    if P_dev is None:
+        P_dev = torch.as_tensor(prep.host[0], device=dev)
+    args = (P_dev,) + tuple(torch.as_tensor(a, device=dev)
+                            for a in prep.host[1:])
     ckpt, final = batch_walk(*args, B, min(W, _FAST_PASSES))
     alive = _alive_lanes(final, H, S)
     event = None

@@ -178,8 +178,8 @@ def _chunk_operands(ret_slot: np.ndarray, slot_ops: np.ndarray, C: int,
 
 
 def _localize(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
-              M: int, v_entry: np.ndarray, c: int, per: int, device
-              ) -> Tuple[int, Optional[np.ndarray]]:
+              M: int, v_entry: np.ndarray, c: int, per: int, device,
+              should_abort=None) -> Tuple[int, Optional[np.ndarray]]:
     """Re-walk chunk ``c`` with K1 from its exact boundary set (bool
     ``[M·S]``): ``(global_dead_or_-1, exit_set_or_None)``."""
     Rn = int(ret_slot.shape[0])
@@ -187,7 +187,7 @@ def _localize(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
     lo, hi = c * per, min((c + 1) * per, Rn)
     dead, r_final = reach_lane.walk_returns(
         P, ret_slot[lo:hi], slot_ops[lo:hi], v_entry.reshape(M, S).T,
-        device=device)
+        device=device, should_abort=should_abort)
     if dead >= 0:
         return lo + dead, None
     return -1, r_final.T.reshape(M * S)
@@ -196,13 +196,14 @@ def _localize(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
 def _host_fold(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
                M: int, seeds_np: np.ndarray, images_np: np.ndarray,
                v: np.ndarray, start: int, C: int, per: int, device,
-               diag: Dict[str, Any]) -> int:
+               diag: Dict[str, Any], should_abort=None) -> int:
     """Exact fold on the host over the per-chunk seeds and images
     (bool), from chunk ``start`` and its exact boundary set ``v``: a
     chunk whose selected union seeds escape ``v`` is re-walked with K1
     (:func:`_localize`, counted in ``diag["rescues"]``). Returns the
     global dead return index, -1 = linearizable."""
     for c in range(start, C):
+        _poll(should_abort)
         active = (seeds_np[c] & v).any(1)
         sel = (seeds_np[c] & active[:, None]).any(0)
         if not (sel & ~v).any():
@@ -210,11 +211,12 @@ def _host_fold(P: np.ndarray, ret_slot: np.ndarray, slot_ops: np.ndarray,
         else:
             diag["rescues"] += 1
             dead, vn = _localize(P, ret_slot, slot_ops, M, v, c, per,
-                                 device)
+                                 device, should_abort)
             if dead >= 0:
                 return dead
         if not vn.any():
-            dead, _ = _localize(P, ret_slot, slot_ops, M, v, c, per, device)
+            dead, _ = _localize(P, ret_slot, slot_ops, M, v, c, per, device,
+                                should_abort)
             if dead < 0:
                 raise ChunklockUnfit("fold death not confirmed by re-walk")
             return dead
@@ -307,15 +309,25 @@ def launch_chunklock(P: np.ndarray, ret_slot: np.ndarray,
         per=per, device=P_t.device)
 
 
-def collect_chunklock(inf: ChunklockInflight) -> Tuple[int, Dict[str, Any]]:
+def _poll(should_abort) -> None:
+    if should_abort is not None and should_abort():
+        raise reach_lane.Aborted()
+
+
+def collect_chunklock(inf: ChunklockInflight, should_abort=None
+                      ) -> Tuple[int, Dict[str, Any]]:
     """Fetch the fold's output (the one sync) and decide: a happy path
     needs nothing more; a death is located with K1; flagged chunks are
-    refolded on the host (:func:`_host_fold`)."""
+    refolded on the host (:func:`_host_fold`). ``should_abort`` is
+    polled after the sync, before each chunk of the host fold and
+    between the K1 re-walks' segments; it raises
+    :class:`reach_lane.Aborted`."""
     P, ret_slot, slot_ops = inf.P, inf.ret_slot, inf.slot_ops
     M, C, e_pad, per, dev = inf.M, inf.C, inf.e_pad, inf.per, inf.device
     S = int(P.shape[1])
     MS = M * S
     out = inf.packed.cpu().numpy()                   # the one sync
+    _poll(should_abort)
     dead_chunk = int(out[0, 0])
     inexact = out[0, 1:1 + C] > 0
     counts = out[0, 1 + C:1 + 2 * C].astype(np.int64)
@@ -329,7 +341,7 @@ def collect_chunklock(inf: ChunklockInflight) -> Tuple[int, Dict[str, Any]]:
         # a death under an exact entry set is a true death: locate the
         # return inside the chunk
         dead, _ = _localize(P, ret_slot, slot_ops, M, all_v[dead_chunk],
-                            dead_chunk, per, dev)
+                            dead_chunk, per, dev, should_abort)
         if dead < 0:
             raise ChunklockUnfit("fold death not confirmed by re-walk")
         return dead, diag
@@ -338,7 +350,7 @@ def collect_chunklock(inf: ChunklockInflight) -> Tuple[int, Dict[str, Any]]:
         .permute(2, 0, 1, 3).reshape(C, e_pad, MS).cpu().numpy()
     start = int(np.nonzero(inexact)[0][0])
     dead = _host_fold(P, ret_slot, slot_ops, M, seeds_np, images_np,
-                      all_v[start], start, C, per, dev, diag)
+                      all_v[start], start, C, per, dev, diag, should_abort)
     return dead, diag
 
 
@@ -347,16 +359,22 @@ def walk_chunklock(P: np.ndarray, ret_slot: np.ndarray,
                    n_chunks: Optional[int] = None,
                    e_pad: Optional[int] = None,
                    suffix: Optional[int] = None,
+                   should_abort=None,
                    device=None) -> Tuple[int, Dict[str, Any]]:
     """Chunk-lockstep returns walk over one history on ``device``
     (default: the card). Returns ``(dead, diag)``: ``dead`` is the first
     return index at which the exact config set emptied (-1 =
     linearizable), as :func:`reach_lane.walk_returns` gives it; ``diag``
     holds ``chunks``, ``basis-max`` (the largest bound) and
-    ``rescues``."""
+    ``rescues``. ``should_abort`` is polled before the launch and
+    between the phases that follow it (:func:`collect_chunklock`); it
+    raises :class:`reach_lane.Aborted`. The launched phases are two K2
+    walks over chunks of ``Rn / C`` returns each, so a poll waits at
+    most for them."""
+    _poll(should_abort)
     return collect_chunklock(launch_chunklock(
         P, ret_slot, slot_ops, M, n_chunks=n_chunks, e_pad=e_pad,
-        suffix=suffix, device=device))
+        suffix=suffix, device=device), should_abort)
 
 
 def check_packed(model, packed, *, max_states: int = 100_000,

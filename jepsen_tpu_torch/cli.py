@@ -20,9 +20,14 @@ the CPU by itself. ``run`` takes every suite of the reference's:
 ``counter``, ``queue`` (``--mode sloppy`` is the broker's ``lossy``),
 ``etcd`` (over HTTP) and ``redis`` (over RESP), with ``--online``
 watching the history while it streams and ending the run at the first
-violation (a suite whose test map has no model only logs a warning);
-``serve`` and ``check-serve`` are not ported yet and exit 2 naming
-their ``ROADMAP.md`` item.
+violation (a suite whose test map has no model only logs a warning).
+
+``check-serve`` runs the check daemon (``docs/SERVING.md``'s protocol)
+on ``--device`` until SIGTERM or SIGINT; its first line names its URL
+and its last the shutdown and the daemon's stats. It exits 1 when a
+device fault ended a dispatch, and 2 before binding a port when there
+is no card. ``serve`` (the results browser) is not ported yet and exits
+2 naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -35,10 +40,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 _NOT_PORTED = {
     "serve": "'serve' (the results browser) is not ported yet (ROADMAP.md, "
-             "Queue 1 item 3)",
-    "check-serve": "'check-serve' (the checking daemon) is not ported yet "
-                   "(ROADMAP.md, Queue 1 item 3)",
+             "Queue 1 item 3(a))",
 }
+
+_POD_NOT_PORTED = ("check-serve's pod mode (--coordinator, --num-processes, "
+                   "--process-id) is not ported yet (ROADMAP.md, Queue 1 "
+                   "item 9)")
 
 
 def _add_common(ap: argparse.ArgumentParser) -> None:
@@ -252,6 +259,103 @@ def _cmd_check(args, dev) -> int:
     return 0 if res.get("valid") is True else 1
 
 
+def _cmd_check_serve(args, dev) -> int:
+    """``check-serve``: the check daemon on ``dev`` until SIGTERM or
+    SIGINT, then a graceful shutdown (stop admitting, drain, stop)."""
+    import signal
+    import threading
+
+    from jepsen_tpu_torch import serve
+
+    if args.coordinator or args.num_processes or args.process_id is not None:
+        print(f"jepsen_tpu_torch: {_POD_NOT_PORTED}", file=sys.stderr)
+        return 2
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    engine_kw = {"max_states": args.max_states} if args.max_states else {}
+    daemon = serve.Daemon(
+        port=args.port, host=args.host, queue_depth=args.queue_depth,
+        max_inflight_per_tenant=args.tenant_inflight, group=args.group,
+        engine_kw=engine_kw, store_root=args.store_root,
+        persist=not args.no_persist_runs, journal=not args.no_journal,
+        breaker=serve.CircuitBreaker(threshold=args.breaker_threshold,
+                                     cooldown_s=args.breaker_cooldown),
+        dispatch_deadline_s=args.dispatch_deadline or None,
+        lanes=args.lanes, replica_id=args.replica_id or None,
+        lease_ttl_s=args.lease_ttl, device=dev,
+        pipeline_k=args.pipeline_k, faults=args.faults or None)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: stop.set())
+    daemon.start()
+    print(f"jepsen-tpu check daemon: http://{args.host}:{daemon.port}/ "
+          f"(POST /check, GET /check/<id>, GET /stats, GET /metrics, "
+          f"GET /healthz, POST /profile; device {daemon.device}, store "
+          f"root {args.store_root})", flush=True)
+    while not stop.wait(0.5):
+        pass
+    daemon.shutdown()
+    faulted = daemon.dispatcher.device_faults > 0
+    print(json.dumps({"shutdown": "device-fault" if faulted else "clean",
+                      **daemon.stats()}, default=str), flush=True)
+    return 1 if faulted else 0
+
+
+def _add_check_serve(sub) -> argparse.ArgumentParser:
+    csp = sub.add_parser(
+        "check-serve",
+        help="run the check daemon: concurrent checks over HTTP, "
+             "coalesced into lockstep groups on the card")
+    csp.add_argument("--port", type=int, default=8642,
+                     help="0 picks a free port (the first line names it)")
+    csp.add_argument("--host", default="127.0.0.1",
+                     help="bind address; loopback by default: the endpoint "
+                          "accepts work")
+    csp.add_argument("--store-root", default="store",
+                     help="verdicts land as run dirs, the journal and "
+                          "stats under <root>/serve/")
+    csp.add_argument("--queue-depth", type=int, default=256,
+                     help="admission bound; past it POST /check answers "
+                          "429")
+    csp.add_argument("--tenant-inflight", type=int, default=8,
+                     help="in-flight requests a tenant")
+    csp.add_argument("--group", type=int, default=32,
+                     help="requests a coalesced dispatch group")
+    csp.add_argument("--max-states", type=int, default=0,
+                     help="engine max_states (0: the default)")
+    csp.add_argument("--no-persist-runs", action="store_true",
+                     help="do not write verdicts into the store")
+    csp.add_argument("--no-journal", action="store_true",
+                     help="no admission journal: admitted requests do not "
+                          "survive a crash")
+    csp.add_argument("--breaker-threshold", type=int, default=5,
+                     help="consecutive recoverable failures of the card's "
+                          "route that open the circuit breaker")
+    csp.add_argument("--breaker-cooldown", type=float, default=15.0,
+                     help="seconds before an open breaker's probe")
+    csp.add_argument("--dispatch-deadline", type=float, default=0.0,
+                     help="wall-clock cap a dispatch; survivors of a hung "
+                          "one are requeued (0: none)")
+    csp.add_argument("--lanes", type=int, default=1,
+                     help="dispatch lanes (a thread and a breaker each)")
+    csp.add_argument("--pipeline-k", type=int, default=None,
+                     help="staged groups a lane keeps in flight (default "
+                          "4; 1 never stages)")
+    csp.add_argument("--faults", default="",
+                     help="arm the self-nemesis, e.g. "
+                          "'dispatch@3;device@2x6;poison=tenant-x'")
+    csp.add_argument("--replica-id", default="",
+                     help="fleet mode: this replica's name; replicas over "
+                          "one --store-root share the journal by lease")
+    csp.add_argument("--lease-ttl", type=float, default=10.0,
+                     help="fleet lease time-to-live, seconds")
+    for flag in ("--coordinator", "--num-processes", "--process-id"):
+        csp.add_argument(flag, default=None, help="not ported (item 9)")
+    csp.set_defaults(fn=_cmd_check_serve)
+    return csp
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch",
@@ -314,6 +418,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "always use the batch engine)")
     device_arg(rp)
     rp.set_defaults(fn=_cmd_recheck)
+
+    device_arg(_add_check_serve(sub))
 
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _NOT_PORTED:

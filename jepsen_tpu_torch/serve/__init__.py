@@ -1,11 +1,55 @@
-"""``jepsen_tpu_torch.serve`` — streaming check sessions.
+"""``jepsen_tpu_torch.serve`` — the checker as a service, and the
+streaming session engines.
 
-- :mod:`.session` — the session engines: the register family's carried
-  frontier on the card (:class:`~.session.DeviceFrontierEngine`) and
-  the transactional incremental closure
-  (:class:`~.session.TxnSessionEngine`).
+The check daemon (``python -m jepsen_tpu_torch check-serve``; protocol
+``docs/SERVING.md``) keeps the kernels built and the process warm and
+serves concurrent linearizability and list-append checks over HTTP,
+coalescing compatible requests into lockstep groups on the card:
 
-The reference's checking daemon above them (sessions, their registry,
-the HTTP protocol, the journal) is not ported yet (``ROADMAP.md``, Queue
-1 item 3).
+- :mod:`.request` — the request state machine, the registry and the
+  per-tenant serve ledgers;
+- :mod:`.coalesce` — the bounded admission queue, the coalescer
+  (``reach_batch.plan_buckets`` groups, oldest tenant first, per-tenant
+  in-flight caps, queue-side deadlines) and lane placement;
+- :mod:`.engine` — the dispatcher's lanes, each with a window of staged
+  groups, a circuit breaker and the recovery ladder; device-time
+  attribution and the stats;
+- :mod:`.http` — the protocol and :class:`Daemon`;
+- :mod:`.journal` — the admission journal (replay after a crash,
+  idempotent dedup, fleet leases);
+- :mod:`.recovery` — retry, bisection, the circuit breaker, and which
+  faults the ladder may recover (a device fault is never rescued);
+- :mod:`.faults` — the self-nemesis's fault points.
+
+The session engines (:mod:`.session`): the register family's carried
+frontier on the card (:class:`~.session.DeviceFrontierEngine`) and the
+transactional incremental closure (:class:`~.session.TxnSessionEngine`).
+The sessions above them and their endpoints are not ported yet
+(``ROADMAP.md``, Queue 1 item 3(c)).
+
+    from jepsen_tpu_torch import serve
+    d = serve.Daemon(port=8642, store_root="store").start()
+    # ... POST /check ...
+    d.shutdown()
 """
+from jepsen_tpu_torch.serve.coalesce import (AdmissionQueue, Backpressure,
+                                             plan_admission)
+from jepsen_tpu_torch.serve.engine import Dispatcher
+from jepsen_tpu_torch.serve.http import Daemon, parse_check_body, resolve_model
+from jepsen_tpu_torch.serve.journal import Journal
+from jepsen_tpu_torch.serve.recovery import CircuitBreaker, RetryPolicy
+from jepsen_tpu_torch.serve.request import (CANCELLED, DISPATCHED, DONE, ERROR,
+                                            QUARANTINED, QUEUED, TIMEOUT,
+                                            CheckRequest, Registry)
+from jepsen_tpu_torch.serve.session import (AdvanceAborted,
+                                            DeviceFrontierEngine,
+                                            TxnSessionEngine)
+
+__all__ = [
+    "AdmissionQueue", "Backpressure", "plan_admission", "Dispatcher",
+    "Daemon", "parse_check_body", "resolve_model", "CheckRequest",
+    "Registry", "Journal", "CircuitBreaker", "RetryPolicy",
+    "DeviceFrontierEngine", "TxnSessionEngine", "AdvanceAborted",
+    "QUEUED", "DISPATCHED", "DONE", "TIMEOUT", "CANCELLED", "QUARANTINED",
+    "ERROR",
+]

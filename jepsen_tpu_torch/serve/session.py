@@ -25,8 +25,8 @@ reference package's ``jepsen_tpu/serve/session.py``).
 A capacity decline (dense overflow for the register family, the dense
 txn cap) is a recorded route decision; any other fault propagates to
 the caller. The session objects above these engines (the session and
-its registry, the daemon's HTTP protocol and journal) are not ported
-yet (``ROADMAP.md``, Queue 1 item 3).
+its registry, the daemon's session endpoints and journal entries) are
+not ported yet (``ROADMAP.md``, Queue 1 item 3(c)).
 """
 from __future__ import annotations
 

@@ -146,6 +146,29 @@ def save_obs(run_dir: str, capture: Optional[Any] = None) -> None:
         log.warning("obs export to %s failed: %s", run_dir, e)
 
 
+def serve_journal_dir(root: str) -> str:
+    """The check-serve daemon's admission journal,
+    ``<root>/serve/journal/`` (created), beside its ``stats.json``
+    (:mod:`jepsen_tpu_torch.serve.journal`)."""
+    d = os.path.join(root, "serve", "journal")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def serve_profile_dir(root: str) -> str:
+    """A fresh directory (created) for one capture of the daemon's
+    on-demand profiler, ``<root>/serve/profile-<ts>[-n]/``."""
+    import time as _time
+    base = os.path.join(root, "serve", "profile-"
+                        + _time.strftime("%Y%m%dT%H%M%S", _time.gmtime()))
+    d, n = base, 0
+    while os.path.exists(d):
+        n += 1
+        d = f"{base}-{n}"
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 def load_history(run_dir: str) -> List[Op]:
     """Load a stored history for offline re-analysis (the upstream
     re-check path)."""

@@ -160,6 +160,53 @@ def test_check_packed_routes_chunklock(monkeypatch):
     assert r_pt["valid"] is False and r_pt["final-configs"]
 
 
+@pytest.mark.parametrize("corrupt", [None, 11])
+def test_check_packed_routes_chunklock_under_abort_hook(monkeypatch,
+                                                        corrupt):
+    """An abort hook that never fires keeps chunk-lockstep's route (the
+    check daemon passes one to every check): the verdict and witness
+    equal the reference's check, which skips chunk-lockstep under a hook
+    and walks the lane."""
+    from jepsen_tpu.checkers import facade as fa_ref
+    from jepsen_tpu_torch.checkers import reach as reach_pt
+
+    monkeypatch.setattr(cl_pt, "MIN_RETURNS", 16)
+    h1, h2 = _pair("cas", 120, 11, corrupt)
+    reach_ref._MEMO_CACHE.clear()
+    r_ref = fa_ref.Linearizable(fx_ref.model_for("cas")).check(None, h1)
+    polls = []
+
+    def hook():
+        polls.append(1)
+        return False
+
+    r_pt = reach_pt.check_packed(fx_pt.model_for("cas"), h_pt.pack(h2),
+                                 should_abort=hook, device="cpu")
+    assert r_pt["engine"] == "reach-chunklock" and polls
+    for k in WITNESS:
+        assert r_pt.get(k) == r_ref.get(k), k
+
+
+@pytest.mark.parametrize("fire_at", [1, 2])
+def test_chunklock_abort_hook_fires(monkeypatch, fire_at):
+    """A hook that fires before the launch (poll 1) or at the fold's
+    sync (poll 2) ends the check as ``unknown``, cause ``aborted``."""
+    from jepsen_tpu_torch.checkers import reach as reach_pt
+
+    monkeypatch.setattr(cl_pt, "MIN_RETURNS", 16)
+    _h1, h2 = _pair("cas", 120, 11, 11)
+    polls = []
+
+    def hook():
+        polls.append(1)
+        return len(polls) >= fire_at
+
+    r_pt = reach_pt.check_packed(fx_pt.model_for("cas"), h_pt.pack(h2),
+                                 should_abort=hook, device="cpu")
+    assert r_pt["valid"] == "unknown" and r_pt["cause"] == "aborted"
+    assert len(polls) == fire_at
+
+
 def test_facade_algorithm():
     """``algorithm="chunklock"`` routes the engine's options through."""
     _h1, h2 = _pair("cas", 130, 21, None)

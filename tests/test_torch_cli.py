@@ -260,9 +260,13 @@ def test_no_card_fails_without_running(monkeypatch, capsys):
     assert cli_pt.main(["check", path] + CPU) == 1
 
 
-@pytest.mark.parametrize("cmd", ["serve", "check-serve"])
-def test_unported_commands_exit_2(cmd, capsys):
-    assert cli_pt.main([cmd, "--suite", "register"]) == 2
+@pytest.mark.parametrize("argv", [
+    pytest.param(["serve", "--suite", "register"], id="serve"),
+    # the daemon is ported; its pod mode is not
+    pytest.param(["check-serve", "--coordinator", "localhost:1"] + CPU,
+                 id="check-serve")])
+def test_unported_commands_exit_2(argv, capsys):
+    assert cli_pt.main(argv) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
 
 

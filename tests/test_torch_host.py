@@ -192,6 +192,16 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.cli",
             "jepsen_tpu_torch.checkers.online",
             "jepsen_tpu_torch.serve.session",
+            "jepsen_tpu_torch.serve",
+            "jepsen_tpu_torch.serve.request",
+            "jepsen_tpu_torch.serve.faults",
+            "jepsen_tpu_torch.serve.recovery",
+            "jepsen_tpu_torch.serve.coalesce",
+            "jepsen_tpu_torch.serve.journal",
+            "jepsen_tpu_torch.serve.engine",
+            "jepsen_tpu_torch.serve.http",
+            "jepsen_tpu_torch.checkers.transfer",
+            "jepsen_tpu_torch.obs",
             "jepsen_tpu_torch.__main__"} <= imported
 
 

@@ -701,7 +701,7 @@ def test_obs_files_parse(tmp_path):
     assert trace["traceEvents"][0]["ph"] == "M"
     assert {e["name"] for e in trace["traceEvents"][1:]} >= spans
     summary = done["results"]["obs"]
-    assert set(summary) == {"counters", "gauges", "ledger"}
+    assert set(summary) == {"counters", "gauges", "histograms", "ledger"}
     assert json.load(open(os.path.join(d, "results.json")))["obs"][
         "ledger"] == json.loads(json.dumps(summary["ledger"]))
 
