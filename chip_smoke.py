@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve 256     # the daemon's phase alone
+    python3 chip_smoke.py --sessions      # K10 and the sessions alone
 
 With ``--serve N`` it builds the kernels and runs only ``phase_serve``,
 with N cas requests (and ``min(N, 64)`` again at ``pipeline_k`` 1 and
 4): the daemon's measurement at a traffic the full run has no time for.
+With ``--sessions`` it builds them and runs only :func:`phase_k10` and
+:func:`phase_sessions`.
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
 K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``, K8
-``txn_closure``, K9 ``txn_inc_join``), holds each
+``txn_closure``, K9 ``txn_inc_join``, K10 ``mega_walk``), holds each
 kernel bit for bit against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path through the
 user's entry points and checks the results:
@@ -19,8 +22,8 @@ user's entry points and checks the results:
   (chunk-lockstep: two K2 launches), valid and corrupted (the corrupted
   one against K1, with no torch returns walk: K1 reports the dead
   return itself; its walk split stage by stage,
-  ``tools/walk_split.py``), and on a 1,000,000-op one (generated in a
-  worker process while the kernels are checked);
+  ``tools/walk_split.py``), and on a :data:`SCALE_OPS`-op one (generated
+  in a worker process while the kernels are checked);
 - the same on a 30,000-op history, below chunk-lockstep's floor (K1);
   K1 and K2 walk P's nibble image tables, built by one
   ``pack_tables`` launch and copied into each block's shared memory
@@ -29,7 +32,7 @@ user's entry points and checks the results:
   too;
 - the C++ host prep (``native/preproc.cpp``, built by ``g++``): its slot
   assignment and returns view against the plain Python scans, array for
-  array, at cas-100k and cas-1M;
+  array, at cas-100k and at :data:`SCALE`;
 - ``independent.checker(Linearizable(cas_register()))`` on 2,000 keys of
   50 ops and on 200 keys of 1,000 ops (the lockstep lane: one union
   prep, a K2 launch a group of up to 32 keys, K1 for each failed key),
@@ -138,7 +141,7 @@ user's entry points and checks the results:
   ``run --mode sloppy --online`` in its own process (exit 1);
 - the streaming session engines: ``DeviceFrontierEngine``'s carried
   frontier (:func:`phase_carry`) on K1 at cas-100k and on K4 at wide
-  cas-100k, each with its corrupted twin, in 256-op blocks, against
+  cas-60k, each with its corrupted twin, in 256-op blocks, against
   ``NativeStreamEngine`` (violation, settled returns, the final set);
   K9's join, one launch for both packings, bit for bit against its
   plain version at (4, 8,192, 256) and (4, 8,192, 8,192) beside its
@@ -150,7 +153,17 @@ user's entry points and checks the results:
   product), every block's booleans against the f32 cross-check (TF32
   allowed around it alone), the close against the post-hoc check on K8,
   the last block's K9 launches against the plain version, the launches
-  of both kernels and the session's peak device memory.
+  of both kernels and the session's peak device memory;
+- the check daemon's streaming sessions: K10, the mega-group advance
+  (:func:`phase_k10`), bit for bit against its plain version and the
+  host replay at 1, 2, 64 and 1,024 lanes on K1's route (cas) and K4's
+  (multi-register over 64 states), the block forms at 64, each beside
+  the same blocks' solo K1 or K4 advances; then the daemon
+  (:func:`phase_sessions`): 256 cas sessions across 4 tenants, 16 wide
+  and 2 txn ones, 8 appends each, the daemon dropped and started again
+  halfway (the journal's replay), every close and first violation
+  against the standalone check, K10's device time a wave, appends a
+  second, and the results browser's ``/`` and ``/engine``.
 
 Depths cut to make room (``PERF.md`` section 4): K1's plain version on
 the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
@@ -159,7 +172,11 @@ all of them), no CPU run at the long keys, the wide CPU run at
 whose corrupted twins take the same walk on the CPU; the command lines
 started in batches; no CPU run of a corrupted cas-48k; the runner's runs
 at :data:`RUN_TIME_LIMIT` and the suites' at :data:`SUITE_TIME_LIMIT`
-seconds; the cas-1M history and the check daemon's traffic generated
+seconds; the scale check at :data:`SCALE_OPS` ops (from 1,000,000), K4's
+plain version at :data:`WIDE_RETURNS` returns (from 20,000), the wide
+carry at 60,000 ops (from 100,000), the ablation's cases after the
+first at :data:`ABLATE_REST` returns (from 256); the
+scale history and the check daemon's traffic generated
 by worker processes (:func:`pool`) while the kernels are checked.
 
 Kernel times are CUDA events around ``n`` calls of a wrapper
@@ -188,6 +205,9 @@ from jepsen_tpu_torch.tools.keyed_times import (LONG_BAD, LONG_KEYS,
                                                 LONG_OPS, device_ms)
 
 HBM_RATE = 3.35e12       # H100 SXM device-memory bytes/s
+# the scale check's history (cut from 1,000,000 ops: PERF.md section 4)
+SCALE_OPS = 300_000
+SCALE = "cas-300k"
 # H100 SXM 32-bit integer operations/s: the data sheet's 67 TFLOP/s fp32
 # is 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz; the integer pipe has 64
 # lanes per SM, one operation each per clock: 132 x 64 x 1.98e9
@@ -488,7 +508,7 @@ def same(label: str, got, want):
 # first 4,096 returns: the plain version takes about 1 ms a return)
 # the first geometry's plain version runs on its first K1_PLAIN_RETURNS
 # returns (PERF.md section 4's cuts); K1 is timed on the whole stream too
-K1_PLAIN_RETURNS = 8_192
+K1_PLAIN_RETURNS = 4_096
 GEOMS = [
     ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False, {},
      K1_PLAIN_RETURNS),
@@ -960,9 +980,9 @@ WIDE_MULTI = dict(values=3, keys=3)
 # K4 against its plain version on the first returns of the multi-register
 # histories (a plain walk's time grows with its returns)
 WIDE_MULTI_RETURNS, WIDE_W7_RETURNS = 5_000, 2_000
-WIDE_RETURNS = 20_000          # K4 against its plain version on this
+WIDE_RETURNS = 5_000           # K4 against its plain version on this
                                # prefix
-TORCH_RETURNS = 5_000          # and the torch returns walk on this one
+TORCH_RETURNS = 2_000          # and the torch returns walk on this one
 
 
 def form(W: int, S: int) -> str:
@@ -1036,7 +1056,7 @@ def phase_k4(P_wide, rs_wide, P_m, rs_m, multi100):
     P_7, rs_7, _ = history_operands(gen("multi", 5_000, 7, 0, **WIDE_MULTI),
                                     models.multi_register())
     n, nm, n7 = WIDE_RETURNS, WIDE_MULTI_RETURNS, WIDE_W7_RETURNS
-    runs = [("cas-40 alphabet, 20,000 returns", P_wide,
+    runs = [(f"cas-40 alphabet, first {n} returns", P_wide,
              rs_wide.ret_slot[:n], rs_wide.slot_ops[:n]),
             (f"multi-register-20k, first {nm} returns", P_m,
              rs_m.ret_slot[:nm], rs_m.slot_ops[:nm]),
@@ -1224,7 +1244,7 @@ ABLATE_BLOCK = 1024
 # every case after the first (whose numbers the kernels line reports) on
 # its first ABLATE_REST returns: the plain versions are most of the
 # phase's time
-ABLATE_REST = 256
+ABLATE_REST = 128
 ABLATE_W6_OPS, ABLATE_W6_RETURNS = 1_000, 256
 # beyond the ladder's variants, the kernel instances that no variant
 # takes alone: the reversed bool body and the f32 table projection
@@ -1375,11 +1395,12 @@ def ablate_ladder(geom, opnds, n_ret: int):
 def launches():
     """The kernels' launch counts, by kernel."""
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
-    from jepsen_tpu_torch.checkers import reach_pallas
+    from jepsen_tpu_torch.checkers import reach_pallas, reach_word
     from jepsen_tpu_torch.tools import ablate_lane
     from jepsen_tpu_torch.txn import cycles
 
     return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
+            "mega_walk": reach_word.KERNEL_LAUNCHES,
             "batch_walk": reach_batch.KERNEL_LAUNCHES,
             "keyed_walk": reach_lane.KEYED_LAUNCHES,
             "wide_walk": reach_pallas.KERNEL_LAUNCHES,
@@ -1393,11 +1414,12 @@ def launches():
 
 def zero_launches():
     from jepsen_tpu_torch.checkers import reach_batch, reach_lane
-    from jepsen_tpu_torch.checkers import reach_pallas
+    from jepsen_tpu_torch.checkers import reach_pallas, reach_word
     from jepsen_tpu_torch.tools import ablate_lane
     from jepsen_tpu_torch.txn import cycles
 
     reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
+    reach_word.KERNEL_LAUNCHES = 0
     reach_batch.KERNEL_LAUNCHES = 0
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
     ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
@@ -2267,21 +2289,9 @@ def phase_cli():
         procs = [(f, m, cli_start(cli_args(
             "check", os.path.join(ROOT, "data", f), "--model", m)))
             for f, m in CLI_FIXTURES]
-        for f, m, proc in procs:
-            rc, out, info = cli_finish(f, proc, t0)
-            res = json.loads(out)
-            want = reach(history.load_edn(os.path.join(ROOT, "data", f)),
-                         getattr(models, m.replace("-", "_"))())
-            # the decomposition reports its failing op per key
-            keys = ("valid",) if m == "multi-register" else CLI_VERDICT
-            cli_same(f, res, want, keys)
-            if rc != (0 if res["valid"] is True else 1):
-                raise AssertionError(f"cli {f}: exit {rc} for {res}")
-            cli_line(f"check {f}", rc, res, info)
-        log(f"cli fixtures: {len(CLI_FIXTURES)} processes at once, "
-            f"{time.perf_counter() - t0:.3f} s")
 
-        # -- the other commands' inputs and the in-process answers --------
+        # -- the other commands' inputs and the in-process answers, made
+        # while the fixtures' processes start --------------------------
         big = gen("cas", CLI_BIG_OPS, 5, 0)
         big_bad = gen("cas", CLI_BIG_OPS, 5, 0, corrupt=True)
         p_big, p_bad = write("history.jsonl", big), write("bad.jsonl",
@@ -2301,6 +2311,19 @@ def phase_cli():
                                    fixtures.txn_anomaly_block("write-skew")])
         p_txn = write("txn.jsonl", h_txn)
         want_txn = facade.auto_check_txn(h_txn, {"device": CARD})
+        for f, m, proc in procs:
+            rc, out, info = cli_finish(f, proc, t0)
+            res = json.loads(out)
+            want = reach(history.load_edn(os.path.join(ROOT, "data", f)),
+                         getattr(models, m.replace("-", "_"))())
+            # the decomposition reports its failing op per key
+            keys = ("valid",) if m == "multi-register" else CLI_VERDICT
+            cli_same(f, res, want, keys)
+            if rc != (0 if res["valid"] is True else 1):
+                raise AssertionError(f"cli {f}: exit {rc} for {res}")
+            cli_line(f"check {f}", rc, res, info)
+        log(f"cli fixtures: {len(CLI_FIXTURES)} processes at once, "
+            f"{time.perf_counter() - t0:.3f} s")
 
         # -- the commands, started together (each its own process) --------
         commands = (("check big", ["check", p_big]),
@@ -2426,7 +2449,7 @@ def phase_cli():
 # -- the test runner (python -m jepsen_tpu_torch run) -----------------------
 
 # the README's command: 5 nodes, concurrency 5, the partition nemesis
-RUN_TIME_LIMIT, RUN_SEED = 5.0, 7
+RUN_TIME_LIMIT, RUN_SEED = 4.0, 7
 RUN_SPANS = ("run.setup", "run.workers", "run.teardown", "run.check",
              "run.store")
 RUN_FILES = ("test.json", "results.json", "results.edn", "history.jsonl",
@@ -2857,11 +2880,11 @@ def online_replay(hist, found):
 # The HTTP threads' admission (parse, pack, the journal's EDN copy of
 # the history) and the lane's host work share the interpreter lock, which
 # bounds the daemon at about 2 requests/s of this traffic: 256 requests
-# take some 115 s, so the full run's depth is cut to SERVE_N (and
-# SERVE_RERUN); ``--serve 256`` runs the phase alone at that traffic
+# take some 115 s, so the full run's depth is cut to SERVE_N and
+# SERVE_RERUN; ``--serve 256`` runs the phase alone at that traffic
 # (PERF.md sections 5 and 6)
-SERVE_N, SERVE_OPS, SERVE_TENANTS, SERVE_CHUNK = 40, (2_000, 10_000), 8, 8
-SERVE_RERUN = 8
+SERVE_N, SERVE_OPS, SERVE_TENANTS, SERVE_CHUNK = 24, (2_000, 10_000), 8, 8
+SERVE_RERUN = 4
 SERVE_WIDE_N, SERVE_WIDE_OPS = 8, 5_000
 # the `check` command's time on cas-100k (PERF.md section 5)
 CHECK_COMMAND_S = 5.4661
@@ -3456,7 +3479,7 @@ def phase_online():
 # in ops
 CARRY_BLOCK = 256
 CARRY_CASES = (("cas-100k", {}, "lane_walk", 100_000),
-               ("wide cas-100k", WIDE_CAS, "wide_walk", 100_000))
+               ("wide cas-60k", WIDE_CAS, "wide_walk", 60_000))
 
 
 def carry_feed(eng, hist, times):
@@ -3482,7 +3505,7 @@ def carry_feed(eng, hist, times):
 def phase_carry():
     """The register family's streaming session on the card:
     ``DeviceFrontierEngine`` (the carried frontier on K1 at cas-100k, on
-    K4 at wide cas-100k, each with its corrupted twin) against
+    K4 at wide cas-60k, each with its corrupted twin) against
     ``NativeStreamEngine``'s host walk on the same blocks: violation,
     ``settled-returns``, and the final carried set against the host's.
     Returns the readings by case."""
@@ -3877,6 +3900,561 @@ def txn_session_run(h, consistency):
             "last_join_ms": j_ms, "peak_mib": mem["session"] / 2**20}
 
 
+# -- K10 and the daemon's streaming sessions ---------------------------------
+
+# K10 against its plain version: lanes a launch, and the returns of a
+# lane's block (ragged); the narrow lanes hold cas carries of 5 and 6
+# processes (K1's route; the warp and the block form), the wide lanes
+# multi-register ones over 64 states (K4's route)
+K10_LANES = (1, 2, 64, 1_024)
+K10_BLOCK = (16, 160)
+K10_HISTS = 8                  # histories (each its own P) a group
+K10_REPLAY_LANES = 2           # the wide groups' host replay's lanes
+                               # (its int32 numpy products grow with S;
+                               # the narrow groups replay every lane)
+# the daemon's sessions: cas sessions across tenants, each of
+# SESS_APPENDS blocks of SESS_OPS history entries, SESS_BAD of them with
+# a violation; a group of wide (multi-register, K4's route) and txn ones
+SESS_N = 256
+SESS_TENANTS = 4
+SESS_APPENDS = 8
+SESS_OPS = (64, 256)
+SESS_BAD = 8
+SESS_WIDE_N = 16
+SESS_TXN_N = 2
+SESS_TXN = dict(n_txns=600, keys=4, processes=4, key_rotate=16, seed=5)
+SESS_CLIENTS = 16              # HTTP client threads
+SESS_CRASH_AT = 2              # the daemon is dropped before this wave
+SESS_VERDICT = ("valid", "op", "dead-event")
+
+
+def k10_carries(kind, model, procs, L, seed, **kw):
+    """L carries of one mega geometry on ``CARD`` and a block each: the
+    most common geometry of :data:`K10_HISTS` histories (one in four
+    corrupted), lane i on history i mod their count with its own seed
+    (every other lane a random set over the one-hot one) and a ragged
+    block at a random offset of that history's returns. Returns
+    ``(carries, blocks, history of each lane, the histories' P)``."""
+    from jepsen_tpu_torch import history
+    from jepsen_tpu_torch.checkers import events, reach
+
+    rng = np.random.RandomState(seed)
+    by_sig = {}
+    for s in range(K10_HISTS):
+        h = gen(kind, 3_000, procs, seed + s, corrupt=s % 4 == 1, **kw)
+        memo, stream, _T, _S, M = reach._prep(
+            model, history.pack(h), max_states=100_000, max_slots=20,
+            max_dense=1 << 22)
+        R0 = np.zeros((memo.n_states, M), bool)
+        R0[0, 0] = True
+        c = reach.FrontierCarry(memo, M.bit_length() - 1, R0, device=CARD)
+        by_sig.setdefault(c.mega_sig, []).append(
+            (memo, events.returns_view(stream), M))
+    sig, members = max(by_sig.items(), key=lambda kv: len(kv[1]))
+    carries, blocks, which = [], [], []
+    for i in range(L):
+        j = i % len(members)
+        memo, rs, M = members[j]
+        R0 = rng.random_sample((memo.n_states, M)) < (0.05 if i % 2 else 0)
+        R0[0, 0] = True
+        carries.append(reach.FrontierCarry(memo, M.bit_length() - 1, R0,
+                                           device=CARD))
+        n = rng.randint(K10_BLOCK[0], K10_BLOCK[1] + 1)
+        off = rng.randint(0, max(1, rs.n_returns - n))
+        blocks.append((rs.ret_slot[off:off + n], rs.slot_ops[off:off + n]))
+        which.append(j)
+    if any(c.mega_sig != sig for c in carries):
+        raise AssertionError(f"K10 lanes: geometry {sig} not shared")
+    return carries, blocks, which, sig
+
+
+def k10_operands(carries, blocks):
+    """:func:`reach_word.mega_walk`'s operands of a group, on the card."""
+    L, W = len(carries), carries[0].W
+    lens = [len(b[0]) for b in blocks]
+    R_pad = max(lens)
+    rs = np.full((L, R_pad), -1, np.int32)
+    so = np.full((L, R_pad, W), -1, np.int32)
+    for i, (b_rs, b_so) in enumerate(blocks):
+        rs[i, :lens[i]] = b_rs
+        so[i, :lens[i]] = b_so
+    return ([c._P for c in carries], [c._T for c in carries],
+            [c._R for c in carries], torch.as_tensor(rs, device=CARD),
+            torch.as_tensor(so, device=CARD), lens)
+
+
+def k10_check(label, carries, blocks, which, sig, replay: bool):
+    """K10 on one group: bit for bit against its plain version on the
+    same tensors (and against the host replay, :func:`walk_work`, when
+    ``replay``), its time beside L solo advances of the same blocks on K1
+    or K4 (each lane's dead return and final set held against K10's too)
+    and its bound. Returns the kernels line's numbers."""
+    from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
+    from jepsen_tpu_torch.checkers import reach_word
+
+    engine, S, W, O1 = sig
+    narrow = engine == "reach-lane"
+    P, T, R, rs, so, lens = k10_operands(carries, blocks)
+    L = len(carries)
+    got = reach_word.mega_walk(P, T, R, rs, so, lens, narrow)
+    ref, p_ms = plain_ms(lambda: reach_word.mega_walk_plain(
+        P, R, rs, so, lens))
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"mega_walk [{label}] L={L}: differs from "
+                             f"its plain version")
+    err = float((got[0] - ref[0]).abs().max())
+    ms = event_ms(lambda: reach_word.mega_walk(P, T, R, rs, so, lens,
+                                               narrow), 5)
+    # L solo advances of the same blocks, as a session's solo path walks
+    # them (K1: a checkpoint block the size of the block, n_pass = W)
+    solo_ops = []
+    for i, (b_rs, b_so) in enumerate(blocks):
+        n = lens[i]
+        t_rs = torch.as_tensor(np.ascontiguousarray(b_rs, np.int32),
+                               device=CARD)
+        t_so = torch.as_tensor(np.ascontiguousarray(b_so, np.int32),
+                               device=CARD)
+        solo_ops.append((P[i], t_rs, t_so, R[i], n))
+
+    def solo_all():
+        out = []
+        for Pi, t_rs, t_so, Ri, n in solo_ops:
+            if narrow:
+                _c, fin, dead = reach_lane.lane_walk(Pi, t_rs, t_so, Ri, n,
+                                                     W)
+            else:
+                dead, fin = reach_pallas.walk(Pi, t_rs, t_so, Ri, n)
+            out.append((dead, fin))
+        return out
+
+    # timed once, warm (the walks' libraries are loaded), by CUDA events
+    e0 = torch.cuda.Event(enable_timing=True) if CARD == "cuda" else None
+    e1 = torch.cuda.Event(enable_timing=True) if CARD == "cuda" else None
+    t0 = time.perf_counter()
+    if e0 is not None:
+        e0.record()
+    solo = solo_all()
+    if e1 is not None:
+        e1.record()
+        torch.cuda.synchronize()
+        solo_ms = e0.elapsed_time(e1)
+    else:
+        solo_ms = 1e3 * (time.perf_counter() - t0)
+    deads = got[1].cpu().tolist()
+    for i, (dead, fin) in enumerate(solo):
+        if int(dead[0]) != deads[i] or (deads[i] < 0
+                                        and not torch.equal(fin, got[0][i])):
+            raise AssertionError(f"mega_walk [{label}] L={L} lane {i}: "
+                                 f"solo {int(dead[0])}, K10 {deads[i]}")
+    work, bound_txt = 0, ""
+    if replay:
+        for j in sorted(set(which)):
+            ids = [i for i in range(L) if which[i] == j]
+            ops_j, v, dead = walk_work(
+                P[ids[0]].cpu().numpy(), rs[ids].cpu().numpy().T,
+                so[ids].cpu().numpy().transpose(1, 0, 2),
+                as_sets(torch.stack([R[i] for i in ids])), W,
+                lens=np.array([lens[i] for i in ids]))
+            if not (np.array_equal(v, as_sets(got[0][ids]))
+                    and dead.tolist() == [deads[i] for i in ids]):
+                raise AssertionError(f"mega_walk [{label}] L={L}: differs "
+                                     f"from the host replay")
+            work += ops_j
+    # the bytes the function needs: each lane's real returns (ret_slot
+    # and its W slot ops; the identity steps that pad a block to the
+    # longest are the kernel's, not the function's), the table rows of
+    # the ops those returns name and the all-zero sentinel row, the
+    # seeds, the finals, the dead returns and the lane descriptors
+    rows = sum(len(set(np.asarray(b_so[:lens[i]]).ravel().tolist())
+                   - {-1}) + 1 for i, (_r, b_so) in enumerate(blocks))
+    moved = (sum(lens) * (1 + W) * 4 + rows * T[0][0].nbytes
+             + nbytes(*R, got[0], got[1]) + L * 3 * 8)
+    bound, bound_by, detail = bound_ms(moved, work)
+    if not replay:
+        bound_by, detail = "bytes", f"bytes={moved} (operations not " \
+                                    f"counted: no host replay)"
+        bound = 1e3 * moved / HBM_RATE
+    n_dead = sum(d >= 0 for d in deads)
+    log(f"kernel mega_walk [{label}] L={L} engine={engine} S={S} W={W} "
+        f"O1={O1} form={'warp' if W <= 5 and (narrow or S <= 256) else 'block'} "
+        f"R_pad={rs.shape[1]} returns={sum(lens)} dead lanes={n_dead}: "
+        f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
+        f"us_per_lane={1e3 * ms / L:.6f} solo_{'k1' if narrow else 'k4'}_ms="
+        f"{solo_ms:.6f} ({L} launches, {solo_ms / ms:.2f}x K10) "
+        f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; {detail})"
+        f"{'; host replay agrees' if replay else ''}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "solo_ms": solo_ms, "dead": n_dead, "L": L}
+
+
+def phase_k10():
+    """K10 (``csrc/mega_walk.cu``) against its plain version at
+    :data:`K10_LANES` lanes on K1's route (cas, 5 processes: the warp
+    form) and K4's (multi-register over 64 states), and once each in the
+    block form (6 processes); each beside the same blocks' solo K1 or K4
+    advances. Returns the kernels line's numbers: the narrow group at the
+    most lanes."""
+    from jepsen_tpu_torch import models
+
+    t0 = time.perf_counter()
+    out = {}
+    cases = (("cas", "cas", models.cas_register(), 5, {}, K10_LANES),
+             ("multi-register S=64", "multi", models.multi_register(), 5,
+              WIDE_MULTI, K10_LANES),
+             ("cas W=6", "cas", models.cas_register(), 6, {}, (64,)),
+             ("multi-register S=64 W=6", "multi", models.multi_register(),
+              6, WIDE_MULTI, (64,)))
+    for label, kind, model, procs, kw, lanes in cases:
+        t_case = time.perf_counter()
+        carries, blocks, which, sig = k10_carries(
+            kind, model, procs, max(lanes), 900 + procs, **kw)
+        log(f"K10 lanes [{label}]: {max(lanes)} carries seeded in "
+            f"{time.perf_counter() - t_case:.2f} s")
+        for L in lanes:
+            r = k10_check(label, carries[:L], blocks[:L], which[:L], sig,
+                          replay=L <= K10_REPLAY_LANES or sig[1] <= 32)
+            if L >= 64 and not 0 < r["dead"] < L:
+                raise AssertionError(f"mega_walk [{label}] L={L}: "
+                                     f"{r['dead']} dead lanes")
+            if label == "cas" and L == max(lanes):
+                out = r
+    out["max_abs_err"] = 0.0
+    log(f"K10 phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sess_params():
+    """The session traffic's sizes, handed to the pool's workers (a
+    worker imports this module afresh)."""
+    return dict(n=SESS_N, tenants=SESS_TENANTS, appends=SESS_APPENDS,
+                ops=SESS_OPS, bad=SESS_BAD, wide=SESS_WIDE_N,
+                txn_n=SESS_TXN_N, txn=SESS_TXN)
+
+
+def sess_streams(pm):
+    """The sessions' streams for the sizes ``pm`` (:func:`sess_params`):
+    ``(key, model name, tenant, blocks)``, blocks of op maps as the
+    client sends them, the same on every call."""
+    from jepsen_tpu_torch import fixtures, history
+
+    rng = np.random.RandomState(19)
+    out = []
+
+    def sizes():
+        return rng.randint(pm["ops"][0], pm["ops"][1] + 1, pm["appends"])
+
+    def cut(ops, sz):
+        """``ops`` in blocks in the proportions of ``sz``, none empty."""
+        ends = np.round(np.cumsum(sz) / sz.sum() * len(ops)).astype(int)
+        bounds = [0]
+        for k, e in enumerate(ends):
+            bounds.append(max(bounds[-1] + 1,
+                              min(int(e), len(ops) - (len(sz) - 1 - k))))
+        return [[o.to_dict() for o in ops[bounds[k]:bounds[k + 1]]]
+                for k in range(len(sz))]
+
+    stride = pm["n"] // pm["bad"]
+    for i in range(pm["n"]):
+        sz = sizes()
+        h = gen("cas", int(sz.sum()) // 2, 5, 7_000 + i,
+                corrupt=i % stride == stride // 2)
+        out.append((f"cas-{i}", "cas-register",
+                    f"tenant-{i % pm['tenants']}", cut(h, sz)))
+    for i in range(pm["wide"]):
+        sz = sizes()
+        h = gen("multi", int(sz.sum()) // 2, 5, 8_000 + i, corrupt=i == 3,
+                **WIDE_MULTI)
+        out.append((f"wide-{i}", "multi-register", "tenant-wide",
+                    cut(h, sz)))
+    for i in range(pm["txn_n"]):
+        h = fixtures.gen_txn_history(**dict(pm["txn"],
+                                            seed=pm["txn"]["seed"] + i))
+        if i == 0:
+            h = history.index(h + [op.with_(index=-1) for op in
+                                   fixtures.txn_anomaly_block(
+                                       "write-skew")])
+        out.append((f"txn-{i}", "txn-list-append", "tenant-txn",
+                     cut(h, sizes())))
+    return out
+
+
+def sess_to_file(path, pm):
+    """A worker task: :func:`sess_streams` pickled into ``path``."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(sess_streams(pm), f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+def sess_submit():
+    """Start generating the sessions' streams in the pool."""
+    import tempfile
+
+    return pool().submit(sess_to_file, os.path.join(
+        tempfile.gettempdir(), f"chip-smoke-sessions-{os.getpid()}.pickle"),
+        sess_params())
+
+
+def sess_standalone(pm, device):
+    """A worker task: the standalone check of every session's whole
+    history as the daemon reads it (:func:`sess_streams` again, the same
+    streams), on ``device``: ``check_packed`` for the register family,
+    ``auto_check_txn`` for txn; ``{key: verdict}`` as JSON carries it."""
+    from jepsen_tpu_torch import history, serve
+    from jepsen_tpu_torch.checkers import facade, reach
+    from jepsen_tpu_torch.op import Op
+
+    out = {}
+    for key, model_name, _t, blocks in sess_streams(pm):
+        ops = history.index([Op.from_dict(o) for b in blocks for o in b])
+        if model_name == "txn-list-append":
+            want = facade.auto_check_txn(ops, {"device": device})
+        else:
+            want = reach.check_packed(serve.resolve_model(model_name),
+                                      history.pack(ops), device=device)
+        out[key] = json.loads(json.dumps(want, default=str))
+    return out
+
+
+def sess_threads(work, fn):
+    """``fn(item)`` for every item of ``work`` on :data:`SESS_CLIENTS`
+    threads; the results in order, the first error raised."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(SESS_CLIENTS) as ex:
+        return list(ex.map(fn, work))
+
+
+def sess_wave(d, sessions, w):
+    """Block w of every session, posted over HTTP without waiting
+    (``wait-s`` 0, the client's 202), then each request's verdict awaited
+    on the daemon's registry in process (no polling: clients polling
+    ``GET /check/<id>`` held the interpreter lock from the lane), and
+    the first one's read over HTTP too: ``{key: (status, result)}``."""
+    url = f"http://127.0.0.1:{d.port}"
+
+    def post(s):
+        key, _m, _t, blocks = s
+        code, r = http_json(f"{url}/session/{SESS_IDS[key]}/append", "POST",
+                            json.dumps({"history": blocks[w], "seq": w + 1,
+                                        "wait-s": 0}).encode())
+        if code not in (200, 202):
+            raise AssertionError(f"session {key} block {w + 1}: {code} {r}")
+        return r["id"]
+
+    ids = sess_threads(sessions, post)
+    out = {}
+    for s, rid in zip(sessions, ids):
+        req = d.registry.get(rid)
+        if not req.done_event.wait(600):
+            raise AssertionError(f"session {s[0]} block {w + 1}: no verdict")
+        out[s[0]] = (req.status, req.result)
+    code, st = http_json(f"{url}/check/{ids[0]}")
+    if code != 200 or st["result"] != out[sessions[0][0]][1]:
+        raise AssertionError(f"GET /check/{ids[0]}: {code} {st}")
+    return out
+
+
+SESS_IDS = {}
+
+
+def op_id(op):
+    """An op map's identity: process, function, value and index."""
+    return None if op is None else tuple(
+        json.dumps(op.get(k), sort_keys=True)
+        for k in ("process", "f", "value", "index"))
+
+
+def phase_sessions(streams):
+    """The check daemon's streaming sessions on the card
+    (:class:`serve.Daemon` in process, a tenant cap of 128, every tenant
+    allowed 1,024 requests in flight so that a group can hold every
+    session): :data:`SESS_N` cas sessions across :data:`SESS_TENANTS`
+    tenants (:data:`SESS_BAD` with an injected violation),
+    :data:`SESS_WIDE_N` multi-register sessions over 64 states (K4's
+    route, K10's wide form) and :data:`SESS_TXN_N` txn sessions (K8, K9;
+    one with a write skew), :data:`SESS_APPENDS` blocks each, posted a
+    wave at a time (block w of every session, then their verdicts). After
+    :data:`SESS_CRASH_AT` waves the daemon is dropped without a shutdown
+    and a second one on the same store replays every session from the
+    journal. Every
+    close's verdict, op and dead event, and every session's first
+    violation, against the standalone ``check_packed`` (``auto_check_txn``)
+    of its whole history as the daemon read it; the main path's launches
+    (K10 among them, in both forms); K10's device time a wave (CUDA
+    events around each launch) and its share of the advances' wall;
+    appends a second; the results browser's ``/`` and ``/engine``."""
+    import tempfile
+
+    from jepsen_tpu_torch import obs, serve, web
+    from jepsen_tpu_torch.checkers import reach_word
+
+    t_phase = time.perf_counter()
+    sessions = load_pickle(streams.result())
+    # the standalone checks run in a worker process on the card while the
+    # daemon serves (they are the phase's reference, not its work)
+    standalone = pool().submit(sess_standalone, sess_params(), CARD)
+    log(f"sessions: {len(sessions)} streams generated by a worker process,"
+        f" waited {time.perf_counter() - t_phase:.2f} s for and loaded "
+        f"them, not counted")
+    dev = None if CARD == "cuda" else CARD
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sessions-")
+    kw = dict(port=0, store_root=tmp, device=dev, session_tenant_cap=128,
+              max_inflight_per_tenant=1_024, queue_depth=4_096)
+    # K10's device time: CUDA events around every launch, read at the end
+    timed = []
+    launch = reach_word.mega_walk
+
+    def mega_walk_timed(*a, **k):
+        e0 = e1 = None
+        if CARD == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        out = launch(*a, **k)
+        if e1 is not None:
+            e1.record()
+        timed.append((len(a[0]), k.get("narrow", a[-1]), e0, e1,
+                      time.perf_counter() - t0))
+        return out
+
+    reach_word.mega_walk = mega_walk_timed
+    walls, appends = [], 0
+    zero_launches()
+    # the lanes' counters are the process's (a capture sees one thread)
+    ctr0 = obs.counters()
+    try:
+        d = serve.Daemon(**kw).start()
+        url = f"http://127.0.0.1:{d.port}"
+        for key, model_name, tenant, _b in sessions:
+            code, r = http_json(f"{url}/session", "POST", json.dumps(
+                {"model": model_name, "tenant": tenant}).encode())
+            if code != 201:
+                raise AssertionError(f"open {key}: {code} {r}")
+            SESS_IDS[key] = r["session"]
+        verdicts = {s[0]: [] for s in sessions}
+        for w in range(SESS_APPENDS):
+            if w == SESS_CRASH_AT:
+                # a crash: no drain, no shutdown; the next daemon
+                # replays every open session from the journal
+                t0 = time.perf_counter()
+                d.httpd.server_close()
+                d.dispatcher.stop()
+                d = serve.Daemon(**kw).start()
+                url = f"http://127.0.0.1:{d.port}"
+                replayed = sum(d.sessions.get(SESS_IDS[s[0]]).replayed
+                               for s in sessions)
+                log(f"sessions: daemon dropped after {w} waves and "
+                    f"started again, {replayed} blocks of "
+                    f"{len(sessions)} sessions replayed in "
+                    f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            out = sess_wave(d, sessions, w)
+            walls.append(time.perf_counter() - t0)
+            appends += len(out)
+            for key, (status, res) in out.items():
+                if status != "done":
+                    raise AssertionError(f"session {key} block {w + 1}:"
+                                         f" {status} {res}")
+                verdicts[key].append(res)
+        # the browser, while the sessions are open
+        httpd = web.serve(root=tmp, port=0, block=False)
+        d.dispatcher._write_stats_file()
+        wurl = f"http://127.0.0.1:{httpd.server_address[1]}"
+        import urllib.request
+        index = urllib.request.urlopen(wurl + "/", timeout=60).read()
+        engine = urllib.request.urlopen(wurl + "/engine",
+                                        timeout=60).read().decode()
+        httpd.shutdown()
+        httpd.server_close()
+        if f"{len(sessions)} open sessions" not in engine \
+                or b"jepsen-tpu results" not in index:
+            raise AssertionError("sessions: the browser's pages")
+        t0 = time.perf_counter()
+        closes = sess_threads(sessions, lambda s: http_json(
+            f"{url}/session/{SESS_IDS[s[0]]}/close", "POST",
+            b'{"wait-s": 600}'))
+        close_s = time.perf_counter() - t0
+        stats = d.stats()
+        health = d.health()
+        d.shutdown()
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        reach_word.mega_walk = launch
+    la = launches()
+    for name, n in la.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    expect("sessions", la, mega_walk=None, lane_walk=None, wide_walk=None,
+           txn_inc_join=None, txn_closure=None)
+    if health[0] != 200:
+        raise AssertionError(f"sessions: /healthz {health}")
+    # every close and first violation against the standalone check of
+    # the whole history as the daemon read it
+    t0 = time.perf_counter()
+    wants = standalone.result()
+    n_bad = 0
+    for (key, model_name, _t, blocks), (code, res) in zip(sessions, closes):
+        if code != 200 or res["status"] != "closed":
+            raise AssertionError(f"close {key}: {code} {res}")
+        got, want = res["result"], wants[key]
+        keys = (("valid", "anomalies") if model_name == "txn-list-append"
+                else SESS_VERDICT)
+        for k in keys:
+            if got.get(k) != want.get(k):
+                raise AssertionError(f"session {key}: {k} {got.get(k)} "
+                                     f"!= standalone {want.get(k)}")
+        first = next((v for v in verdicts[key] if not v["valid-so-far"]),
+                     None)
+        if (first is None) != (want["valid"] is True):
+            raise AssertionError(f"session {key}: incremental verdicts "
+                                 f"against {want['valid']}")
+        # the incremental violation names the failing op's completion,
+        # the exact check its invocation: the same op
+        if first is not None and model_name != "txn-list-append" and \
+                op_id(first["violation"].get("op")) != op_id(want.get("op")):
+            raise AssertionError(f"session {key}: first violation "
+                                 f"{first['violation'].get('op')} != "
+                                 f"{want.get('op')}")
+        n_bad += want["valid"] is False
+    check_s = time.perf_counter() - t0
+    if CARD == "cuda":
+        dev_ms = [(lanes, narrow, e0.elapsed_time(e1))
+                  for lanes, narrow, e0, e1, _h in timed]
+    else:
+        dev_ms = [(lanes, narrow, 1e3 * h) for lanes, narrow, _a, _b, h
+                  in timed]
+    forms = {bool(n) for _l, n, _ms in dev_ms}
+    if forms != {True, False}:
+        raise AssertionError(f"sessions: K10 launched in forms {forms}")
+    k10_ms = sum(ms for _l, _n, ms in dev_ms)
+    lanes_all = sum(lanes for lanes, _n, _ms in dev_ms)
+    ctr1 = obs.counters()
+    ctr = {k: ctr1.get(k, 0) - ctr0.get(k, 0) for k in ctr1}
+    adv_s = ctr.get("serve.session.advance_wall_s", 0.0)
+    scatter_s = ctr.get("serve.session.mega.scatter_s", 0.0)
+    log(f"sessions: {len(sessions)} sessions ({SESS_N} cas, {SESS_WIDE_N} "
+        f"wide, {SESS_TXN_N} txn; {n_bad} invalid), {appends} appends in "
+        f"{sum(walls):.3f} s of waves = {appends / sum(walls):.1f} appends/s"
+        f" (waves {', '.join(f'{x:.3f}' for x in walls)} s); closes "
+        f"{close_s:.3f} s; K10 {len(dev_ms)} launches of {lanes_all} lanes "
+        f"({lanes_all / max(1, len(dev_ms)):.1f} a wave), device "
+        f"{k10_ms:.3f} ms = {k10_ms / max(1, len(dev_ms)):.6f} ms a wave, "
+        f"{k10_ms / max(1, lanes_all):.6f} ms a lane; the staged part of "
+        f"the waves {scatter_s:.3f} s, the advances' wall {adv_s:.3f} s, "
+        f"K10 {100 * k10_ms / 1e3 / max(adv_s, 1e-9):.2f}% of it; "
+        f"groups {ctr.get('serve.session.mega.groups', 0)}, fallbacks "
+        f"{ctr.get('serve.session.fallback', 0)}, journal "
+        f"{ctr.get('serve.journal.session_appended', 0)} blocks; "
+        f"launches {la}; dispatch {stats['dispatch']}; every close as the "
+        f"standalone check (a worker process; {check_s:.2f} s waited for "
+        f"it), browser / and /engine ({len(sessions)} open sessions)")
+    log(f"sessions phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3900,9 +4478,10 @@ def main() -> int:
 
     big_future = pool().submit(
         gen_to_file, os.path.join(tempfile.gettempdir(),
-                                  f"chip-smoke-cas-1M-{os.getpid()}.pickle"),
-        "cas", 1_000_000, 5, 1)
+                                  f"chip-smoke-{SCALE}-{os.getpid()}.pickle"),
+        "cas", SCALE_OPS, 5, 1)
     serve_futures = serve_submit()
+    sess_future = sess_submit()
     for lib in _native.LIBRARIES:
         native_s = _native.build(lib)
         log(f"build: {native_s:.3f} s for the host library "
@@ -3924,7 +4503,7 @@ def main() -> int:
     t0 = time.perf_counter()
     big = load_pickle(big_future.result())
     gen_s = time.perf_counter() - t0
-    phase_native([("cas-100k", h100k), ("cas-1M", big)])
+    phase_native([("cas-100k", h100k), (SCALE, big)])
     t0 = time.perf_counter()
     h_ind, per_key = keyed_histories()
     gen_ind_s = time.perf_counter() - t0
@@ -4026,11 +4605,11 @@ def main() -> int:
 
     res, dt, la, spans, _ = drive(lambda: linearizable(big))
     if res["valid"] is not True or res["engine"] != "reach-chunklock":
-        raise AssertionError(f"cas-1M: {res}")
-    expect("cas-1M", la, batch_walk=2, keyed_walk=0)
-    log(f"scale cas-1M: {res['engine']} valid={res['valid']} "
+        raise AssertionError(f"{SCALE}: {res}")
+    expect(SCALE, la, batch_walk=2, keyed_walk=0)
+    log(f"scale {SCALE}: {res['engine']} valid={res['valid']} "
         f"chunks={res['chunks']} basis-max={res['basis-max']} "
-        f"rescues={res['rescues']} {dt:.4f} s = {1_000_000 / dt:.1f} ops/s; "
+        f"rescues={res['rescues']} {dt:.4f} s = {SCALE_OPS / dt:.1f} ops/s; "
         f"{split(dt, spans)}; history generated in a worker process, "
         f"{gen_s:.2f} s to wait for and load it, not counted; launches "
         f"{la}")
@@ -4176,6 +4755,10 @@ def main() -> int:
     k9 = phase_join()
     phase_txn_session()
 
+    # -- the daemon's streaming sessions: K10 and its main path ---------
+    k10 = phase_k10()
+    phase_sessions(sess_future)
+
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
     k6_launches, k7_launches = la["ablate_walk"], la["ablate_stream"]
@@ -4204,6 +4787,8 @@ def main() -> int:
          total["txn_closure"], k8),
         ("txn_inc_join", "txn_inc_join.cu", "jepsen_tpu/txn/cycles.py:482",
          total["txn_inc_join"], k9),
+        ("mega_walk", "mega_walk.cu",
+         "jepsen_tpu/checkers/reach_word.py:249", total["mega_walk"], k10),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
@@ -4216,6 +4801,25 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def sessions_main() -> int:
+    """``--sessions``: the kernels built, then :func:`phase_k10` and
+    :func:`phase_sessions` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import _build, _native
+
+    log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
+    log(f"build: {_build.build_all():.3f} s")
+    log(ptxas_summary("mega_walk", _build.build_log("mega_walk")))
+    for lib in _native.LIBRARIES:
+        _native.build(lib)
+    streams = sess_submit()
+    phase_k10()
+    phase_sessions(streams)
     return 0
 
 
@@ -4249,6 +4853,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--serve"]:
             rc = serve_main(int(sys.argv[2]))
+        elif sys.argv[1:2] == ["--sessions"]:
+            rc = sessions_main()
         else:
             rc = main()
     finally:

@@ -647,24 +647,35 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
 
 # -- the carried frontier of a streaming session ----------------------------
 
+def _pad_pow2(n: int, floor: int = 64) -> int:
+    return max(floor, 1 << max(0, (n - 1)).bit_length())
+
+
 class FrontierCarry:
     """The reachable-config frontier of one streaming session, kept on
     the device across append blocks for one geometry ``(S, M = 2^W)``:
-    the carried set ``R`` f32 ``[M, S_pad]`` and the transition operand
+    the carried set ``R`` f32 ``[M, S_pad]``, the transition operand
     ``P`` (:func:`_build_P`, ``S_pad`` the states padded as
-    :func:`check_packed` pads them). A geometry change (memo rebuild,
-    slot growth) discards the carry; the session engine re-encodes on
-    the host and seeds a fresh one from a host bool ``[S, M]`` set.
+    :func:`check_packed` pads them) and P's nibble image tables ``T``,
+    built once at the seed (P never changes after it). P's op axis is
+    padded to the reference's bucket ``O1 = _pad_pow2(O + 1, 8)`` with
+    all-zero rows (the last is the slot -1 sentinel), so sessions whose
+    alphabets grow at different rates share one geometry,
+    :attr:`mega_sig` ``(engine, S_pad, W, O1)``, and a mega-group walks
+    them in one launch of K10 (:mod:`.reach_word`). A geometry change
+    (memo rebuild, slot growth) discards the carry; the session engine
+    re-encodes on the host and seeds a fresh one from a host bool
+    ``[S, M]`` set.
 
     The walk is chosen by geometry when the carry is seeded and recorded
     as a ``frontier-carry`` route: one K1 launch a block where
-    :func:`reach_lane.lane_fits` holds (``n_pass = W``, exact, with K1's
-    fixpoint exit, one checkpoint block the size of the append block, so
-    nothing is padded), else one K4 launch where
+    :func:`reach_lane.lane_fits` holds at the padded op count
+    (``n_pass = W``, exact, with K1's fixpoint exit, one checkpoint
+    block the size of the append block), else one K4 launch where
     :func:`reach_pallas.fits` holds, else the torch returns walk
-    (:func:`_walk_returns`, its death refined return by return). Each
-    gives the exact dead return; the host reads only that index. Any
-    error propagates."""
+    (:func:`_walk_returns`, its death refined return by return; such a
+    carry has no tables and joins no group). Each gives the exact dead
+    return; the host reads only that index. Any error propagates."""
 
     def __init__(self, memo: Memo, W: int, R0_host: np.ndarray, *,
                  device=None) -> None:
@@ -676,22 +687,30 @@ class FrontierCarry:
                              f"[{memo.n_states}, {self.M}]")
         self.advanced_returns = 0
         S_pad = max(2, _next_pow2(self.S))
+        self.O1 = _pad_pow2(memo.n_ops + 1, 8)
         geom = {"states": S_pad, "slots": self.W, "ops": memo.n_ops}
-        if reach_lane.lane_fits(S_pad, self.M, memo.n_ops):
+        if reach_lane.lane_fits(S_pad, self.M, self.O1 - 1):
             self.engine = "reach-lane"
-        elif reach_pallas.fits(S_pad, self.M, memo.n_ops):
+        elif reach_pallas.fits(S_pad, self.M, self.O1 - 1):
             self.engine = "reach-pallas"
         else:
             self.engine = "reach"
         obs.decision("frontier-carry", "route", engine=self.engine, **geom)
-        self._P = torch.as_tensor(_build_P(memo, S_pad), device=dev)
+        self._P = torch.as_tensor(_build_P(memo, S_pad, self.O1 - 1),
+                                  device=dev)
         R0 = np.zeros((self.M, S_pad), np.float32)
         R0[:, :self.S] = R0_host.T
         self._R = torch.as_tensor(R0, device=dev)
+        self._T = None
+        #: the mega-group geometry, or None: the torch walk joins no group
+        self.mega_sig: Optional[tuple] = None
         if self.engine == "reach":
             xc, bm = _xor_bitmask(self.W, self.M)
             self._xc = torch.as_tensor(xc, device=dev)
             self._bm = torch.as_tensor(bm, device=dev)
+        else:
+            self._T = reach_pallas.image_tables(self._P)
+            self.mega_sig = (self.engine, S_pad, self.W, self.O1)
 
     def _walk(self, ret_slot: np.ndarray, slot_ops: np.ndarray
               ) -> Tuple[int, torch.Tensor]:

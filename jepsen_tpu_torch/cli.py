@@ -26,8 +26,9 @@ violation (a suite whose test map has no model only logs a warning).
 on ``--device`` until SIGTERM or SIGINT; its first line names its URL
 and its last the shutdown and the daemon's stats. It exits 1 when a
 device fault ended a dispatch, and 2 before binding a port when there
-is no card. ``serve`` (the results browser) is not ported yet and exits
-2 naming its ``ROADMAP.md`` item.
+is no card. ``serve`` is the results browser (:mod:`jepsen_tpu_torch.web`)
+over ``--store-root``: it reads the store and checks nothing, so it
+takes no ``--device``.
 """
 from __future__ import annotations
 
@@ -37,11 +38,6 @@ import logging
 import os
 import sys
 from typing import Any, Callable, Dict, Optional, Sequence
-
-_NOT_PORTED = {
-    "serve": "'serve' (the results browser) is not ported yet (ROADMAP.md, "
-             "Queue 1 item 3(a))",
-}
 
 _POD_NOT_PORTED = ("check-serve's pod mode (--coordinator, --num-processes, "
                    "--process-id) is not ported yet (ROADMAP.md, Queue 1 "
@@ -284,15 +280,17 @@ def _cmd_check_serve(args, dev) -> int:
         dispatch_deadline_s=args.dispatch_deadline or None,
         lanes=args.lanes, replica_id=args.replica_id or None,
         lease_ttl_s=args.lease_ttl, device=dev,
-        pipeline_k=args.pipeline_k, faults=args.faults or None)
+        pipeline_k=args.pipeline_k, faults=args.faults or None,
+        session_tenant_cap=args.session_tenant_cap,
+        session_idle_ttl_s=args.session_idle_ttl or None)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda signum, frame: stop.set())
     daemon.start()
     print(f"jepsen-tpu check daemon: http://{args.host}:{daemon.port}/ "
-          f"(POST /check, GET /check/<id>, GET /stats, GET /metrics, "
-          f"GET /healthz, POST /profile; device {daemon.device}, store "
-          f"root {args.store_root})", flush=True)
+          f"(POST /check, GET /check/<id>, POST /session, GET /stats, GET "
+          f"/metrics, GET /healthz, POST /profile; device "
+          f"{daemon.device}, store root {args.store_root})", flush=True)
     while not stop.wait(0.5):
         pass
     daemon.shutdown()
@@ -345,6 +343,12 @@ def _add_check_serve(sub) -> argparse.ArgumentParser:
     csp.add_argument("--faults", default="",
                      help="arm the self-nemesis, e.g. "
                           "'dispatch@3;device@2x6;poison=tenant-x'")
+    csp.add_argument("--session-tenant-cap", type=int, default=64,
+                     help="open streaming sessions a tenant (429 cause "
+                          "tenant-cap past it; 0: no cap)")
+    csp.add_argument("--session-idle-ttl", type=float, default=3600.0,
+                     help="close open sessions idle this many seconds "
+                          "(exact verdict, journal marker; 0: never)")
     csp.add_argument("--replica-id", default="",
                      help="fleet mode: this replica's name; replicas over "
                           "one --store-root share the journal by lease")
@@ -356,6 +360,13 @@ def _add_check_serve(sub) -> argparse.ArgumentParser:
     return csp
 
 
+def _cmd_serve(args, _dev=None) -> int:
+    """``serve``: the results browser over the store, until interrupted."""
+    from jepsen_tpu_torch import web
+    web.serve(root=args.store_root, port=args.port, host=args.host)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m jepsen_tpu_torch",
@@ -363,8 +374,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "offline linearizability and transactional checks, "
                     "on one NVIDIA GPU")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for cmd, text in _NOT_PORTED.items():
-        sub.add_parser(cmd, help=f"not ported: {text}")
+    servep = sub.add_parser(
+        "serve", help="browse stored results over HTTP (read-only; the "
+                      "checking daemon is 'check-serve')")
+    servep.add_argument("--store-root", default="store")
+    servep.add_argument("--port", type=int, default=8080)
+    servep.add_argument("--host", default="127.0.0.1",
+                        help="bind address (loopback by default)")
+    servep.set_defaults(fn=_cmd_serve)
 
     def device_arg(p):
         p.add_argument("--device", default=None,
@@ -422,10 +439,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device_arg(_add_check_serve(sub))
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"jepsen_tpu_torch: {_NOT_PORTED[argv[0]]}", file=sys.stderr)
-        return 2
     args = ap.parse_args(argv)
+    if args.fn is _cmd_serve:
+        return _cmd_serve(args)
     from jepsen_tpu_torch import device as _device
     try:
         dev = _device.resolve(args.device)

@@ -1,10 +1,11 @@
 // The returns walk over the dense config set R[mask, state]. One body,
-// on P's nibble image tables, serves five kernels: K1 (lane_walk.cu, one
+// on P's nibble image tables, serves six kernels: K1 (lane_walk.cu, one
 // history), K2 (batch_walk.cu, H lanes in lockstep, E seed groups per
 // lane) and K3 (keyed_walk.cu, many keys' streams concatenated) at most
 // 32 states, one 32-bit word a mask; K4 (wide_walk.cu, one history) and
 // K5 (wide_keyed.cu, many keys' streams) at any number of states,
-// launched through wide_walk.cuh.
+// launched through wide_walk.cuh; K10 (mega_walk.cu) many sessions'
+// carried sets at once, each lane with its own tables and seed (kMega).
 //
 // What one walk computes, for each return r of its stream:
 //   c_r    = #{j : slot_ops[r, j] >= 0}                (pending ops)
@@ -141,8 +142,9 @@ __device__ __forceinline__ void stage(const Walk& a, int h, int r, int r1,
     js_s[i] = a.ret_slot[(size_t)(r + i) * a.H + h];
 }
 
-// This block's lane and its run of returns.
-template <bool kKeyed>
+// This block's lane and its run of returns (kMega: its lane's own
+// operands, mega_lane, at h = 0).
+template <bool kKeyed, bool kMega = false>
 __device__ __forceinline__ void bounds(const Walk& a, int& h, int& r0,
                                        int& r1) {
   if (kKeyed) {
@@ -150,7 +152,7 @@ __device__ __forceinline__ void bounds(const Walk& a, int& h, int& r0,
     r0 = a.lo[blockIdx.x];
     r1 = a.hi[blockIdx.x];
   } else {
-    h = blockIdx.x;
+    h = kMega ? 0 : blockIdx.x;
     r0 = 0;
     r1 = a.R_pad;
   }
@@ -314,7 +316,27 @@ struct TableWalk {
   int K;              // nibbles a table holds
   int NT;             // words a table entry takes
   int rlim;           // not keyed: a death at r >= rlim is not reported
+  // K10 (kMega): lane i's tables, seed and real returns as lanes[3i],
+  // lanes[3i + 1] (device addresses) and lanes[3i + 2]; null otherwise
+  const long long* lanes;
 };
+
+// K10: block i walks lane i of a mega-group, H = 1, from its own tables
+// and seed (TableWalk::lanes) over its padded run [0, R_pad) of the
+// [L][R_pad] stream, and writes its final set to rows i·M .. i·M + M - 1
+// of final_out and its dead return to dead[i] (-1 past its real
+// returns; the padding's identity steps cannot empty a set anyway).
+__device__ __forceinline__ void mega_lane(TableWalk& g) {
+  const size_t i = blockIdx.x;
+  const long long* l = g.lanes + 3 * i;
+  g.T = (const uint32_t*)l[0];
+  g.a.R0 = (const float*)l[1];
+  g.rlim = (int)l[2];
+  g.a.final_out += i * ((size_t)1 << g.a.W) * g.a.S;
+  g.a.ret_slot += i * g.a.R_pad;
+  g.a.slot_ops += i * g.a.R_pad * g.a.W;
+  g.a.dead += i;
+}
 
 // The tables a block reads: its copy in shared memory when kShared, else
 // T in device memory. The copy is seen after the block's next barrier
@@ -365,10 +387,14 @@ __device__ __forceinline__ int slot_row(const int* __restrict__ ops_s, int k,
 // image and a second shuffle gives the bit-set lane the whole, else the
 // bit-set lane looks it all up (bit j of m gates it by AND). A pass
 // that adds nothing ends the return's passes (the fixpoint exit).
-template <int NT, int KT, bool kShared, bool kKeyed, bool kLock>
+template <int NT, int KT, bool kShared, bool kKeyed, bool kLock,
+          bool kMega = false>
 __global__ void walk_warp(TableWalk g) {
-  static_assert(!(kKeyed && kLock) && (!kLock || NT == 1), "form");
+  static_assert(!(kKeyed && kLock) && (!kLock || NT == 1) &&
+                    !(kMega && (kKeyed || kLock)),
+                "form");
   extern __shared__ uint32_t smem[];
+  if constexpr (kMega) mega_lane(g);
   const Walk& a = g.a;
   const int W = a.W, S = a.S, NW = g.NW, M = 1 << W;
   const int m = threadIdx.x;
@@ -376,7 +402,7 @@ __global__ void walk_warp(TableWalk g) {
   int* js_s = (int*)(smem + (kShared ? (size_t)a.O1 * KT * 16 * NT : 0));
   int* ops_s = js_s + kChunk;  // [kChunk][W]
   int h, r0, r1;
-  bounds<kKeyed>(a, h, r0, r1);
+  bounds<kKeyed, kMega>(a, h, r0, r1);
   // element (mask mm, state t) of this block's rows: at0 + mm * HS + t
   const size_t HS = (size_t)a.H * S;
   const size_t at0 = (size_t)blockIdx.y * M * HS + (size_t)h * S;
@@ -559,10 +585,14 @@ __device__ __forceinline__ uint32_t fire_word(const uint32_t* src,
 // config, and one for the projection, which tests emptiness. With
 // KT > 0 (K1, K2, K3) a mask is one word and its images KT lookups
 // (fire_tab); else (K4, K5) NW words and fire_word's lookups.
-template <int KT, bool kShared, bool kKeyed, bool kLock>
+template <int KT, bool kShared, bool kKeyed, bool kLock,
+          bool kMega = false>
 __global__ void walk_block(TableWalk g) {
-  static_assert(!(kKeyed && kLock) && (!kLock || KT > 0), "form");
+  static_assert(!(kKeyed && kLock) && (!kLock || KT > 0) &&
+                    !(kMega && (kKeyed || kLock)),
+                "form");
   extern __shared__ uint32_t smem[];
+  if constexpr (kMega) mega_lane(g);
   const Walk& a = g.a;
   const int NW = KT > 0 ? 1 : g.NW;
   const int W = a.W, S = a.S, M = 1 << W, MW = M * NW;
@@ -572,7 +602,7 @@ __global__ void walk_block(TableWalk g) {
   int* js_s = (int*)(Rw + 2 * MW);  // [kChunk]
   int* ops_s = js_s + kChunk;       // [kChunk][W]
   int h, r0, r1;
-  bounds<kKeyed>(a, h, r0, r1);
+  bounds<kKeyed, kMega>(a, h, r0, r1);
   const size_t HS = (size_t)a.H * S;  // as in walk_warp
   const size_t at0 = (size_t)blockIdx.y * M * HS + (size_t)h * S;
   int any = 0;
@@ -680,34 +710,40 @@ using TableKernel = void (*)(TableWalk);
 
 // The instance of a geometry at one word an entry, by its lookup count:
 // the warp form, else (kNarrow) the block form at that count.
-template <int KT, bool kShared, bool kKeyed, bool kLock, bool kNarrow>
+template <int KT, bool kShared, bool kKeyed, bool kLock, bool kNarrow,
+          bool kMega>
 TableKernel word_kernel(bool warp) {
   if constexpr (kNarrow) {
-    if (!warp) return walk_block<KT, kShared, kKeyed, kLock>;
+    if (!warp) return walk_block<KT, kShared, kKeyed, kLock, kMega>;
   }
-  return walk_warp<1, KT, kShared, kKeyed, kLock>;
+  return walk_warp<1, KT, kShared, kKeyed, kLock, kMega>;
 }
 
 // The instance of this geometry's form, table shape and table place.
 // The narrow walks (kNarrow: K1, K2, K3, at most 32 states) take both
 // forms at their lookup count; K4 and K5 take the block form at any
 // number of words.
-template <bool kShared, bool kKeyed, bool kLock, bool kNarrow>
+template <bool kShared, bool kKeyed, bool kLock, bool kNarrow,
+          bool kMega = false>
 TableKernel table_kernel(int S, bool warp) {
   if constexpr (!kNarrow) {
-    if (!warp) return walk_block<0, kShared, kKeyed, false>;
+    if (!warp) return walk_block<0, kShared, kKeyed, false, kMega>;
     switch (table_words(S)) {
       case 1: break;
-      case 2: return walk_warp<2, 16, kShared, kKeyed, false>;
-      case 4: return walk_warp<4, 32, kShared, kKeyed, false>;
-      default: return walk_warp<8, 64, kShared, kKeyed, false>;
+      case 2: return walk_warp<2, 16, kShared, kKeyed, false, kMega>;
+      case 4: return walk_warp<4, 32, kShared, kKeyed, false, kMega>;
+      default: return walk_warp<8, 64, kShared, kKeyed, false, kMega>;
     }
   }
   switch (n_nibbles(S)) {
-    case 1: return word_kernel<1, kShared, kKeyed, kLock, kNarrow>(warp);
-    case 2: return word_kernel<2, kShared, kKeyed, kLock, kNarrow>(warp);
-    case 4: return word_kernel<4, kShared, kKeyed, kLock, kNarrow>(warp);
-    default: return word_kernel<8, kShared, kKeyed, kLock, kNarrow>(warp);
+    case 1:
+      return word_kernel<1, kShared, kKeyed, kLock, kNarrow, kMega>(warp);
+    case 2:
+      return word_kernel<2, kShared, kKeyed, kLock, kNarrow, kMega>(warp);
+    case 4:
+      return word_kernel<4, kShared, kKeyed, kLock, kNarrow, kMega>(warp);
+    default:
+      return word_kernel<8, kShared, kKeyed, kLock, kNarrow, kMega>(warp);
   }
 }
 
@@ -715,23 +751,28 @@ TableKernel table_kernel(int S, bool warp) {
 // walks on `stream` in the given form, each block copying the tables
 // into its shared memory when they fit there. Returns the CUDA error of
 // the launches (0 when both were accepted). kNarrow as in table_kernel.
-template <bool kKeyed, bool kLock, bool kNarrow = kLock>
+// kMega (K10): no pack_tables launch and no T: each block walks its lane
+// of g.lanes on that lane's tables, built when its carry was seeded.
+template <bool kKeyed, bool kLock, bool kNarrow = kLock, bool kMega = false>
 int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
                   void* stream) {
   const Walk& a = g.a;
-  if (T == nullptr) return (int)cudaErrorInvalidValue;
+  if (kMega ? g.lanes == nullptr : T == nullptr)
+    return (int)cudaErrorInvalidValue;
   g.T = T;
   g.NW = n_words(a.S);
   g.K = n_nibbles(a.S);
   g.NT = table_words(a.S);
   const size_t smem = walk_smem(a.W, a.S, a.O1, warp);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int err_t = launch_tables(a.P, T, a.O1, a.S, stream);
-  if (err_t != 0) return err_t;
+  if constexpr (!kMega) {
+    const int err_t = launch_tables(a.P, T, a.O1, a.S, stream);
+    if (err_t != 0) return err_t;
+  }
   const TableKernel kernel =
       t_shared(a.W, a.S, a.O1, warp)
-          ? table_kernel<true, kKeyed, kLock, kNarrow>(a.S, warp)
-          : table_kernel<false, kKeyed, kLock, kNarrow>(a.S, warp);
+          ? table_kernel<true, kKeyed, kLock, kNarrow, kMega>(a.S, warp)
+          : table_kernel<false, kKeyed, kLock, kNarrow, kMega>(a.S, warp);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

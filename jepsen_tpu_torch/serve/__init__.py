@@ -21,11 +21,13 @@ coalescing compatible requests into lockstep groups on the card:
   faults the ladder may recover (a device fault is never rescued);
 - :mod:`.faults` — the self-nemesis's fault points.
 
-The session engines (:mod:`.session`): the register family's carried
-frontier on the card (:class:`~.session.DeviceFrontierEngine`) and the
-transactional incremental closure (:class:`~.session.TxnSessionEngine`).
-The sessions above them and their endpoints are not ported yet
-(``ROADMAP.md``, Queue 1 item 3(c)).
+Streaming sessions (:mod:`.session`): the register family's carried
+frontier on the card (:class:`~.session.DeviceFrontierEngine`), the
+transactional incremental closure (:class:`~.session.TxnSessionEngine`),
+the :class:`~.session.Session` above them with its registry, and the
+mega-group advance (:func:`~.session.advance_group`), many sessions'
+blocks in one launch of K10; the daemon's ``/session`` endpoints, their
+journal entries, replay and idle sweeper.
 
     from jepsen_tpu_torch import serve
     d = serve.Daemon(port=8642, store_root="store").start()
@@ -42,14 +44,16 @@ from jepsen_tpu_torch.serve.request import (CANCELLED, DISPATCHED, DONE, ERROR,
                                             QUARANTINED, QUEUED, TIMEOUT,
                                             CheckRequest, Registry)
 from jepsen_tpu_torch.serve.session import (AdvanceAborted,
-                                            DeviceFrontierEngine,
-                                            TxnSessionEngine)
+                                            DeviceFrontierEngine, Session,
+                                            SessionRegistry,
+                                            TxnSessionEngine, advance_group)
 
 __all__ = [
     "AdmissionQueue", "Backpressure", "plan_admission", "Dispatcher",
     "Daemon", "parse_check_body", "resolve_model", "CheckRequest",
     "Registry", "Journal", "CircuitBreaker", "RetryPolicy",
     "DeviceFrontierEngine", "TxnSessionEngine", "AdvanceAborted",
+    "Session", "SessionRegistry", "advance_group",
     "QUEUED", "DISPATCHED", "DONE", "TIMEOUT", "CANCELLED", "QUARANTINED",
     "ERROR",
 ]

@@ -1,6 +1,6 @@
 """Admission queue and coalescer: continuous multi-tenant batching (a
-port of the reference package's ``jepsen_tpu/serve/coalesce.py``,
-one-shot checks only). Host bookkeeping; nothing here touches the card.
+port of the reference package's ``jepsen_tpu/serve/coalesce.py``). Host
+bookkeeping; nothing here touches the card.
 
 - **Admission** (:meth:`AdmissionQueue.submit`): a bounded queue; past
   the bound :class:`Backpressure` (HTTP 429).
@@ -22,6 +22,11 @@ one-shot checks only). Host bookkeeping; nothing here touches the card.
   loads rotate. A group placed on a busy sibling is staged there; it is
   already counted in flight, so ``depth == 0`` and no in-flight tenant
   still means that nothing is pending.
+- **Sessions**: a session's blocks form one group in order; the appends
+  of many sessions that share a walk geometry form a mega group
+  (sessions oldest tenant first, at most :data:`_MEGA_GROUP_CAP`). While
+  a group is anywhere in flight, every session in it is kept out of the
+  next selection: two lanes advancing one carried set would reorder it.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.serve import request as rq
+
+# sessions in one mega group: bounds one K10 launch's lanes and its
+# stream buffer, not the throughput (the rest ride the next group)
+_MEGA_GROUP_CAP = 1024
 
 
 class Backpressure(RuntimeError):
@@ -44,11 +53,21 @@ def plan_admission(requests: Sequence["rq.CheckRequest"], *,
     buckets by :func:`reach_batch.plan_buckets` (longest bucket first),
     then oldest tenant first inside each group. Returns index lists into
     ``requests``: tenants ranked by their oldest request's submit time,
-    a tenant's requests by their own."""
+    a tenant's requests by their own.
+
+    Session blocks are not bucketed by length. One session's blocks are
+    one group in seq order (a carried set cannot advance out of order).
+    Blocks of many sessions (one mega signature) are ranked by session,
+    oldest tenant first, then oldest session; chunked into groups of at
+    most :data:`_MEGA_GROUP_CAP` sessions; each session's blocks stay
+    together in seq order (the dispatcher advances one block of each
+    session a launch)."""
     from jepsen_tpu_torch.checkers import reach_batch
 
     if not requests:
         return []
+    if requests[0].session is not None:
+        return _plan_sessions(requests)
     lens = [max(1, int(r.packed.n)) for r in requests]
     groups = reach_batch.plan_buckets(lens, group=group)
     oldest_of: Dict[str, float] = {}
@@ -60,6 +79,34 @@ def plan_admission(requests: Sequence["rq.CheckRequest"], *,
                                      requests[i].tenant,
                                      requests[i].t_submit, i))
             for g in groups]
+
+
+def _plan_sessions(requests: Sequence["rq.CheckRequest"]
+                   ) -> List[List[int]]:
+    def in_seq(ids: List[int]) -> List[int]:
+        return sorted(ids, key=lambda i: (requests[i].seq,
+                                          requests[i].t_submit, i))
+
+    by_sess: Dict[str, List[int]] = {}
+    for i, r in enumerate(requests):
+        by_sess.setdefault(r.session.id, []).append(i)
+    if len(by_sess) == 1:
+        return [in_seq(list(range(len(requests))))]
+    oldest_of: Dict[str, float] = {}
+    sess_oldest: Dict[str, float] = {}
+    sess_tenant: Dict[str, str] = {}
+    for r in requests:
+        oldest_of[r.tenant] = min(oldest_of.get(r.tenant, r.t_submit),
+                                  r.t_submit)
+        sid = r.session.id
+        sess_oldest[sid] = min(sess_oldest.get(sid, r.t_submit), r.t_submit)
+        sess_tenant[sid] = r.tenant
+    ranked = sorted(by_sess, key=lambda sid: (
+        oldest_of[sess_tenant[sid]], sess_tenant[sid], sess_oldest[sid],
+        sid))
+    return [[i for sid in ranked[lo:lo + _MEGA_GROUP_CAP]
+             for i in in_seq(by_sess[sid])]
+            for lo in range(0, len(ranked), _MEGA_GROUP_CAP)]
 
 
 class AdmissionQueue:
@@ -85,6 +132,8 @@ class AdmissionQueue:
             [deque() for _ in range(self.lanes)]
         self._lane_load: List[int] = [0] * self.lanes
         self._rr = 0
+        # the sessions with a group in flight on any lane
+        self._inflight_sessions: set = set()
         self.on_timeout: Optional[Callable[[rq.CheckRequest], None]] = None
 
     # -- admission ---------------------------------------------------------
@@ -184,6 +233,9 @@ class AdmissionQueue:
             self._inflight[r.tenant] = self._inflight.get(r.tenant, 0) + 1
             r.t_coalesce = now
             r.status = rq.DISPATCHED
+            if r.session is not None:
+                # every member session of a mega group
+                self._inflight_sessions.add(r.session.id)
         obs.gauge("serve.queue_depth", len(self._queued))
         if len(batch) > 1:
             obs.count("serve.coalesced", len(batch))
@@ -205,6 +257,10 @@ class AdmissionQueue:
         allowance: Dict[str, int] = {}
         eligible: List[rq.CheckRequest] = []
         for r in sorted(self._queued, key=lambda r: r.t_submit):
+            if r.session is not None \
+                    and r.session.id in self._inflight_sessions:
+                # its block k is still walking somewhere: k+1 waits
+                continue
             a = allowance.get(r.tenant)
             if a is None:
                 a = max(0, self.max_inflight_per_tenant
@@ -216,8 +272,26 @@ class AdmissionQueue:
             eligible.append(r)
         if not eligible:
             return []
-        sig = eligible[0].model_sig
-        same = [r for r in eligible if r.model_sig == sig]
+        # one signature a group, the oldest request's. A session's
+        # signature is read once a pass: its cached geometry may flip
+        # under a concurrent close, and two reads straddling the flip
+        # could take block k+1 without block k
+        sess_sig: Dict[str, tuple] = {}
+        sigs: Dict[int, tuple] = {}
+        for r in eligible:
+            if r.session is not None:
+                sid = r.session.id
+                if sid not in sess_sig:
+                    g = r.session.mega_sig()
+                    sess_sig[sid] = (("session-mega",) + g
+                                     if g is not None
+                                     else ("session", sid))
+                sigs[id(r)] = (sess_sig[sid] if r.kind == "session-append"
+                               else ("session", sid))
+            else:
+                sigs[id(r)] = r.model_sig
+        sig = sigs[id(eligible[0])]
+        same = [r for r in eligible if sigs[id(r)] == sig]
         groups = plan_admission(same, group=self.group)
         # the group holding the oldest request goes first, not the
         # longest bucket: fresh long histories must not starve a short one
@@ -229,8 +303,8 @@ class AdmissionQueue:
 
     def mark_done(self, batch: Sequence["rq.CheckRequest"],
                   lane: Optional[int] = None) -> None:
-        """Release the group's tenants' in-flight slots (and the lane's
-        load) and wake the lanes."""
+        """Release the group's tenants' in-flight slots, its sessions and
+        the lane's load, and wake the lanes."""
         with self._nonempty:
             for r in batch:
                 n = self._inflight.get(r.tenant, 0) - 1
@@ -238,6 +312,8 @@ class AdmissionQueue:
                     self._inflight[r.tenant] = n
                 else:
                     self._inflight.pop(r.tenant, None)
+                if r.session is not None:
+                    self._inflight_sessions.discard(r.session.id)
             if lane is not None and batch:
                 self._lane_load[lane] = max(0, self._lane_load[lane] - 1)
             self._nonempty.notify_all()

@@ -1,7 +1,6 @@
 """The dispatcher: long-lived lane threads between the admission queue
 and the checkers on the card (a port of the reference package's
-``jepsen_tpu/serve/engine.py``, one-shot checks only; the session
-dispatch waits for ``ROADMAP.md`` Queue 1 item 3(c)).
+``jepsen_tpu/serve/engine.py``).
 
 Each lane takes one coalesced dispatch group at a time and checks it
 through the chains the command line uses, so the daemon's verdicts are
@@ -12,7 +11,15 @@ the standalone ones:
   walk queued, nothing fetched), else :func:`facade.auto_check_many_packed`;
 - a group of one: :func:`facade.auto_check_packed` (chunk-lockstep on K2,
   K1, K4, ...);
-- ``txn-list-append``: :func:`facade.auto_check_txn` a member (K8).
+- ``txn-list-append``: :func:`facade.auto_check_txn` a member (K8);
+- a session's blocks (:meth:`Dispatcher._dispatch_session`), in order
+  through :meth:`.session.Session.advance_block` and ``close``; the
+  appends of many sessions of one walk geometry
+  (:meth:`Dispatcher._dispatch_session_group`) in waves, one block of
+  each session a wave and one K10 launch a wave
+  (:func:`.session.advance_group`). Sessions take no recovery ladder
+  and no breaker: their fault rule is the session module's, and a
+  device fault there is counted as one here.
 
 **The staged window.** A lane keeps up to ``pipeline_k`` staged groups
 in flight: while group k walks on the card the lane thread stages group
@@ -65,11 +72,17 @@ from jepsen_tpu_torch.serve.coalesce import AdmissionQueue
 
 log = logging.getLogger("jepsen.serve")
 
-# the kernels the daemon's checks launch, built and loaded before the
-# socket accepts: K1, K3 (lane_walk, keyed_walk), K2 (batch_walk), K4,
-# K5 (wide_walk, wide_keyed) and K8 (txn_closure)
+# the kernels the daemon's checks and sessions launch, built and loaded
+# before the socket accepts: K1, K3 (lane_walk, keyed_walk), K2
+# (batch_walk), K4, K5 (wide_walk, wide_keyed), K8 (txn_closure), K9
+# (txn_inc_join) and K10 (mega_walk)
 WARM_KERNELS = ("lane_walk", "keyed_walk", "batch_walk", "wide_walk",
-                "wide_keyed", "txn_closure")
+                "wide_keyed", "txn_closure", "txn_inc_join", "mega_walk")
+
+# the least seconds between two writes of ``serve/stats.json`` by the
+# lanes (``shutdown`` writes it too): a session's blocks are many small
+# dispatches, and the file's stats scan the journal's directory
+STATS_FILE_S = 1.0
 
 # the result causes of a group that ended on a fault (status "error")
 DEVICE_FAULT = "device-fault"
@@ -208,6 +221,7 @@ class Dispatcher:
         self.pipeline_k = dispatch_core.pipeline_k(pipeline_k)
         self.dispatch_deadline_s = dispatch_deadline_s
         self.journal = journal
+        self.sessions = None            # SessionRegistry (the daemon's)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.dispatch_counts: Dict[str, int] = {}
@@ -217,6 +231,7 @@ class Dispatcher:
         self.device_faults = 0
         self.device_fault: Optional[str] = None
         self.ring = _TimeSeriesRing()
+        self._stats_written = float("-inf")
         # on-demand profiling (POST /profile): the next N dispatches run
         # under torch.profiler, the capture under the store root
         self._profile_lock = threading.Lock()
@@ -241,13 +256,14 @@ class Dispatcher:
                 return
             from jepsen_tpu_torch import _build
             from jepsen_tpu_torch.checkers import (reach_batch, reach_lane,
-                                                   reach_pallas)
+                                                   reach_pallas, reach_word)
             from jepsen_tpu_torch.txn import cycles
 
             _build.build_all(WARM_KERNELS)
             for load in (reach_lane._lib, reach_lane._keyed_lib,
                          reach_batch._lib, reach_pallas._lib,
-                         reach_pallas._keyed_lib, cycles._lib):
+                         reach_pallas._keyed_lib, cycles._lib,
+                         cycles._inc_lib, reach_word._lib):
                 load()
 
     def start(self) -> "Dispatcher":
@@ -368,7 +384,8 @@ class Dispatcher:
             self._profile_maybe_stop()
             snap = obs.GLOBAL.snapshot()
             self.ring.sample(self.queue, snap)
-            self._write_stats_file(snap)
+            if time.monotonic() - self._stats_written >= STATS_FILE_S:
+                self._write_stats_file(snap)
             obs.count("serve.lane.stats_s", time.monotonic() - t_stats)
 
     def _collect_one(self, staged: _StagedDispatch, lane: _Lane) -> None:
@@ -643,9 +660,17 @@ class Dispatcher:
     def _dispatch(self, batch: List["rq.CheckRequest"],
                   lane: Optional[_Lane] = None) -> None:
         """The blocking path of one group: bookkeeping, the ladder, then
-        :meth:`_publish`."""
+        :meth:`_publish`; a session's blocks take the session paths."""
         lane = lane or self._lanes[0]
         faults.fire("tick")
+        if batch[0].session is not None:
+            if len({r.session.id for r in batch}) > 1:
+                # the coalescer builds one only of appends that share a
+                # walk geometry
+                self._dispatch_session_group(batch, lane)
+            else:
+                self._dispatch_session(batch, lane)
+            return
         t0 = time.monotonic()
         self._begin(batch, lane, t0)
         abort, hang = self._abort_hook(batch, t0)
@@ -662,6 +687,156 @@ class Dispatcher:
         obs.count("serve.lane.check_s", time.monotonic() - t0)
         self._publish(batch, results, lane, t0, cap.ledger, hang,
                       lane.device_ran)
+
+    # -- sessions --------------------------------------------------------------
+    def _session_abort(self, t0: float):
+        """A session block's ``should_abort``: the dispatch cap applied to
+        one advance (the session then ends ``error``, cause
+        ``deadline``, not a wedged lane); None without a cap. A stopping
+        daemon does not abort an advance: the block finishes and a
+        restart replays the journal."""
+        deadline_s = self.dispatch_deadline_s
+        if deadline_s is None:
+            return None
+        fired = [False]
+
+        def _aborted() -> bool:
+            if time.monotonic() - t0 > deadline_s:
+                if not fired[0]:
+                    fired[0] = True
+                    obs.engine_fallback("serve-hang", "DispatchDeadline",
+                                        session=True, deadline_s=deadline_s)
+                return True
+            return False
+        return _aborted
+
+    def _session_begin(self, batch, lane: _Lane, sig: str) -> float:
+        with self._counts_lock:
+            self.dispatch_counts[sig] = self.dispatch_counts.get(sig, 0) + 1
+        obs.count("serve.dispatched", len(batch))
+        obs.count(f"serve.lane.{lane.idx}.dispatched")
+        obs.gauge("serve.inflight", len(batch))
+        return time.monotonic()
+
+    def _session_stamp(self, r: "rq.CheckRequest", group: int,
+                       **fields: Any) -> None:
+        r.t_dispatch = time.monotonic()
+        obs.histogram("serve.queue_wait_s",
+                      max(0.0, (r.t_coalesce or r.t_dispatch) - r.t_submit))
+        self.registry.ledger_record(r.tenant, "dispatched", id=r.id,
+                                    group=group, ops=int(r.n_ops),
+                                    session=r.session.id, kind=r.kind,
+                                    **fields)
+
+    def _session_publish(self, r: "rq.CheckRequest", res: Dict[str, Any],
+                         recs, t_wall: float, count_fault: bool = True,
+                         **fields: Any) -> None:
+        """One block's verdict: its trace, the tenant's fallback records,
+        a fault's journal marker and (``count_fault``) count, then
+        :meth:`_finish`."""
+        from jepsen_tpu_torch.serve.session import FAULT_CAUSES
+        sess = r.session
+        now = time.monotonic()
+        r.t_collect = now
+        r.stitch([{"ts": round(time.time(), 6), "stage": "session-advance",
+                   "event": "advance", "session": sess.id, "seq": r.seq,
+                   "wall_s": round(now - t_wall, 6), **fields}] + recs)
+        for rec in recs:
+            if rec.get("event") in ("fallback", "fault"):
+                self.registry.ledger_record(
+                    r.tenant, f"engine-{rec['event']}", id=r.id,
+                    stage=rec.get("stage"), cause=rec.get("cause"))
+        if res.get("cause") in FAULT_CAUSES and sess.faulted:
+            self._session_ended(sess, count_fault)
+        obs.histogram("serve.session.append_s", now - r.t_submit)
+        self._finish(r, res, now - (r.t_dispatch or now), now)
+
+    def _session_ended(self, sess, count_fault: bool) -> None:
+        """A session a fault ended: out of the open census, its journal
+        marker written (a restart does not replay it), and a device fault
+        counted as a one-shot group's is."""
+        if self.sessions is not None:
+            self.sessions.mark_closed(sess)
+        if self.journal is not None:
+            self.journal.session_close_marker(sess.id, sess.result)
+        if count_fault and sess.result.get("cause") == DEVICE_FAULT:
+            obs.count("serve.device_faults")
+            with self._counts_lock:
+                self.device_faults += 1
+                self.device_fault = sess.result.get("error")
+
+    def _dispatch_session(self, batch: List["rq.CheckRequest"],
+                          lane: _Lane) -> None:
+        """One session's blocks in seq order (the coalescer sorted them):
+        each append advances the carried state, a close resolves it. No
+        recovery ladder, no breaker, no device-time attribution (the
+        advances' wall is ``serve.session.advance_wall_s``)."""
+        from jepsen_tpu_torch.serve.session import SessionClosed
+        sess = batch[0].session
+        t0 = self._session_begin(
+            batch, lane, f"session/{batch[0].model_name}/A{len(batch)}")
+        for r in batch:
+            self._session_stamp(r, len(batch))
+            with obs.capture() as cap:
+                try:
+                    if r.kind == "session-close":
+                        res = sess.close()
+                        if not sess.faulted:
+                            if self.sessions is not None:
+                                self.sessions.mark_closed(sess)
+                            if self.journal is not None:
+                                self.journal.session_close_marker(sess.id,
+                                                                  res)
+                    else:
+                        res = sess.advance_block(
+                            list(r.history), seq=r.seq,
+                            should_abort=self._session_abort(r.t_dispatch))
+                except SessionClosed as e:
+                    # an append or close that raced the close
+                    res = {"valid": "unknown", "cause": "closed",
+                           "error": str(e)}
+            recs = [rec for rec in cap.ledger
+                    if rec.get("event") in ("fallback", "route", "selected",
+                                            "fault")]
+            self._session_publish(r, res, recs, r.t_dispatch)
+        obs.count("serve.session.advance_wall_s", time.monotonic() - t0)
+
+    def _dispatch_session_group(self, batch: List["rq.CheckRequest"],
+                                lane: _Lane) -> None:
+        """The appends of many sessions of one walk geometry, in waves:
+        wave w is each session's w-th block, one K10 launch
+        (:func:`.session.advance_group`)."""
+        from jepsen_tpu_torch.serve import session as sessmod
+        by_sess: Dict[str, List["rq.CheckRequest"]] = {}
+        for r in batch:
+            by_sess.setdefault(r.session.id, []).append(r)
+        t0 = self._session_begin(
+            batch, lane, f"session-mega/L{len(by_sess)}/A{len(batch)}")
+        waves = [[rs[w] for rs in by_sess.values() if w < len(rs)]
+                 for w in range(max(len(rs) for rs in by_sess.values()))]
+        for wave in waves:
+            tw = time.monotonic()
+            for r in wave:
+                self._session_stamp(r, len(batch), mega=len(wave))
+            with obs.capture() as cap:
+                results = sessmod.advance_group(
+                    [(r.session, list(r.history), r.seq) for r in wave],
+                    should_abort=self._session_abort(tw))
+            recs = [rec for rec in cap.ledger
+                    if rec.get("event") in ("fallback", "route", "selected",
+                                            "fault")]
+            counted = False
+            for r, res in zip(wave, results):
+                # the group's records (no session tag: the one
+                # session-mega fallback) go to every member
+                mine = [rec for rec in recs
+                        if rec.get("session") in (None, True, r.session.id)]
+                # one launch's device fault is counted once
+                self._session_publish(r, res, mine, tw,
+                                      count_fault=not counted,
+                                      mega=len(wave))
+                counted = counted or res.get("cause") == DEVICE_FAULT
+        obs.count("serve.session.advance_wall_s", time.monotonic() - t0)
 
     def _publish_fault(self, batch: List["rq.CheckRequest"], lane: _Lane,
                        e: BaseException) -> None:
@@ -749,12 +924,13 @@ class Dispatcher:
         (:func:`facade.stage_check_many_packed`) and, when it is taken,
         do its dispatch bookkeeping and return its handle. None, with no
         side effect a request can see, when the group is not staged: a
-        singleton, txn, an open breaker, armed faults (their fire points
-        are on the blocking path) or a batch the lane declines. A fault
-        in the stage propagates."""
+        singleton, txn, a session's blocks, an open breaker, armed faults
+        (their fire points are on the blocking path) or a batch the lane
+        declines. A fault in the stage propagates."""
         from jepsen_tpu_torch.checkers import facade
         req0 = batch[0]
         if len(batch) < 2 or self._is_txn(req0.model) \
+                or req0.session is not None \
                 or lane.breaker.route() == "host" or faults.enabled():
             return None
         t0 = time.monotonic()
@@ -843,7 +1019,9 @@ class Dispatcher:
             obs.histogram("serve.service_s",
                           now - (req.t_coalesce or req.t_dispatch
                                  or req.t_submit))
-        if self.persist and status == rq.DONE:
+        # a session's blocks are not store runs: the session journal is
+        # their durable record
+        if self.persist and status == rq.DONE and req.session is None:
             try:
                 req.t_done = now
                 req.run_dir = self._persist(req, res)
@@ -922,13 +1100,18 @@ class Dispatcher:
         }
         if self.journal is not None:
             out["journal"] = self.journal.stats()
+        if self.sessions is not None:
+            # the results browser's open-sessions row
+            out["sessions"] = self.sessions.census()
         out.update(self.registry.stats())
         return out
 
     def _write_stats_file(self, snap: Optional[Dict[str, Any]] = None
                           ) -> None:
         """The latest stats as ``<store-root>/serve/stats.json``, which
-        the results browser reads; advisory, a failure is logged."""
+        the results browser reads (the lanes write it at most every
+        :data:`STATS_FILE_S`); advisory, a failure is logged."""
+        self._stats_written = time.monotonic()
         if not self.store_root:
             return
         try:

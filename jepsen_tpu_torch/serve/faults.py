@@ -15,7 +15,12 @@ points sit on the serving path, each a no-op until armed:
 - ``lease-write``   inside ``Journal.claim``: the claim writes a lease
                     with a junk expiry that its claimer believes it holds;
 - ``clock-jump``    fires at its ``tick`` and moves the deadline clock
-                    (:func:`clock_skew`) forward.
+                    (:func:`clock_skew`) forward;
+- ``session-advance`` a session's advance on the card (the register
+                    family's before its feed, the txn engine's after
+                    inference): the session takes the host monitor;
+- ``session-mega``  a mega group's K10 launch: one ``session-mega``
+                    fallback, every staged member re-advanced alone.
 
 An injected fault is an :class:`InjectedFault`, which takes the
 daemon's recovery ladder (retry, bisect, host rescue, quarantine); a

@@ -28,8 +28,18 @@ reference package's ``jepsen_tpu/serve/http.py``; the protocol is
   (503 once a device fault was seen, naming it), ``POST /profile``
   (``{"dispatches": N}`` arms ``torch.profiler`` around the next N
   dispatches; the capture lands under ``<store-root>/serve/``).
-- ``/session*`` answers 501: streaming sessions are ``ROADMAP.md`` Queue
-  1 item 3(c).
+- ``POST /session`` opens a streaming check session (``{"model",
+  "tenant", "options"}``: 201 with its id; 429 past the open-session
+  bound or the tenant's cap, cause ``tenant-cap``); ``POST
+  /session/<id>/append`` ships one block (``{"history", "seq",
+  "wait-s"}``) and answers its incremental verdict (200; 202 with a
+  request id past ``wait-s``; 409 for a closed session or a seq gap; a
+  retried seq dedups); ``POST /session/<id>/close`` answers the exact
+  verdict of the whole history; ``GET /session/<id>`` is the status. An
+  open and every append are journaled before their answer, so a session
+  rides a restart with its id, its seq and its verdict; a session idle
+  past ``session_idle_ttl_s`` is closed by the sweeper. A session a
+  device fault ended answers ``status: "error"`` (its block 500).
 
 Fleet mode (``replica_id=``): several daemons share one journal; each
 admitted request carries a lease, a replica dispatches only what it
@@ -56,6 +66,7 @@ from jepsen_tpu_torch.serve import faults as _faults
 from jepsen_tpu_torch.serve import recovery
 from jepsen_tpu_torch.serve import journal as jr
 from jepsen_tpu_torch.serve import request as rq
+from jepsen_tpu_torch.serve import session as sn
 from jepsen_tpu_torch.serve.coalesce import AdmissionQueue, Backpressure
 from jepsen_tpu_torch.serve.engine import Dispatcher
 
@@ -68,9 +79,6 @@ _CLIENT_OPTS = ("max_states", "max_slots", "max_dense", "time_limit",
 _MODEL_NAMES = ("register", "cas-register", "mutex", "multi-register",
                 "set-model", "fifo-queue", "unordered-queue", "noop-model",
                 "txn-list-append")
-
-_SESSIONS_NOT_PORTED = ("streaming sessions are not ported yet "
-                        "(ROADMAP.md, Queue 1 item 3(c))")
 
 
 def _filter_opts(raw: Any, strict: bool = True) -> Dict[str, Any]:
@@ -159,8 +167,13 @@ class Daemon:
     loopback by default: the endpoint accepts work.
 
     ``pipeline_k`` is the lanes' staged window (default
-    :data:`dispatch_core.SERVE_PIPE_K`, 1 never stages); ``faults`` arms
-    the self-nemesis (the grammar of :func:`.faults.arm_spec`)."""
+    :data:`dispatch_core.SERVE_PIPE_K`, 1 never stages; above 1 a mega
+    group's next wave is stamped while K10 walks this one); ``faults``
+    arms the self-nemesis (the grammar of :func:`.faults.arm_spec`).
+    ``session_tenant_cap`` bounds a tenant's open sessions (0: no cap),
+    ``session_idle_ttl_s`` closes sessions idle that long (None: never),
+    and ``session_device=False`` sends every register-family session to
+    the host monitor (the reference's ``JEPSEN_TPU_NO_SESSION_DEVICE``)."""
 
     def __init__(self, *, port: int = 8642, host: str = "127.0.0.1",
                  queue_depth: int = 256, max_inflight_per_tenant: int = 8,
@@ -174,7 +187,10 @@ class Daemon:
                  lanes: int = 1, replica_id: Optional[str] = None,
                  lease_ttl_s: float = 10.0, device=None,
                  pipeline_k: Optional[int] = None,
-                 faults: Optional[str] = None) -> None:
+                 faults: Optional[str] = None,
+                 session_tenant_cap: int = 64,
+                 session_idle_ttl_s: Optional[float] = 3600.0,
+                 session_device: bool = True) -> None:
         self.device = _device.resolve(device)
         # the queue bounds the request count, this the bytes of one
         self.max_body_bytes = int(max_body_bytes)
@@ -210,6 +226,15 @@ class Daemon:
             persist=persist, retry_policy=retry_policy, breaker=breaker,
             dispatch_deadline_s=dispatch_deadline_s, journal=self.journal,
             lanes=lanes, pipeline_k=pipeline_k)
+        # streaming sessions: their registry (the tenant cap, the idle
+        # clock the sweeper reads) and where their engines run
+        self.session_device = bool(session_device)
+        self.sessions = sn.SessionRegistry(
+            tenant_max_open=session_tenant_cap,
+            idle_ttl_s=session_idle_ttl_s)
+        self.dispatcher.sessions = self.sessions
+        self._sweeper: Optional[threading.Thread] = None
+        self._sweeper_stop = threading.Event()
         if self.journal is not None:
             jnl = self.journal
 
@@ -237,6 +262,8 @@ class Daemon:
         if dispatch:
             self.dispatcher.start()
             self.replay_journal()
+            self.replay_sessions()
+            self._start_sweeper()
             self._start_fleet_scan()
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, name="serve-http", daemon=True)
@@ -246,8 +273,11 @@ class Daemon:
     def shutdown(self, drain_timeout: float = 30.0) -> bool:
         self.accepting = False
         self._fleet_stop.set()
+        self._sweeper_stop.set()
         if self._fleet_thread is not None:
             self._fleet_thread.join(5.0)
+        if self._sweeper is not None:
+            self._sweeper.join(5.0)
         drained = self.dispatcher.drain(timeout=drain_timeout)
         self.dispatcher.stop()
         if self._serve_thread is not None:
@@ -346,8 +376,390 @@ class Daemon:
         self._fleet_thread.start()
 
     def fleet_scan(self) -> int:
-        """One renew-and-adopt pass; returns the requests adopted."""
-        return self.replay_journal()
+        """One renew-and-adopt pass; returns the requests and sessions
+        adopted."""
+        return self.replay_journal() + self.replay_sessions()
+
+    # -- sessions: replay and the idle sweeper -----------------------------------
+    def _new_session(self, sid: str, tenant: str, model_name: str, model,
+                     opts: Dict[str, Any]) -> "sn.Session":
+        return sn.Session(sid, tenant, model_name, model, opts,
+                          device=self.device, use_device=self.session_device)
+
+    def replay_sessions(self) -> int:
+        """Make every journaled open session live again, its blocks
+        replayed in seq order through the engine (the carried state is
+        derived again from the stream: the session keeps its id, its seq
+        and its verdict). Corrupt metadata gets a close marker, never a
+        loop. Returns how many came back."""
+        if self.journal is None:
+            return 0
+        n = 0
+        for sid in self.journal.open_session_ids():
+            if self.sessions.get(sid) is not None:
+                # live here: in fleet mode the claim renews its pin
+                if self.fleet:
+                    self.journal.claim(sid, replica=self.replica_id,
+                                       ttl_s=self.lease_ttl_s)
+                continue
+            if self.fleet and not self.journal.claim(
+                    sid, replica=self.replica_id, ttl_s=self.lease_ttl_s):
+                continue            # pinned to a live sibling
+            if self._replay_one_session(sid):
+                n += 1
+        if n:
+            log.info("session replay: %d session(s) derived again", n)
+        return n
+
+    def _replay_one_session(self, sid: str) -> bool:
+        """Rebuild one journaled session through the engine (the boot's
+        replay and a fleet adoption both come here). Whether a live
+        session came out of it."""
+        meta = self.journal.load_session(sid)
+        try:
+            if meta is None:
+                raise ValueError("unreadable session entry")
+            model_name = str(meta["model"])
+            model = resolve_model(model_name)
+            opts = _filter_opts(meta.get("options"), strict=False)
+        except Exception as e:                          # noqa: BLE001
+            log.warning("session %s unreplayable: %s", sid, e)
+            obs.engine_fallback("serve-journal", type(e).__name__,
+                                session=sid, replay=True)
+            self.journal.session_close_marker(
+                sid, {"valid": "unknown", "cause": "session-journal-corrupt",
+                      "error": f"{type(e).__name__}: {e}"})
+            return False
+        sess = self._new_session(sid, str(meta.get("tenant") or "anonymous"),
+                                 model_name, model, opts)
+        blocks = self.journal.session_appends(sid)
+        for seq, entry in blocks:
+            if seq != sess.seq + 1:
+                # a gap (a missing or torn block, never acknowledged):
+                # replay stops here, and the client's retry re-applies
+                # from this point
+                obs.engine_fallback("serve-journal", "SeqGap", session=sid,
+                                    seq=seq, expected=sess.seq + 1)
+                break
+            try:
+                ops = jr.history_from_edn(entry["history-edn"])
+            except Exception as e:                      # noqa: BLE001
+                obs.engine_fallback("serve-journal", type(e).__name__,
+                                    session=sid, seq=seq)
+                break
+            sess.advance_block(ops, seq=seq)
+            if sess.faulted:
+                # a fault of the card in the replay ends the session as
+                # it would a live append
+                self.dispatcher._session_ended(sess, True)
+                return False
+            sess.seq = seq
+            sess.replayed += 1
+        # the replayed stream is activity: no sweep right after a restart
+        sess.last_active_mono = time.monotonic()
+        try:
+            self.sessions.add(sess)
+        except RuntimeError as e:
+            # past the bound: it stays journaled for a later restart
+            log.warning("session %s not replayed: %s", sid, e)
+            obs.engine_fallback("serve-journal", "SessionBound",
+                                session=sid, replay=True)
+            return False
+        self.registry.ledger_record(sess.tenant, "session-replayed",
+                                    session=sid, appends=len(blocks))
+        obs.count("serve.session.replayed")
+        return True
+
+    def _start_sweeper(self) -> None:
+        """The idle sweep: an abandoned open session holds its carried
+        state on the card and a slot of its tenant's cap; sessions idle
+        past the TTL are closed through the ordinary close (exact
+        verdict, journal marker)."""
+        ttl = self.sessions.idle_ttl_s
+        if not ttl or self._sweeper is not None:
+            return
+        interval = max(1.0, min(30.0, float(ttl) / 4.0))
+
+        def _sweep_loop() -> None:
+            while not self._sweeper_stop.wait(interval):
+                try:
+                    self.expire_idle_sessions()
+                except Exception:                       # noqa: BLE001
+                    # the next tick retries; evictions are counted
+                    log.exception("idle-session sweep failed")
+
+        self._sweeper = threading.Thread(target=_sweep_loop,
+                                         name="serve-session-sweeper",
+                                         daemon=True)
+        self._sweeper.start()
+
+    def expire_idle_sessions(self) -> int:
+        """Close open sessions idle past the registry's TTL
+        (``serve.session.evicted_idle`` each). Returns the closes
+        started."""
+        ttl = self.sessions.idle_ttl_s
+        if not ttl:
+            return 0
+        n = 0
+        for sess in self.sessions.idle_open(float(ttl)):
+            idle_s = round(time.monotonic() - sess.last_active_mono, 3)
+            obs.count("serve.session.evicted_idle")
+            self.registry.ledger_record(sess.tenant, "session-evicted-idle",
+                                        session=sess.id, idle_s=idle_s)
+            log.info("session %s idle %.1f s > ttl %.1f s: closed", sess.id,
+                     idle_s, ttl)
+            code, _ = self.session_close(sess.id)
+            if code in (200, 202):
+                n += 1
+        return n
+
+    # -- sessions: the endpoints (HTTP threads) ------------------------------------
+    @staticmethod
+    def _session_map(body: bytes, content_type: str) -> Dict[str, Any]:
+        text = body.decode("utf-8") if body else "{}"
+        if "edn" in (content_type or ""):
+            vals = edn.loads_all(text)
+            if len(vals) > 1:
+                raise ValueError("expected one EDN map")
+            data = edn.to_plain(vals[0]) if vals else {}
+        else:
+            data = json.loads(text) if text.strip() else {}
+        if not isinstance(data, dict):
+            raise ValueError("body must be a map")
+        return data
+
+    def session_open(self, body: bytes, content_type: str,
+                     header_tenant: Optional[str]) -> Tuple[int, Dict]:
+        if not self.accepting:
+            return 503, {"error": "shutting down"}
+        try:
+            data = self._session_map(body, content_type)
+            model_name = str(data.get("model", "cas-register"))
+            model = resolve_model(model_name)
+            tenant = str(data.get("tenant") or header_tenant
+                         or "anonymous")[:64]
+            options = _filter_opts(data.get("options"))
+        except Exception as e:                          # noqa: BLE001
+            return 400, {"error": f"{type(e).__name__}: {e}"}
+        sid = sn.new_session_id()
+        if self.journal is not None:
+            try:
+                # before the id is returned: journaled appends need it
+                self.journal.session_open(sid, tenant=tenant,
+                                          model_name=model_name,
+                                          options=options)
+            except OSError as e:
+                obs.engine_fallback("serve-journal", type(e).__name__,
+                                    session=sid)
+                return 500, {"error": f"journal write failed: {e}"}
+            if self.fleet:
+                # pinned before the id is returned: a sibling's scan must
+                # not adopt a session whose opener is still answering
+                self.journal.claim(sid, replica=self.replica_id,
+                                   ttl_s=self.lease_ttl_s)
+        sess = self._new_session(sid, tenant, model_name, model, options)
+        try:
+            self.sessions.add(sess)
+        except RuntimeError as e:
+            if self.journal is not None:
+                self.journal.discard_session(sid)
+            out = {"error": str(e), "retry-after-s": 1.0}
+            if isinstance(e, sn.TenantSessionCap):
+                out["cause"] = "tenant-cap"
+            return 429, out
+        self.registry.ledger_record(tenant, "session-opened", session=sid,
+                                    model=model_name)
+        out = {"session": sid, "status": "open", "tenant": tenant,
+               "model": model_name, "engine": sess.engine_name}
+        if self.fleet:
+            out["pinned-to"] = self.replica_id
+        return 201, out
+
+    @staticmethod
+    def _parse_append(body: bytes, content_type: str):
+        data = Daemon._session_map(body, content_type)
+        raw = data.get("history")
+        if not isinstance(raw, list) or not raw:
+            raise ValueError("'history' must be a non-empty list of ops")
+        ops = [Op.from_dict(d if isinstance(d, dict) else edn.to_plain(d))
+               for d in raw]
+        seq = data.get("seq")
+        seq = int(seq) if seq is not None else None
+        wait_s = float(data.get("wait-s", 30.0))
+        return ops, seq, wait_s
+
+    def _adopt_session(self, sid: str) -> Tuple[Optional["sn.Session"],
+                                                Optional[Tuple[int, Dict]]]:
+        """Fleet mode, a session not live here: pinned to a sibling with
+        a live lease (409 naming it: the carried state is that replica's),
+        else claimed and derived again from the journal here. ``(session,
+        None)`` or ``(None, (code, payload))``."""
+        if self.fleet and self.journal.load_session(sid) is not None:
+            holder = self.journal.lease_live(sid)
+            if holder is not None and holder != self.replica_id:
+                return None, (409, {
+                    "error": f"session {sid!r} is pinned to replica "
+                             f"{holder!r}",
+                    "session": sid, "pinned-to": holder,
+                    "cause": "session-pinned"})
+            if self.journal.claim(sid, replica=self.replica_id,
+                                  ttl_s=self.lease_ttl_s) \
+                    and self._replay_one_session(sid):
+                sess = self.sessions.get(sid)
+                if sess is not None:
+                    obs.count("serve.session.adopted")
+                    self.registry.ledger_record(
+                        sess.tenant, "session-adopted", session=sid,
+                        replica=self.replica_id)
+                    return sess, None
+        return None, (404, {"error": f"unknown session {sid!r}"})
+
+    def _closed_reply(self, sid: str) -> Optional[Tuple[int, Dict]]:
+        term = (self.journal.session_lookup_closed(sid)
+                if self.journal is not None else None)
+        if term is None:
+            return None
+        out = {"session": sid, "status": "closed",
+               "recovered-from-journal": True}
+        if term.get("result") is not None:
+            out["result"] = term["result"]
+        return 200, out
+
+    def session_append(self, sid: str, body: bytes,
+                       content_type: str) -> Tuple[int, Dict]:
+        if not self.accepting:
+            return 503, {"error": "shutting down"}
+        sess = self.sessions.get(sid)
+        if sess is None:
+            if self._closed_reply(sid) is not None:
+                return 409, {"error": f"session {sid!r} is closed",
+                             "session": sid, "status": "closed"}
+            sess, err = self._adopt_session(sid)
+            if sess is None:
+                return err
+        try:
+            ops, seq, wait_s = self._parse_append(body, content_type)
+        except Exception as e:                          # noqa: BLE001
+            return 400, {"error": f"{type(e).__name__}: {e}"}
+        with sess.lock:
+            # under the lock: an append racing a close gets its 409 and
+            # journals nothing
+            if sess.closed or sess.closing:
+                return 409, {"error": f"session {sid!r} is closed",
+                             "session": sid, "status": sess.status()["status"]}
+            if seq is not None and seq <= sess.seq:
+                # a retried block (its answer lost to a crash) dedups
+                obs.count("serve.session.deduped")
+                out = sess.status()
+                out.update({"deduped": True, "seq": seq})
+                return 200, out
+            if seq is not None and seq != sess.seq + 1:
+                # a gap is a protocol error, never renumbered
+                return 409, {"error": f"seq gap: expected {sess.seq + 1}, "
+                                      f"got {seq}",
+                             "session": sid, "seq": sess.seq}
+            this_seq = sess.seq + 1
+            if self.journal is not None:
+                try:
+                    self.journal.session_append_entry(sid, this_seq, ops)
+                except OSError as e:
+                    obs.engine_fallback("serve-journal", type(e).__name__,
+                                        session=sid)
+                    return 500, {"error": f"journal write failed: {e}"}
+            # no deadline: a journaled block is part of the session's
+            # stream, and expiring it queued would leave a hole
+            req = rq.CheckRequest(
+                id=rq.new_request_id(), tenant=sess.tenant,
+                model_name=sess.model_name, model=sess.model, packed=None,
+                history=ops, n_ops=len(ops), opts=dict(sess.opts),
+                kind="session-append", session=sess, seq=this_seq)
+            try:
+                self.registry.add(req)
+                self.queue.submit(req)
+            except Backpressure as e:
+                self.registry.remove(req.id)
+                if self.journal is not None:
+                    self.journal.discard_session_append(sid, this_seq)
+                self.registry.ledger_record(sess.tenant, "rejected",
+                                            cause="backpressure",
+                                            session=sid)
+                return 429, {"error": str(e), "retry-after-s": 1.0}
+            sess.seq = this_seq
+        return self._session_wait(req, wait_s, sid, this_seq)
+
+    @staticmethod
+    def _session_wait(req: "rq.CheckRequest", wait_s: float, sid: str,
+                      seq: int) -> Tuple[int, Dict]:
+        """The block's verdict once it publishes within ``wait-s`` (500
+        when a fault ended the session), else 202 with the request id
+        for ``GET /check/<id>``."""
+        if req.done_event.wait(wait_s) and req.result is not None:
+            out = dict(req.result)
+            out["id"] = req.id
+            out["status"] = req.status
+            return (500 if req.status == rq.ERROR else 200), out
+        return 202, {"id": req.id, "session": sid, "seq": seq,
+                     "status": req.status}
+
+    def session_close(self, sid: str, body: bytes = b"") -> Tuple[int, Dict]:
+        sess = self.sessions.get(sid)
+        if sess is None:
+            closed = self._closed_reply(sid)
+            if closed is not None:
+                return closed
+            sess, err = self._adopt_session(sid)
+            if sess is None:
+                return err
+        if sess.closed:
+            return 200, {"session": sid,
+                         "status": sess.status()["status"],
+                         "result": dict(sess.result or {})}
+        try:
+            wait_s = float((json.loads(body.decode() or "{}") or {})
+                           .get("wait-s", 120.0)) if body else 120.0
+        except Exception:                               # noqa: BLE001
+            wait_s = 120.0      # a malformed wait-s: the close goes on
+        with sess.lock:
+            if sess.closing:
+                return 409, {"error": f"close of {sid!r} already in "
+                                      f"flight"}
+            sess.closing = True
+            req = rq.CheckRequest(
+                id=rq.new_request_id(), tenant=sess.tenant,
+                model_name=sess.model_name, model=sess.model, packed=None,
+                history=(), n_ops=len(sess.ops), opts=dict(sess.opts),
+                kind="session-close", session=sess, seq=sess.seq + 1)
+            try:
+                self.registry.add(req)
+                self.queue.submit(req)
+            except Backpressure as e:
+                sess.closing = False
+                self.registry.remove(req.id)
+                return 429, {"error": str(e), "retry-after-s": 1.0}
+        if req.done_event.wait(wait_s) and req.result is not None:
+            if not sess.closed:
+                # the close's dispatch crashed: the session is still open
+                return 500, {"session": sid, "status": "open", "id": req.id,
+                             "error": "close failed; retry",
+                             "result": dict(req.result)}
+            return (500 if sess.faulted else 200), {
+                "session": sid, "status": sess.status()["status"],
+                "id": req.id, "result": dict(req.result)}
+        return 202, {"id": req.id, "session": sid, "status": req.status}
+
+    def session_status(self, sid: str) -> Tuple[int, Dict]:
+        sess = self.sessions.get(sid)
+        if sess is not None:
+            return 200, sess.status()
+        closed = self._closed_reply(sid)
+        if closed is not None:
+            return closed
+        if self.fleet and self.journal.load_session(sid) is not None:
+            # any replica tells where a session lives; only appends and
+            # closes adopt
+            return 200, {"session": sid, "status": "open", "fleet": True,
+                         "pinned-to": self.journal.lease_live(sid)}
+        return 404, {"error": f"unknown session {sid!r}"}
 
     # -- admission (HTTP threads) ------------------------------------------------
     def _reserve_idem(self, tenant: str, idem: str,
@@ -635,8 +1047,20 @@ class _Handler(BaseHTTPRequestHandler):
         body = self.rfile.read(n) if n else b""
         if path == "/profile":
             self._reply(*self.daemon_ref.profile(body))
-        elif path == "/session" or path.startswith("/session/"):
-            self._reply(501, {"error": _SESSIONS_NOT_PORTED})
+        elif path == "/session":
+            self._reply(*self.daemon_ref.session_open(
+                body, self.headers.get("Content-Type", ""),
+                self.headers.get("X-Tenant")))
+        elif path.startswith("/session/"):
+            sid, _, action = path[len("/session/"):].partition("/")
+            if action == "append":
+                self._reply(*self.daemon_ref.session_append(
+                    sid, body, self.headers.get("Content-Type", "")))
+            elif action == "close":
+                self._reply(*self.daemon_ref.session_close(sid, body))
+            else:
+                self._reply(404, {"error": "POST /session/<id>/append or "
+                                  "/session/<id>/close"})
         elif path == "/check":
             ctype = self.headers.get("Content-Type", "")
             if ctype and not any(t in ctype for t in ("json", "edn")):
@@ -647,7 +1071,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(*self.daemon_ref.submit(
                 body, ctype, self.headers.get("X-Tenant")))
         else:
-            self._reply(404, {"error": "POST /check or /profile only"})
+            self._reply(404, {"error": "POST /check, /session or /profile "
+                              "only"})
 
     def do_GET(self) -> None:                           # noqa: N802
         path = self.path.split("?", 1)[0]
@@ -655,8 +1080,9 @@ class _Handler(BaseHTTPRequestHandler):
         if path.startswith("/check/"):
             self._reply(*self.daemon_ref.lookup(
                 path[len("/check/"):].strip("/")))
-        elif route == "/session" or path.startswith("/session/"):
-            self._reply(501, {"error": _SESSIONS_NOT_PORTED})
+        elif path.startswith("/session/"):
+            self._reply(*self.daemon_ref.session_status(
+                path[len("/session/"):].strip("/")))
         elif route == "/stats":
             self._reply(200, self.daemon_ref.stats())
         elif route == "/metrics":

@@ -1,9 +1,8 @@
 """The check daemon's admission journal, a write-ahead log of admitted
-checks, so that a crash (SIGKILL included) loses no admitted request (a
-port of the reference package's ``jepsen_tpu/serve/journal.py``, its
-one-shot entries and fleet leases; the session entries wait for
-``ROADMAP.md`` Queue 1 item 3(c)). The files are the reference's, so a
-journal either daemon wrote replays in the other.
+checks and of streaming sessions, so that a crash (SIGKILL included)
+loses no admitted request and no acknowledged append (a port of the
+reference package's ``jepsen_tpu/serve/journal.py``). The files are the
+reference's, so a journal either daemon wrote replays in the other.
 
 - **Append before the 202.** Every admitted request is journaled (EDN
   history, engine options, tenant, deadline, idempotency key) before
@@ -26,6 +25,15 @@ Layout: ``<id>.req.json`` and ``<id>.done.json`` under
 and renamed, so a torn write is an absent entry; a corrupt one found
 anyway is quarantined at replay.
 
+**Sessions.** ``<sid>.sess.json`` is written before an opened session's
+id is returned, ``<sid>.a<seq:06d>.sapp.json`` holds each append block
+(EDN, as a request's history) before its verdict is computed, and
+``<sid>.sdone.json`` is the close marker with the close's result (the
+first marker wins). A restart replays every session without a marker,
+its blocks in seq order through the engine, so the carried state is
+derived again from the stream. Closed sessions past ``keep_terminal``
+are collected oldest marker first, open ones never.
+
 **Fleet mode** (several daemons over one journal) adds a lease a
 claimed entry, ``<id>.lease.json``: the replica's id and a wall-clock
 expiry. A fresh claim hard-links a complete temporary file into place
@@ -42,7 +50,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from jepsen_tpu_torch import edn
 from jepsen_tpu_torch import obs
@@ -53,6 +61,10 @@ log = logging.getLogger("jepsen.serve.journal")
 
 _REQ_SUFFIX = ".req.json"
 _DONE_SUFFIX = ".done.json"
+_SESS_SUFFIX = ".sess.json"
+_SAPP_MID = ".a"
+_SAPP_SUFFIX = ".sapp.json"
+_SDONE_SUFFIX = ".sdone.json"
 _LEASE_SUFFIX = ".lease.json"
 
 
@@ -126,37 +138,45 @@ class Journal:
             "history-edn": history_to_edn(history)})
         obs.count("serve.journal.appended")
 
-    def finish(self, req_id: str, status: str,
-               result: Optional[Dict[str, Any]] = None) -> None:
-        """Mark a journaled request terminal. The first marker wins (the
-        exists checks and the write share the lock, so a cancel cannot
-        clobber a published verdict's marker); an unknown id is a no-op.
-        A failed write is recorded, never raised: the entry then replays
-        after a crash (at least once, never lost)."""
-        payload: Dict[str, Any] = {"id": req_id, "status": status,
-                                   "ts": round(time.time(), 6)}
+    def _write_marker(self, entry_path: str, done_path: str,
+                      payload: Dict[str, Any],
+                      result: Optional[Dict[str, Any]],
+                      **obs_kw: Any) -> None:
+        """The terminal marker of a request or a session. The first
+        marker wins (the exists checks and the write share the lock, so a
+        cancel cannot clobber a published verdict's marker); an unknown
+        entry is a no-op. A failed write is recorded, never raised: the
+        entry then replays after a crash (at least once, never lost).
+        Every marker moves the collection's cadence."""
         if result is not None:
             try:
                 payload["result"] = json.loads(json.dumps(result,
                                                           default=str))
             except (TypeError, ValueError):
                 pass        # the marker keeps the status without it
-        done = self._done_path(req_id)
         with self._lock:
-            if not os.path.exists(self._req_path(req_id)) \
-                    or os.path.exists(done):
+            if not os.path.exists(entry_path) or os.path.exists(done_path):
                 return
             try:
-                self._write(done, payload)
+                self._write(done_path, payload)
             except OSError as e:
-                log.warning("journal marker failed for %s: %s", req_id, e)
+                log.warning("journal marker failed for %s: %s", done_path,
+                            e)
                 obs.engine_fallback("serve-journal", type(e).__name__,
-                                    id=req_id)
+                                    **obs_kw)
                 return
             self._finishes += 1
             due = self._finishes % self.gc_every == 0
         if due:
             self.gc()
+
+    def finish(self, req_id: str, status: str,
+               result: Optional[Dict[str, Any]] = None) -> None:
+        """Mark a journaled request terminal (:meth:`_write_marker`; a
+        session's block has no entry of its own, so it is a no-op)."""
+        self._write_marker(self._req_path(req_id), self._done_path(req_id),
+                           {"id": req_id, "status": status,
+                            "ts": round(time.time(), 6)}, result, id=req_id)
 
     def discard(self, req_id: str) -> None:
         """Remove an entry that was never admitted (a backpressure
@@ -330,6 +350,128 @@ class Journal:
                     out[eid] = holder
         return out
 
+    # -- sessions ----------------------------------------------------------------
+    def _sess_path(self, sid: str) -> str:
+        return os.path.join(self.root, sid + _SESS_SUFFIX)
+
+    def _sapp_path(self, sid: str, seq: int) -> str:
+        return os.path.join(self.root,
+                            f"{sid}{_SAPP_MID}{seq:06d}{_SAPP_SUFFIX}")
+
+    def _sdone_path(self, sid: str) -> str:
+        return os.path.join(self.root, sid + _SDONE_SUFFIX)
+
+    def session_open(self, sid: str, *, tenant: str, model_name: str,
+                     options: Dict[str, Any]) -> None:
+        """Record an opened session, before its id is returned: its
+        journaled appends need an entry to replay into."""
+        self._write(self._sess_path(sid), {
+            "session": sid, "tenant": tenant, "model": model_name,
+            "options": dict(options or {}),
+            "opened-at": round(time.time(), 6)})
+        obs.count("serve.journal.session_opened")
+
+    def session_append_entry(self, sid: str, seq: int, history) -> None:
+        """Record one append block, before its verdict is computed: a
+        crash mid-advance replays it."""
+        self._write(self._sapp_path(sid, seq), {
+            "session": sid, "seq": int(seq),
+            "appended-at": round(time.time(), 6),
+            "history-edn": history_to_edn(history)})
+        obs.count("serve.journal.session_appended")
+
+    def discard_session_append(self, sid: str, seq: int) -> None:
+        """Retract a block whose admission bounced (the client had a 429,
+        not a verdict)."""
+        with contextlib.suppress(OSError):
+            os.unlink(self._sapp_path(sid, seq))
+
+    def session_close_marker(self, sid: str,
+                             result: Optional[Dict[str, Any]] = None
+                             ) -> None:
+        """Mark a session closed (the first marker wins): a restart
+        neither replays nor revives it, and its result survives."""
+        self._write_marker(self._sess_path(sid), self._sdone_path(sid),
+                           {"session": sid, "ts": round(time.time(), 6)},
+                           result, session=sid)
+
+    def open_session_ids(self) -> List[str]:
+        """Sessions with an entry and no close marker, oldest first."""
+        names = self._names()
+        done = {n[:-len(_SDONE_SUFFIX)] for n in names
+                if n.endswith(_SDONE_SUFFIX)}
+        return self._mtime_sorted(
+            [n[:-len(_SESS_SUFFIX)] for n in names
+             if n.endswith(_SESS_SUFFIX)
+             and n[:-len(_SESS_SUFFIX)] not in done], self._sess_path)
+
+    def open_session_count(self) -> int:
+        names = self._names()
+        done = {n[:-len(_SDONE_SUFFIX)] for n in names
+                if n.endswith(_SDONE_SUFFIX)}
+        return sum(1 for n in names if n.endswith(_SESS_SUFFIX)
+                   and n[:-len(_SESS_SUFFIX)] not in done)
+
+    def load_session(self, sid: str) -> Optional[Dict[str, Any]]:
+        try:
+            with open(self._sess_path(sid)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def session_lookup_closed(self, sid: str) -> Optional[Dict[str, Any]]:
+        """The close marker (with the close's result), or None."""
+        try:
+            with open(self._sdone_path(sid)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def session_appends(self, sid: str) -> List[Tuple[int, Dict[str, Any]]]:
+        """A session's journaled blocks, ``(seq, entry)`` in seq order. A
+        corrupt entry is skipped with a recorded fallback (a torn append
+        was never acknowledged; replay stops at the gap it leaves)."""
+        prefix = sid + _SAPP_MID
+        out: List[Tuple[int, Dict[str, Any]]] = []
+        for n in sorted(self._names()):
+            if not (n.startswith(prefix) and n.endswith(_SAPP_SUFFIX)):
+                continue
+            try:
+                with open(os.path.join(self.root, n)) as f:
+                    entry = json.load(f)
+                out.append((int(entry["seq"]), entry))
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                obs.engine_fallback("serve-journal", type(e).__name__,
+                                    session=sid, entry=n)
+        out.sort(key=lambda t: t[0])
+        return out
+
+    def discard_session(self, sid: str) -> None:
+        """Remove every file of one session (the collection of closed
+        sessions, or an open refused after its entry was written)."""
+        prefix = sid + _SAPP_MID
+        for n in self._names():
+            if n.startswith(prefix) and n.endswith(_SAPP_SUFFIX):
+                with contextlib.suppress(OSError):
+                    os.unlink(os.path.join(self.root, n))
+        for p in (self._sess_path(sid), self._sdone_path(sid),
+                  self._lease_path(sid)):
+            with contextlib.suppress(OSError):
+                os.unlink(p)
+
+    def _gc_sessions(self) -> int:
+        """Collect closed sessions past ``keep_terminal``, oldest close
+        marker first; open sessions are never touched."""
+        closed = [n[:-len(_SDONE_SUFFIX)] for n in self._names()
+                  if n.endswith(_SDONE_SUFFIX)]
+        excess = len(closed) - self.keep_terminal
+        if excess <= 0:
+            return 0
+        for sid in self._mtime_sorted(closed, self._sdone_path)[:excess]:
+            self.discard_session(sid)
+        obs.count("serve.journal.session_gc", excess)
+        return excess
+
     # -- views -------------------------------------------------------------------
     def _names(self) -> List[str]:
         try:
@@ -392,20 +534,22 @@ class Journal:
     # -- GC ----------------------------------------------------------------------
     def gc(self) -> int:
         """Collect terminal pairs past ``keep_terminal``, oldest marker
-        first; pending entries are never touched. Returns how many."""
+        first, then closed sessions (:meth:`_gc_sessions`); pending
+        entries and open sessions are never touched. Returns how many
+        requests and sessions went."""
         ids = [rid for rid, fin in self._ids().items() if fin]
-        excess = len(ids) - self.keep_terminal
-        if excess <= 0:
-            return 0
+        excess = max(0, len(ids) - self.keep_terminal)
         for rid in self._mtime_sorted(ids, self._done_path)[:excess]:
             self.discard(rid)
-        obs.count("serve.journal.gc", excess)
-        return excess
+        if excess:
+            obs.count("serve.journal.gc", excess)
+        return excess + self._gc_sessions()
 
     def stats(self) -> Dict[str, Any]:
         ids = self._ids()
         pending = sum(1 for fin in ids.values() if not fin)
         return {"pending": pending, "terminal": len(ids) - pending,
+                "sessions-open": self.open_session_count(),
                 "leases": sum(1 for n in self._names()
                               if n.endswith(_LEASE_SUFFIX)),
                 "keep_terminal": self.keep_terminal, "root": self.root}

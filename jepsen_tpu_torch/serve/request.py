@@ -1,6 +1,5 @@
 """Request objects and the daemon-wide registry (a port of the
-reference package's ``jepsen_tpu/serve/request.py``, one-shot checks
-only).
+reference package's ``jepsen_tpu/serve/request.py``).
 
 A :class:`CheckRequest` is one client-submitted check: the packed
 history, the resolved model, per-request options, its tenant and an
@@ -74,6 +73,12 @@ class CheckRequest:
     idem_key: Optional[str] = None          # client idempotency key
     requeues: int = 0                       # hung-dispatch requeues
     journaled: bool = False                 # has a journal entry
+    # a session's block rides the same queue as a one-shot check: kind
+    # "session-append" or "session-close", its session and its place in
+    # the session's order; its journal entry is the session's
+    kind: str = "check"
+    session: Optional[Any] = None           # serve.session.Session
+    seq: int = 0
     lane: Optional[int] = None              # the dispatch lane it rode
     # stage stamps (time.monotonic): admit -> coalesce (selected into a
     # group) -> dispatch (engine call) -> collect (engine returned) ->
@@ -99,7 +104,22 @@ class CheckRequest:
         """Coalescing key: requests with one signature may share a
         dispatch group (one model, for the union prep; the same engine
         options, since a group walks once). List options (the canonical
-        ``consistency`` levels) are tupled to stay hashable."""
+        ``consistency`` levels) are tupled to stay hashable.
+
+        A session's blocks key on the session, so that they advance its
+        carried state in order and never mix with one-shot checks; the
+        appends of sessions whose carries share a walk geometry share
+        ``("session-mega",) + geometry``, so that one K10 launch can
+        advance them all. The geometry is the session's cached read
+        (:meth:`.session.Session.mega_sig`): a stale one costs grouping,
+        never order, since a close queues after its appends and the
+        group is checked again under each session's lock."""
+        if self.session is not None:
+            if self.kind == "session-append":
+                g = self.session.mega_sig()
+                if g is not None:
+                    return ("session-mega",) + g
+            return ("session", self.session.id)
         return (type(self.model).__name__, repr(self.model),
                 tuple(sorted((k, tuple(v) if isinstance(v, list) else v)
                              for k, v in self.opts.items())))

@@ -819,14 +819,13 @@ def ladder(names: Sequence[str], geom, args, repeat: int = 2,
 
 _NOT_PORTED = {
     "bodies": "--bodies sweeps the word-packed post-hoc walk against the "
-              "dense one and records the winner in the autotune table; the "
-              "word-packed bodies and the table are not ported yet (ROADMAP "
-              "queue 1, item 'Word-packed bodies': reach_word.py and "
+              "dense one and records the winner in the autotune table; "
+              "both are not ported yet (ROADMAP queue 1, item 7: "
+              "reach_word._walk_words, walk_returns_words and "
               "checkers/autotune.py)",
-    "pipeline": "--pipeline sweeps the serve-lane in-flight depth over "
-                "reach.stage_check_many; it is not ported yet (ROADMAP "
-                "queue 1, items 'Host prep' and 'Lockstep batch routes', "
-                "with stage_check_many)",
+    "pipeline": "--pipeline sweeps the serve lane's in-flight depth over "
+                "reach.stage_check_many; the sweep itself is not ported yet "
+                "(ROADMAP queue 1, item 6)",
 }
 
 

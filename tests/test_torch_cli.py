@@ -261,8 +261,9 @@ def test_no_card_fails_without_running(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    pytest.param(["serve", "--suite", "register"], id="serve"),
-    # the daemon is ported; its pod mode is not
+    # the daemon and the results browser are ported; the pod mode is not
+    pytest.param(["check-serve", "--num-processes", "2"] + CPU,
+                 id="check-serve-pod"),
     pytest.param(["check-serve", "--coordinator", "localhost:1"] + CPU,
                  id="check-serve")])
 def test_unported_commands_exit_2(argv, capsys):

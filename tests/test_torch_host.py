@@ -200,6 +200,8 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.serve.journal",
             "jepsen_tpu_torch.serve.engine",
             "jepsen_tpu_torch.serve.http",
+            "jepsen_tpu_torch.checkers.reach_word",
+            "jepsen_tpu_torch.web",
             "jepsen_tpu_torch.checkers.transfer",
             "jepsen_tpu_torch.obs",
             "jepsen_tpu_torch.__main__"} <= imported

@@ -1,7 +1,7 @@
 """The check daemon's HTTP protocol on the CPU (``docs/SERVING.md``):
 the refusals (400, 413, 415, 429, 503), cancel (200, 404, 409),
 deadlines, the journal's replay across a shutdown and a ``DELETE`` of a
-journaled request not yet replayed, ``/session*`` (501, item 3(c)),
+journaled request not yet replayed, ``/session*`` (no 501: item 3(c)),
 ``/metrics``, ``/profile``, and the idempotency race: eight concurrent
 duplicate POSTs, 50 rounds, each admitting exactly one request.
 """
@@ -99,11 +99,17 @@ def test_refusals(admit_only):
 
 
 def test_sessions_answer_501_naming_their_item(admit_only):
+    """Item 3(c) is ported: no ``/session*`` route answers 501. An open
+    answers 201 (the default model), an unknown session 404, a route
+    with no action 404."""
     d, url = admit_only
-    for method, path in (("POST", "/session"), ("POST", "/session/x/append"),
-                         ("POST", "/session/x/close"), ("GET", "/session/x")):
+    code, opened = _http(url, "POST", "/session", {})
+    assert code == 201 and opened["model"] == "cas-register"
+    for method, path in (("POST", "/session/x/append"),
+                         ("POST", "/session/x/close"), ("GET", "/session/x"),
+                         ("POST", f"/session/{opened['session']}/nope")):
         code, err = _http(url, method, path, {})
-        assert code == 501 and "item 3(c)" in err["error"]
+        assert code == 404 and "error" in err
 
 
 def test_cancel_codes(admit_only):
