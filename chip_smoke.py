@@ -3905,13 +3905,25 @@ def txn_session_run(h, consistency):
 # K10 against its plain version: lanes a launch, and the returns of a
 # lane's block (ragged); the narrow lanes hold cas carries of 5 and 6
 # processes (K1's route; the warp and the block form), the wide lanes
-# multi-register ones over 64 states (K4's route)
+# multi-register ones over 64 states (K4's route; both forms) and cas
+# ones over 40 values whose op bucket O1 = 128 makes whole tables of 256
+# KB, past one block's shared memory
 K10_LANES = (1, 2, 64, 1_024)
 K10_BLOCK = (16, 160)
-K10_HISTS = 8                  # histories (each its own P) a group
+K10_HISTS = 4                  # histories (each its own P) a group
+                               # (their making and the carries' seeding
+                               # are most of the phase)
 K10_REPLAY_LANES = 2           # the wide groups' host replay's lanes
                                # (its int32 numpy products grow with S;
-                               # the narrow groups replay every lane)
+                               # the narrow groups replay every lane up
+                               # to K10_REPLAY_NARROW)
+K10_REPLAY_NARROW = 64
+K10_REPS = 5                   # timed waves a reading (the median)
+# K10's numbers in the kernels line beside every kernel's: its
+# wrapper's host time, its launch with the wrapper, its chain bound and
+# the blocks an SM holds (its ms is the kernel alone)
+K10_LINE_KEYS = ("wrapper_ms", "launch_ms", "chain_bound_ms",
+                 "blocks_per_sm")
 # the daemon's sessions: cas sessions across tenants, each of
 # SESS_APPENDS blocks of SESS_OPS history entries, SESS_BAD of them with
 # a violation; a group of wide (multi-register, K4's route) and txn ones
@@ -3928,20 +3940,21 @@ SESS_CRASH_AT = 2              # the daemon is dropped before this wave
 SESS_VERDICT = ("valid", "op", "dead-event")
 
 
-def k10_carries(kind, model, procs, L, seed, **kw):
+def k10_carries(kind, model, procs, L, seed, n_ops=3_000, **kw):
     """L carries of one mega geometry on ``CARD`` and a block each: the
-    most common geometry of :data:`K10_HISTS` histories (one in four
-    corrupted), lane i on history i mod their count with its own seed
-    (every other lane a random set over the one-hot one) and a ragged
-    block at a random offset of that history's returns. Returns
-    ``(carries, blocks, history of each lane, the histories' P)``."""
+    most common geometry of :data:`K10_HISTS` histories of ``n_ops`` ops
+    (one in four corrupted), lane i on history i mod their count with its
+    own seed (every other lane a random set over the one-hot one) and a
+    ragged block at a random offset of that history's returns. Returns
+    ``(carries, blocks, history of each lane, geometry, draw)``:
+    ``draw(which, rng)`` draws another block for each lane."""
     from jepsen_tpu_torch import history
     from jepsen_tpu_torch.checkers import events, reach
 
     rng = np.random.RandomState(seed)
     by_sig = {}
     for s in range(K10_HISTS):
-        h = gen(kind, 3_000, procs, seed + s, corrupt=s % 4 == 1, **kw)
+        h = gen(kind, n_ops, procs, seed + s, corrupt=s % 4 == 1, **kw)
         memo, stream, _T, _S, M = reach._prep(
             model, history.pack(h), max_states=100_000, max_slots=20,
             max_dense=1 << 22)
@@ -3951,7 +3964,17 @@ def k10_carries(kind, model, procs, L, seed, **kw):
         by_sig.setdefault(c.mega_sig, []).append(
             (memo, events.returns_view(stream), M))
     sig, members = max(by_sig.items(), key=lambda kv: len(kv[1]))
-    carries, blocks, which = [], [], []
+
+    def draw(which, rng):
+        out = []
+        for j in which:
+            rs = members[j][1]
+            n = rng.randint(K10_BLOCK[0], K10_BLOCK[1] + 1)
+            off = rng.randint(0, max(1, rs.n_returns - n))
+            out.append((rs.ret_slot[off:off + n], rs.slot_ops[off:off + n]))
+        return out
+
+    carries, which = [], []
     for i in range(L):
         j = i % len(members)
         memo, rs, M = members[j]
@@ -3959,73 +3982,195 @@ def k10_carries(kind, model, procs, L, seed, **kw):
         R0[0, 0] = True
         carries.append(reach.FrontierCarry(memo, M.bit_length() - 1, R0,
                                            device=CARD))
-        n = rng.randint(K10_BLOCK[0], K10_BLOCK[1] + 1)
-        off = rng.randint(0, max(1, rs.n_returns - n))
-        blocks.append((rs.ret_slot[off:off + n], rs.slot_ops[off:off + n]))
         which.append(j)
+    blocks = draw(which, rng)
     if any(c.mega_sig != sig for c in carries):
         raise AssertionError(f"K10 lanes: geometry {sig} not shared")
-    return carries, blocks, which, sig
+    return carries, blocks, which, sig, draw
 
 
-def k10_operands(carries, blocks):
-    """:func:`reach_word.mega_walk`'s operands of a group, on the card."""
-    L, W = len(carries), carries[0].W
-    lens = [len(b[0]) for b in blocks]
-    R_pad = max(lens)
-    rs = np.full((L, R_pad), -1, np.int32)
-    so = np.full((L, R_pad, W), -1, np.int32)
-    for i, (b_rs, b_so) in enumerate(blocks):
-        rs[i, :lens[i]] = b_rs
-        so[i, :lens[i]] = b_so
-    return ([c._P for c in carries], [c._T for c in carries],
-            [c._R for c in carries], torch.as_tensor(rs, device=CARD),
-            torch.as_tensor(so, device=CARD), lens)
+def k10_stage(carries, blocks):
+    """A group's lanes and its wave staged as the group advance stages
+    it (pinned on the card)."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    lanes = [c.lane for c in carries]
+    return lanes, reach_word.stage_blocks(
+        [ln.packed for ln in lanes], blocks, carries[0].W, pin=CARD == "cuda")
 
 
-def k10_check(label, carries, blocks, which, sig, replay: bool):
+def lane_passes(P: np.ndarray, ret: np.ndarray, ops: np.ndarray,
+                v0: np.ndarray, W: int) -> int:
+    """The fire passes one lane's walk runs, as the kernels run them: per
+    return up to min(c, W) passes, ending after the first that adds no
+    config (walk.cuh's fixpoint exit), the walk ending at its first empty
+    set. A host replay in numpy, for the chain bound."""
+    M = 1 << W
+    Pi = (P > 0.5).astype(np.int32)
+    v = v0.astype(bool).copy()
+    masks = np.arange(M)
+    total = 0
+    for r in range(len(ret)):
+        pend = [j for j in range(W) if ops[r, j] >= 0]
+        for _p in range(min(len(pend), W)):
+            total += 1
+            acc = v.copy()
+            for j in pend:
+                hi = masks[(masks >> j) & 1 == 1]
+                acc[hi] |= (v[hi ^ (1 << j)].astype(np.int32)
+                            @ Pi[ops[r, j]]) > 0
+            grew = (acc != v).any()
+            v = acc
+            if not grew:
+                break
+        j = int(ret[r])
+        if j >= 0:
+            keep = ((masks >> j) & 1) == 0
+            v = v[masks | (1 << j)] & keep[:, None]
+            if not v.any():
+                break
+    return total
+
+
+def k10_kernel_ms(lanes, stage, narrow, place="auto") -> float:
+    """The kernel alone, the median of :data:`K10_REPS` waves: CUDA
+    events recorded in the C entry point right around its launch (on
+    the CPU the plain version's host time)."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    if CARD != "cuda":
+        t0 = time.perf_counter()
+        reach_word.mega_walk(lanes, stage, narrow, place=place)
+        return 1e3 * (time.perf_counter() - t0)
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(K10_REPS)]
+    for pair in evs:
+        reach_word.mega_walk(lanes, stage, narrow, place=place, events=pair)
+    torch.cuda.synchronize()
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
+
+
+def k10_wave_times(carries, blocks, lanes, stage, narrow):
+    """One wave's times, each the median of :data:`K10_REPS`: the kernel
+    alone (:func:`k10_kernel_ms`), the group advance's host time to its
+    launch (``launch_frontiers_mega``: the rows, the staging, the copy
+    and the launch queued; ``perf_counter``), and that launch with its
+    wrapper by CUDA events around it (:func:`event_ms`)."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    ms = k10_kernel_ms(lanes, stage, narrow)
+    host = []
+    for _ in range(K10_REPS):
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reach_word.launch_frontiers_mega(carries, blocks)
+        host.append(1e3 * (time.perf_counter() - t0))
+    launch = event_ms(lambda: reach_word.launch_frontiers_mega(
+        carries, blocks), K10_REPS)
+    return ms, float(np.median(host)), launch
+
+
+def k10_check(label, carries, blocks, which, sig, replay: bool,
+              places=("auto",), time_it=True):
     """K10 on one group: bit for bit against its plain version on the
-    same tensors (and against the host replay, :func:`walk_work`, when
-    ``replay``), its time beside L solo advances of the same blocks on K1
-    or K4 (each lane's dead return and final set held against K10's too)
-    and its bound. Returns the kernels line's numbers."""
+    same sets and blocks, in each table place of ``places`` (and against
+    the host replay, :func:`walk_work`, when ``replay``); with
+    ``time_it`` its times (:func:`k10_wave_times`, in each place of
+    ``places`` that differs from ``auto``'s pick), its launch design
+    (blocks resident a SM), L solo advances of the same blocks on K1 or
+    K4 (each lane's dead return and final set held against K10's too),
+    its bytes bound and its chain bound. Returns the kernels line's
+    numbers."""
     from jepsen_tpu_torch.checkers import reach_lane, reach_pallas
     from jepsen_tpu_torch.checkers import reach_word
 
     engine, S, W, O1 = sig
     narrow = engine == "reach-lane"
-    P, T, R, rs, so, lens = k10_operands(carries, blocks)
     L = len(carries)
-    got = reach_word.mega_walk(P, T, R, rs, so, lens, narrow)
+    lanes, stage = k10_stage(carries, blocks)
+    P = [ln.P for ln in lanes]
+    R = [ln.R for ln in lanes]
+    ret_np, ops_np = stage.padded()
+    rs = torch.as_tensor(ret_np, device=CARD)
+    so = torch.as_tensor(ops_np, device=CARD)
+    lens = stage.n
     ref, p_ms = plain_ms(lambda: reach_word.mega_walk_plain(
         P, R, rs, so, lens))
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        raise AssertionError(f"mega_walk [{label}] L={L}: differs from "
-                             f"its plain version")
+    designs = {}
+    got = None
+    for place in places:
+        design = (reach_word.mega_design(stage, S, O1, narrow, place)
+                  if CARD == "cuda" else {"place": place})
+        designs[place] = design
+        for ln in lanes:
+            ln.out.fill_(0.5)          # no earlier launch's sets
+        dead = reach_word.mega_walk(lanes, stage, narrow, place=place)
+        final = torch.stack([ln.out for ln in lanes])
+        if not (torch.equal(final, ref[0]) and torch.equal(dead, ref[1])):
+            raise AssertionError(f"mega_walk [{label}] L={L} place={place} "
+                                 f"({design['place']}): differs from its "
+                                 f"plain version")
+        if got is None:
+            got = (final, dead)
+    if any(not torch.equal(ln.R, r) for ln, r in zip(lanes, R)):
+        raise AssertionError(f"mega_walk [{label}]: a lane's set changed")
     err = float((got[0] - ref[0]).abs().max())
-    ms = event_ms(lambda: reach_word.mega_walk(P, T, R, rs, so, lens,
-                                               narrow), 5)
+    deads = got[1].cpu().tolist()
+    n_dead = sum(d >= 0 for d in deads)
+    out = {"max_abs_err": err, "plain_ms": p_ms, "library_ms": None,
+           "dead": n_dead, "L": L, "design": designs}
+    work = 0
+    if replay:
+        for j in sorted(set(which)):
+            ids = [i for i in range(L) if which[i] == j]
+            ops_j, v, dead = walk_work(
+                P[ids[0]].cpu().numpy(), rs[ids].cpu().numpy().T,
+                so[ids].cpu().numpy().transpose(1, 0, 2),
+                as_sets(torch.stack([R[i] for i in ids])), W,
+                lens=np.array([lens[i] for i in ids]))
+            if not (np.array_equal(v, as_sets(got[0][ids]))
+                    and dead.tolist() == [deads[i] for i in ids]):
+                raise AssertionError(f"mega_walk [{label}] L={L}: differs "
+                                     f"from the host replay")
+            work += ops_j
+    if not time_it:
+        log(f"kernel mega_walk [{label}] L={L} engine={engine} S={S} W={W} "
+            f"O1={O1} R_pad={stage.R_pad} returns={int(lens.sum())} dead "
+            f"lanes={n_dead} places {designs}: bit-identical"
+            f"{'; host replay agrees' if replay else ''}")
+        return out
+    ms, host_ms, launch_ms = k10_wave_times(carries, blocks, lanes, stage,
+                                            narrow)
+    # the kernel alone in the other table place, where it differs
+    times = {designs["auto"]["place"]: ms}
+    for place in places:
+        if designs[place]["place"] not in times:
+            times[designs[place]["place"]] = k10_kernel_ms(
+                lanes, stage, narrow, place)
     # L solo advances of the same blocks, as a session's solo path walks
     # them (K1: a checkpoint block the size of the block, n_pass = W)
     solo_ops = []
     for i, (b_rs, b_so) in enumerate(blocks):
-        n = lens[i]
         t_rs = torch.as_tensor(np.ascontiguousarray(b_rs, np.int32),
                                device=CARD)
         t_so = torch.as_tensor(np.ascontiguousarray(b_so, np.int32),
                                device=CARD)
-        solo_ops.append((P[i], t_rs, t_so, R[i], n))
+        solo_ops.append((P[i], t_rs, t_so, R[i], int(lens[i])))
 
     def solo_all():
-        out = []
+        res = []
         for Pi, t_rs, t_so, Ri, n in solo_ops:
-            if narrow:
+            if n == 0:
+                res.append(([-1], Ri))
+            elif narrow:
                 _c, fin, dead = reach_lane.lane_walk(Pi, t_rs, t_so, Ri, n,
                                                      W)
+                res.append((dead, fin))
             else:
                 dead, fin = reach_pallas.walk(Pi, t_rs, t_so, Ri, n)
-            out.append((dead, fin))
-        return out
+                res.append((dead, fin))
+        return res
 
     # timed once, warm (the walks' libraries are loaded), by CUDA events
     e0 = torch.cuda.Event(enable_timing=True) if CARD == "cuda" else None
@@ -4040,85 +4185,167 @@ def k10_check(label, carries, blocks, which, sig, replay: bool):
         solo_ms = e0.elapsed_time(e1)
     else:
         solo_ms = 1e3 * (time.perf_counter() - t0)
-    deads = got[1].cpu().tolist()
     for i, (dead, fin) in enumerate(solo):
         if int(dead[0]) != deads[i] or (deads[i] < 0
                                         and not torch.equal(fin, got[0][i])):
             raise AssertionError(f"mega_walk [{label}] L={L} lane {i}: "
                                  f"solo {int(dead[0])}, K10 {deads[i]}")
-    work, bound_txt = 0, ""
-    if replay:
-        for j in sorted(set(which)):
-            ids = [i for i in range(L) if which[i] == j]
-            ops_j, v, dead = walk_work(
-                P[ids[0]].cpu().numpy(), rs[ids].cpu().numpy().T,
-                so[ids].cpu().numpy().transpose(1, 0, 2),
-                as_sets(torch.stack([R[i] for i in ids])), W,
-                lens=np.array([lens[i] for i in ids]))
-            if not (np.array_equal(v, as_sets(got[0][ids]))
-                    and dead.tolist() == [deads[i] for i in ids]):
-                raise AssertionError(f"mega_walk [{label}] L={L}: differs "
-                                     f"from the host replay")
-            work += ops_j
     # the bytes the function needs: each lane's real returns (ret_slot
     # and its W slot ops; the identity steps that pad a block to the
-    # longest are the kernel's, not the function's), the table rows of
+    # longest are the layout's, not the function's), the table rows of
     # the ops those returns name and the all-zero sentinel row, the
     # seeds, the finals, the dead returns and the lane descriptors
     rows = sum(len(set(np.asarray(b_so[:lens[i]]).ravel().tolist())
                    - {-1}) + 1 for i, (_r, b_so) in enumerate(blocks))
-    moved = (sum(lens) * (1 + W) * 4 + rows * T[0][0].nbytes
-             + nbytes(*R, got[0], got[1]) + L * 3 * 8)
+    moved = (int(lens.sum()) * (1 + W) * 4 + rows * lanes[0].T[0].nbytes
+             + nbytes(*R, got[0], got[1]) + stage.desc.nbytes
+             + stage.off.nbytes)
     bound, bound_by, detail = bound_ms(moved, work)
     if not replay:
         bound_by, detail = "bytes", f"bytes={moved} (operations not " \
                                     f"counted: no host replay)"
         bound = 1e3 * moved / HBM_RATE
-    n_dead = sum(d >= 0 for d in deads)
+    # the chain bound: the longest surviving lane's real returns, the
+    # passes they run, one shared-memory round trip each
+    alive = np.asarray(deads) < 0
+    i_long = int(np.argmax(np.where(alive, lens, -1) if alive.any()
+                           else lens))
+    passes = lane_passes(P[i_long].cpu().numpy(),
+                         np.asarray(blocks[i_long][0]),
+                         np.asarray(blocks[i_long][1]),
+                         as_sets(R[i_long]), W)
+    chain = passes * K10_SMEM_NS[0] * 1e-6
+    design = designs["auto"]
+    alt = ", ".join(f"{pl} {t:.6f}" for pl, t in times.items())
     log(f"kernel mega_walk [{label}] L={L} engine={engine} S={S} W={W} "
-        f"O1={O1} form={'warp' if W <= 5 and (narrow or S <= 256) else 'block'} "
-        f"R_pad={rs.shape[1]} returns={sum(lens)} dead lanes={n_dead}: "
-        f"bit-identical max_abs_err={err} kernel_ms={ms:.6f} "
-        f"us_per_lane={1e3 * ms / L:.6f} solo_{'k1' if narrow else 'k4'}_ms="
-        f"{solo_ms:.6f} ({L} launches, {solo_ms / ms:.2f}x K10) "
-        f"plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; {detail})"
+        f"O1={O1} form={design.get('form')} R_pad={stage.R_pad} returns="
+        f"{int(lens.sum())} cap={stage.cap} dead lanes={n_dead}: "
+        f"bit-identical in places {sorted(set(places))} max_abs_err={err} "
+        f"design {design}; kernel_ms={ms:.6f} (events in the C entry) "
+        f"us_per_lane={1e3 * ms / L:.6f} wrapper_host_ms={host_ms:.6f} "
+        f"launch_ms={launch_ms:.6f} [the kernel by table place: {alt}]; solo_"
+        f"{'k1' if narrow else 'k4'}_ms={solo_ms:.6f} ({L} launches, "
+        f"{solo_ms / ms:.2f}x K10's kernel, {solo_ms / launch_ms:.2f}x its "
+        f"launch) plain_ms={p_ms:.3f} bound_ms={bound:.6f} ({bound_by}; "
+        f"{detail}) chain_bound_ms={chain:.6f} (lane {i_long}: "
+        f"{int(lens[i_long])} returns, {passes} passes x "
+        f"{K10_SMEM_NS[0]:.3f} ns; kernel {ms / max(chain, 1e-12):.2f}x)"
         f"{'; host replay agrees' if replay else ''}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "solo_ms": solo_ms, "dead": n_dead, "L": L}
+    out.update({"ms": ms, "wrapper_ms": host_ms, "launch_ms": launch_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "chain_bound_ms": chain, "solo_ms": solo_ms,
+                "blocks_per_sm": design.get("blocks_per_sm"),
+                "times": times})
+    return out
+
+
+# one shared-memory load's round trip on the card, ns and cycles
+# (reach_word.smem_round_trip), measured at the start of phase_k10
+K10_SMEM_NS = [0.0, 0.0]
+
+
+def k10_after_solo(carries, which, sig, draw, rng):
+    """A wave after solo advances: the group advanced once by K10 (its
+    sets swapped in), every third carry then advanced alone on K1 or K4
+    (its set replaced, its lane rebound), and the next wave, in which lane
+    0's block holds no return, held bit for bit against the plain
+    version from the lanes' current sets."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    reach_word.advance_frontiers_mega(carries, draw(which, rng))
+    for i, b in enumerate(draw(which, rng)):
+        if i % 3 == 1:
+            carries[i].advance(*b)
+    blocks = draw(which, rng)
+    blocks[0] = (blocks[0][0][:0], blocks[0][1][:0])
+    return k10_check("cas after solo advances", carries, blocks, which, sig,
+                     replay=True, places=("auto", "shared", "global"),
+                     time_it=False)
+
+
+def k10_refuses(carries, blocks, sig):
+    """A lane whose block names an op past its tables walks nothing: K10
+    reports it as dead return -2 in both table places (the collect then
+    raises), and the other lanes as their plain version does."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    engine, _S, _W, O1 = sig
+    narrow = engine == "reach-lane"
+    bad = (blocks[1][0], np.array(blocks[1][1], np.int32))
+    bad[1][0, 0] = O1
+    blocks = [blocks[0], bad] + list(blocks[2:])
+    lanes, stage = k10_stage(carries, blocks)
+    if CARD != "cuda":
+        return
+    for place in ("shared", "global"):
+        dead = reach_word.mega_walk(lanes, stage, narrow, place=place)
+        got = dead.cpu().tolist()
+        if got[1] != -2 or min(got[:1] + got[2:]) < -1:
+            raise AssertionError(f"mega_walk: an op past O1 in lane 1 "
+                                 f"({place}): dead {got}")
+    inf = reach_word.MegaInflight(carries, lanes, stage.n, dead)
+    try:
+        reach_word.collect_frontiers_mega(inf)
+    except RuntimeError as e:
+        log(f"K10 refuses a lane naming op {O1} of O1 = {O1}: dead -2 in "
+            f"both places, the collect raises ({e})")
+    else:
+        raise AssertionError("mega_walk: collect took a refused lane")
 
 
 def phase_k10():
     """K10 (``csrc/mega_walk.cu``) against its plain version at
     :data:`K10_LANES` lanes on K1's route (cas, 5 processes: the warp
-    form) and K4's (multi-register over 64 states), and once each in the
-    block form (6 processes); each beside the same blocks' solo K1 or K4
-    advances. Returns the kernels line's numbers: the narrow group at the
-    most lanes."""
+    form; 6: the block form), K4's (multi-register over 64 states, both
+    forms) and K4's at O1 = 128 (wide cas: whole tables past shared
+    memory), in each table place, with its times, its launch design and
+    the same blocks' solo K1 or K4 advances; then a wave after solo
+    advances with a lane of no returns. Returns the kernels line's
+    numbers: the narrow warp-form group at the most lanes."""
     from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import reach_word
 
     t0 = time.perf_counter()
+    if CARD == "cuda":
+        cyc, ns = reach_word.smem_round_trip()
+        K10_SMEM_NS[:] = [ns, cyc]
+    else:
+        K10_SMEM_NS[:] = [1.0, 1.0]
+    log(f"K10: one shared-memory load's round trip {K10_SMEM_NS[1]:.2f} "
+        f"cycles = {K10_SMEM_NS[0]:.3f} ns (a warp's pointer chase)")
     out = {}
-    cases = (("cas", "cas", models.cas_register(), 5, {}, K10_LANES),
+    both = ("auto", "shared", "global")
+    cases = (("cas", "cas", models.cas_register(), 5, {}, 3_000,
+              K10_LANES),
              ("multi-register S=64", "multi", models.multi_register(), 5,
-              WIDE_MULTI, K10_LANES),
-             ("cas W=6", "cas", models.cas_register(), 6, {}, (64,)),
+              WIDE_MULTI, 3_000, K10_LANES),
+             ("cas W=6", "cas", models.cas_register(), 6, {}, 3_000,
+              K10_LANES),
              ("multi-register S=64 W=6", "multi", models.multi_register(),
-              6, WIDE_MULTI, (64,)))
-    for label, kind, model, procs, kw, lanes in cases:
+              6, WIDE_MULTI, 3_000, K10_LANES),
+             ("wide cas O1=128", "cas", models.cas_register(), 5, WIDE_CAS,
+              400, K10_LANES[-2:]))
+    for label, kind, model, procs, kw, n_ops, lanes in cases:
         t_case = time.perf_counter()
-        carries, blocks, which, sig = k10_carries(
-            kind, model, procs, max(lanes), 900 + procs, **kw)
+        carries, blocks, which, sig, draw = k10_carries(
+            kind, model, procs, max(lanes), 900 + procs, n_ops, **kw)
         log(f"K10 lanes [{label}]: {max(lanes)} carries seeded in "
-            f"{time.perf_counter() - t_case:.2f} s")
+            f"{time.perf_counter() - t_case:.2f} s, geometry {sig}")
         for L in lanes:
+            narrow_replay = sig[1] <= 32 and L <= K10_REPLAY_NARROW
             r = k10_check(label, carries[:L], blocks[:L], which[:L], sig,
-                          replay=L <= K10_REPLAY_LANES or sig[1] <= 32)
+                          replay=L <= K10_REPLAY_LANES or narrow_replay,
+                          places=both)
             if L >= 64 and not 0 < r["dead"] < L:
                 raise AssertionError(f"mega_walk [{label}] L={L}: "
                                      f"{r['dead']} dead lanes")
             if label == "cas" and L == max(lanes):
                 out = r
+        if label == "cas":
+            k10_after_solo(carries[:64], which[:64], sig, draw,
+                           np.random.RandomState(7))
+            k10_refuses(carries[:4], blocks[:4], sig)
+        log(f"K10 case [{label}]: {time.perf_counter() - t_case:.1f} s")
     out["max_abs_err"] = 0.0
     log(f"K10 phase: {time.perf_counter() - t0:.1f} s")
     return out
@@ -4303,25 +4530,30 @@ def phase_sessions(streams):
     tmp = tempfile.mkdtemp(prefix="chip-smoke-sessions-")
     kw = dict(port=0, store_root=tmp, device=dev, session_tenant_cap=128,
               max_inflight_per_tenant=1_024, queue_depth=4_096)
-    # K10's device time: CUDA events around every launch, read at the end
-    timed = []
-    launch = reach_word.mega_walk
+    # K10's device time: CUDA events recorded in the C entry point right
+    # around every launch, read at the end; the group advance's host time
+    # to its launch by perf_counter
+    timed, hosts = [], []
+    launch, group = reach_word.mega_walk, reach_word.launch_frontiers_mega
 
-    def mega_walk_timed(*a, **k):
-        e0 = e1 = None
+    def mega_walk_timed(lanes, stage, narrow, **k):
+        evs = None
         if CARD == "cuda":
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
+            evs = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
         t0 = time.perf_counter()
-        out = launch(*a, **k)
-        if e1 is not None:
-            e1.record()
-        timed.append((len(a[0]), k.get("narrow", a[-1]), e0, e1,
-                      time.perf_counter() - t0))
+        out = launch(lanes, stage, narrow, events=evs, **k)
+        timed.append((len(lanes), narrow, evs, time.perf_counter() - t0))
+        return out
+
+    def group_timed(*a, **k):
+        t0 = time.perf_counter()
+        out = group(*a, **k)
+        hosts.append(time.perf_counter() - t0)
         return out
 
     reach_word.mega_walk = mega_walk_timed
+    reach_word.launch_frontiers_mega = group_timed
     walls, appends = [], 0
     zero_launches()
     # the lanes' counters are the process's (a capture sees one thread)
@@ -4385,6 +4617,7 @@ def phase_sessions(streams):
             torch.cuda.synchronize()
     finally:
         reach_word.mega_walk = launch
+        reach_word.launch_frontiers_mega = group
     la = launches()
     for name, n in la.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
@@ -4422,11 +4655,12 @@ def phase_sessions(streams):
         n_bad += want["valid"] is False
     check_s = time.perf_counter() - t0
     if CARD == "cuda":
-        dev_ms = [(lanes, narrow, e0.elapsed_time(e1))
-                  for lanes, narrow, e0, e1, _h in timed]
+        dev_ms = [(lanes, narrow, evs[0].elapsed_time(evs[1]))
+                  for lanes, narrow, evs, _h in timed]
     else:
-        dev_ms = [(lanes, narrow, 1e3 * h) for lanes, narrow, _a, _b, h
+        dev_ms = [(lanes, narrow, 1e3 * h) for lanes, narrow, _e, h
                   in timed]
+    host_ms = 1e3 * sum(hosts)
     forms = {bool(n) for _l, n, _ms in dev_ms}
     if forms != {True, False}:
         raise AssertionError(f"sessions: K10 launched in forms {forms}")
@@ -4443,7 +4677,10 @@ def phase_sessions(streams):
         f"{close_s:.3f} s; K10 {len(dev_ms)} launches of {lanes_all} lanes "
         f"({lanes_all / max(1, len(dev_ms)):.1f} a wave), device "
         f"{k10_ms:.3f} ms = {k10_ms / max(1, len(dev_ms)):.6f} ms a wave, "
-        f"{k10_ms / max(1, lanes_all):.6f} ms a lane; the staged part of "
+        f"{k10_ms / max(1, lanes_all):.6f} ms a lane (the kernel alone: "
+        f"events in the C entry point); the group advance's host time to "
+        f"its launch {host_ms:.3f} ms = {host_ms / max(1, len(hosts)):.6f} "
+        f"ms a wave; the staged part of "
         f"the waves {scatter_s:.3f} s, the advances' wall {adv_s:.3f} s, "
         f"K10 {100 * k10_ms / 1e3 / max(adv_s, 1e-9):.2f}% of it; "
         f"groups {ctr.get('serve.session.mega.groups', 0)}, fallbacks "
@@ -4795,7 +5032,8 @@ def main() -> int:
         "source": f"jepsen_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+        **{x: k[x] for x in K10_LINE_KEYS if x in k}}
         for kname, src, replaces, n, k in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,7 @@ from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import events as ev
 from jepsen_tpu_torch.checkers import (
     dispatch_core, preproc_native, reach_batch, reach_chunklock, reach_lane,
-    reach_pallas)
+    reach_pallas, reach_word)
 from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
     Memo, StateExplosion, memo as build_memo, memo_ops)
@@ -700,17 +700,38 @@ class FrontierCarry:
                                   device=dev)
         R0 = np.zeros((self.M, S_pad), np.float32)
         R0[:, :self.S] = R0_host.T
-        self._R = torch.as_tensor(R0, device=dev)
+        R = torch.as_tensor(R0, device=dev)
         self._T = None
-        #: the mega-group geometry, or None: the torch walk joins no group
+        #: K10's operands (:class:`.reach_word.MegaLane`: the tables, the
+        #: set and its out buffer, checked once, here), or None: the
+        #: torch walk joins no group
+        self.lane: Optional[reach_word.MegaLane] = None
+        #: the mega-group geometry, or None
         self.mega_sig: Optional[tuple] = None
         if self.engine == "reach":
             xc, bm = _xor_bitmask(self.W, self.M)
             self._xc = torch.as_tensor(xc, device=dev)
             self._bm = torch.as_tensor(bm, device=dev)
+            self._R_torch = R
         else:
             self._T = reach_pallas.image_tables(self._P)
             self.mega_sig = (self.engine, S_pad, self.W, self.O1)
+            self.lane = reach_word.MegaLane(
+                self._P, self._T, R, memo.n_ops,
+                narrow=self.engine == "reach-lane")
+
+    @property
+    def _R(self) -> torch.Tensor:
+        """The carried set f32 ``[M, S_pad]`` (a mega-group member's is its
+        lane's: setting it rebinds the lane)."""
+        return self._R_torch if self.lane is None else self.lane.R
+
+    @_R.setter
+    def _R(self, R: torch.Tensor) -> None:
+        if self.lane is None:
+            self._R_torch = R
+        else:
+            self.lane.rebind(R)
 
     def _walk(self, ret_slot: np.ndarray, slot_ops: np.ndarray
               ) -> Tuple[int, torch.Tensor]:

@@ -5,7 +5,8 @@
 // 32 states, one 32-bit word a mask; K4 (wide_walk.cu, one history) and
 // K5 (wide_keyed.cu, many keys' streams) at any number of states,
 // launched through wide_walk.cuh; K10 (mega_walk.cu) many sessions'
-// carried sets at once, each lane with its own tables and seed (kMega).
+// carried sets at once, each lane with its own tables, set and returns
+// (kMega: its own prologue, mega_begin, and shared-memory layout).
 //
 // What one walk computes, for each return r of its stream:
 //   c_r    = #{j : slot_ops[r, j] >= 0}                (pending ops)
@@ -143,7 +144,7 @@ __device__ __forceinline__ void stage(const Walk& a, int h, int r, int r1,
 }
 
 // This block's lane and its run of returns (kMega: its lane's own
-// operands, mega_lane, at h = 0).
+// operands, at h = 0, its R_pad its own count: mega_begin).
 template <bool kKeyed, bool kMega = false>
 __device__ __forceinline__ void bounds(const Walk& a, int& h, int& r0,
                                        int& r1) {
@@ -316,26 +317,216 @@ struct TableWalk {
   int K;              // nibbles a table holds
   int NT;             // words a table entry takes
   int rlim;           // not keyed: a death at r >= rlim is not reported
-  // K10 (kMega): lane i's tables, seed and real returns as lanes[3i],
-  // lanes[3i + 1] (device addresses) and lanes[3i + 2]; null otherwise
-  const long long* lanes;
+  // K10 (kMega): the wave's lanes; zero otherwise
+  struct Mega {
+    // lane i's row of kMegaDesc words: its tables', set's and out's
+    // device addresses, then (host only) its op count and geometry
+    const long long* desc;
+    // lane i's returns: [off[i], off[i + 1]) of the ragged stream
+    // (Walk::ret_slot [N], slot_ops [N][W])
+    const int* off;
+    int cap;      // table slices shared memory holds (kShared)
+    int chunk;    // returns staged at a time
+    int stage_w;  // words of the staging: chunk · (W + 1), at least the
+                  // warp form's 32 · NT of the final set's transpose
+  } mega;
 };
 
-// K10: block i walks lane i of a mega-group, H = 1, from its own tables
-// and seed (TableWalk::lanes) over its padded run [0, R_pad) of the
-// [L][R_pad] stream, and writes its final set to rows i·M .. i·M + M - 1
-// of final_out and its dead return to dead[i] (-1 past its real
-// returns; the padding's identity steps cannot empty a set anyway).
-__device__ __forceinline__ void mega_lane(TableWalk& g) {
-  const size_t i = blockIdx.x;
-  const long long* l = g.lanes + 3 * i;
-  g.T = (const uint32_t*)l[0];
-  g.a.R0 = (const float*)l[1];
-  g.rlim = (int)l[2];
-  g.a.final_out += i * ((size_t)1 << g.a.W) * g.a.S;
-  g.a.ret_slot += i * g.a.R_pad;
-  g.a.slot_ops += i * g.a.R_pad * g.a.W;
-  g.a.dead += i;
+constexpr int kMegaDesc = 5;  // words of a K10 lane descriptor
+
+template <bool kWarp>
+__device__ __forceinline__ void sync_form() {
+  if constexpr (kWarp)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// K10's block, after mega_begin: the tables it reads (the named ops'
+// slices in shared memory when kShared, else the lane's tables in
+// device memory), its set's double buffer (the block form), the
+// stream's staging and, with kShared, the named ops' bitmap and its
+// prefix counts (the slot of op o is the count of named ops below o).
+struct MegaSmem {
+  const uint32_t* T;
+  uint32_t* Rw;
+  int* js;
+  int* ops;
+  const uint32_t* bm;
+  const uint32_t* pre;
+  int bad;  // the lane's stream is not walkable (kMegaBad)
+};
+
+// The dead return K10 reports for a lane whose stream names an op past
+// O1 or more ops than its launch's cap: the host raises on it.
+constexpr int kMegaBad = -2;
+
+__device__ __forceinline__ int mega_slot(const MegaSmem& s, int o) {
+  return (int)s.pre[o >> 5] +
+         __popc(s.bm[o >> 5] & ((1u << (o & 31)) - 1u));
+}
+
+// Stage returns [r, min(r + chunk, r1)) of a K10 lane, its ops renamed
+// to their slots when the tables are the shared slices.
+template <bool kShared>
+__device__ __forceinline__ void mega_stage(const TableWalk& g,
+                                           const MegaSmem& s, int r,
+                                           int r1) {
+  const Walk& a = g.a;
+  const int n = min(g.mega.chunk, r1 - r), W = a.W;
+  const int* ops = a.slot_ops + (size_t)r * W;
+  for (int i = threadIdx.x; i < n * W; i += blockDim.x) {
+    const int o = ops[i];
+    s.ops[i] = kShared && o >= 0 ? mega_slot(s, o) : o;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s.js[i] = a.ret_slot[r + i];
+}
+
+// K10's prologue: block i takes lane i (H = 1, h = 0) with its own set
+// (read) and out (written: a buffer apart, so a wave can be repeated and
+// the set survives a fault until the host swaps the two), its tables
+// and its n_i returns, R_pad := n_i (the walk ends at its last real
+// return; the padded layout's identity steps past it change nothing),
+// rlim := n_i, and dead[i]. It stages the first chunk of the lane's
+// returns and marks, in a bitmap of O1 bits, every op the lane's
+// returns name (an op past O1, which no table row holds, or more named
+// ops than the launch's cap, sets bad: the caller writes kMegaBad and
+// returns). kShared: each named op's table slice (K · 16 · NT words)
+// goes to its slot, the count of named ops below it, by one bulk copy
+// each completing on an mbarrier, and the staged ops are renamed to their
+// slots; the copies land while the block reads its seed (mega_wait
+// before the first lookup). Shared memory, in
+// words: the mbarrier (4), the cap slices (kShared), set_w words of
+// set, the staging (stage_w), the bitmap and its prefix (2 · ceil(O1 /
+// 32)).
+template <bool kShared, bool kWarp>
+__device__ __forceinline__ MegaSmem mega_begin(TableWalk& g, uint32_t* smem,
+                                               size_t set_w) {
+  Walk& a = g.a;
+  const TableWalk::Mega& mg = g.mega;
+  const long long* d = mg.desc + (size_t)kMegaDesc * blockIdx.x;
+  const uint32_t* Tg = (const uint32_t*)d[0];
+  a.R0 = (const float*)d[1];
+  a.final_out = (float*)d[2];
+  const int lo = mg.off[blockIdx.x];
+  const int n = mg.off[blockIdx.x + 1] - lo;
+  a.ret_slot += lo;
+  a.slot_ops += (size_t)lo * a.W;
+  a.R_pad = n;
+  a.dead += blockIdx.x;
+  g.rlim = n;
+  const int W = a.W, tid = threadIdx.x, nt = blockDim.x;
+  const int nbw = (a.O1 + 31) / 32;
+  const size_t slice = (size_t)g.K * 16 * g.NT;  // words
+  uint64_t* bar = (uint64_t*)smem;
+  uint32_t* Ts = smem + 4;
+  MegaSmem s;
+  s.T = kShared ? Ts : Tg;
+  s.Rw = Ts + (kShared ? (size_t)mg.cap * slice : 0);
+  s.js = (int*)(s.Rw + set_w);
+  s.ops = s.js + mg.chunk;
+  uint32_t* bm = (uint32_t*)s.js + mg.stage_w;
+  uint32_t* pre = bm + nbw;
+  s.bm = bm;
+  s.pre = pre;
+  if constexpr (kShared) {
+    for (int w = tid; w < nbw; w += nt) bm[w] = 0u;
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(bar))
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    sync_form<kWarp>();
+  }
+  const int c0 = min(n, mg.chunk);
+  for (int i = tid; i < c0 * W; i += nt) s.ops[i] = a.slot_ops[i];
+  for (int i = tid; i < c0; i += nt) s.js[i] = a.ret_slot[i];
+  sync_form<kWarp>();
+  // the named ops: a thread's bits gathered in a register where O1 <= 64,
+  // then OR-reduced across the warp (one shared atomic a warp and word)
+  uint64_t mine = 0;
+  int bad = 0;
+  for (int i = tid; i < n * W; i += nt) {
+    const int o = i < c0 * W ? s.ops[i] : a.slot_ops[i];
+    bad |= o >= a.O1;
+    if (!kShared || o < 0 || o >= a.O1) continue;
+    if (a.O1 <= 64)
+      mine |= 1ull << o;
+    else
+      atomicOr(bm + (o >> 5), 1u << (o & 31));
+  }
+  if (kShared && a.O1 <= 64) {
+    const uint32_t lo = __reduce_or_sync(kFull, (uint32_t)mine);
+    const uint32_t hi = __reduce_or_sync(kFull, (uint32_t)(mine >> 32));
+    if (tid % 32 == 0) {
+      if (lo) atomicOr(bm, lo);
+      if (hi) atomicOr(bm + 1, hi);
+    }
+  }
+  // an op past O1 (no table row holds it), or more named ops than the
+  // launch's cap, makes the lane unwalkable: the block's vote, so that the
+  // walk returns at once in every thread (no trap in divergent code: the
+  // walk's warp collectives then need no divergence checks)
+  uint32_t named = 0;
+  if constexpr (kShared) {
+    sync_form<kWarp>();
+    for (int w = 0; w < nbw; ++w) named += __popc(bm[w]);
+    bad |= named > (uint32_t)mg.cap;
+  }
+  if constexpr (kWarp)
+    s.bad = __any_sync(kFull, bad);
+  else
+    s.bad = __syncthreads_or(bad);
+  if (s.bad) return s;
+  if constexpr (kShared) {
+    if (tid == 0) {
+      uint32_t below = 0;
+      for (int w = 0; w < nbw; ++w) {
+        pre[w] = below;
+        below += __popc(bm[w]);
+      }
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(smem_addr(bar)), "r"((uint32_t)(named * slice * 4))
+                   : "memory");
+    }
+    sync_form<kWarp>();
+    for (int o = tid; o < a.O1; o += nt) {
+      if (!((bm[o >> 5] >> (o & 31)) & 1u)) continue;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(
+              smem_addr(Ts + (size_t)mega_slot(s, o) * slice)),
+          "l"(Tg + (size_t)o * slice), "r"((uint32_t)(slice * 4)),
+          "r"(smem_addr(bar))
+          : "memory");
+    }
+    for (int i = tid; i < c0 * W; i += nt) {
+      const int o = s.ops[i];
+      if (o >= 0) s.ops[i] = mega_slot(s, o);
+    }
+    sync_form<kWarp>();
+  }
+  return s;
+}
+
+// Wait until K10's table slices have landed in shared memory (each
+// thread, so that each sees the copies' writes).
+__device__ __forceinline__ void mega_wait(const uint32_t* smem) {
+  uint32_t done = 0;
+  while (!__all_sync(kFull, done))  // a warp leaves the loop together
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(smem))
+        : "memory");
 }
 
 // The tables a block reads: its copy in shared memory when kShared, else
@@ -394,13 +585,27 @@ __global__ void walk_warp(TableWalk g) {
                     !(kMega && (kKeyed || kLock)),
                 "form");
   extern __shared__ uint32_t smem[];
-  if constexpr (kMega) mega_lane(g);
   const Walk& a = g.a;
+  MegaSmem ms;
+  const uint32_t* T;
+  int* js_s;
+  int* ops_s;  // [chunk][W]
+  if constexpr (kMega) {
+    ms = mega_begin<kShared, true>(g, smem, 0);
+    if (ms.bad) {
+      if (threadIdx.x == 0) *a.dead = kMegaBad;
+      return;
+    }
+    T = ms.T;
+    js_s = ms.js;
+    ops_s = ms.ops;
+  } else {
+    T = tables<kShared>(g, smem);
+    js_s = (int*)(smem + (kShared ? (size_t)a.O1 * KT * 16 * NT : 0));
+    ops_s = js_s + kChunk;
+  }
   const int W = a.W, S = a.S, NW = g.NW, M = 1 << W;
   const int m = threadIdx.x;
-  const uint32_t* T = tables<kShared>(g, smem);
-  int* js_s = (int*)(smem + (kShared ? (size_t)a.O1 * KT * 16 * NT : 0));
-  int* ops_s = js_s + kChunk;  // [kChunk][W]
   int h, r0, r1;
   bounds<kKeyed, kMega>(a, h, r0, r1);
   // element (mask mm, state t) of this block's rows: at0 + mm * HS + t
@@ -420,17 +625,26 @@ __global__ void walk_warp(TableWalk g) {
   }
   // the seed itself may be empty: then the first return is dead
   const bool seeded = __any_sync(kFull, any);
+  if constexpr (kMega && kShared) mega_wait(smem);
   int dead = seeded || !a.dead || r0 >= r1 ? -1 : r0;
   // kLock: the next checkpoint, and the returns before it (a countdown:
   // a remainder by the runtime B a return costs about a tenth of K1)
   float* ck = kLock ? a.ckpt + at0 + m * HS : nullptr;
   int ck_left = 0;
 
+  int kc = -1;  // K10: return r's staged row, counted (no remainder)
   for (int r = r0; r < r1 && dead < 0; ++r) {
-    const int k = (r - r0) % kChunk;
-    if (k == 0) {
+    int k;
+    if constexpr (kMega)
+      k = ++kc == g.mega.chunk ? (kc = 0) : kc;
+    else
+      k = (r - r0) % kChunk;
+    if (k == 0 && (!kMega || r > r0)) {  // K10's first chunk: mega_begin
       __syncwarp();
-      stage(a, h, r, r1, js_s, ops_s);
+      if constexpr (kMega)
+        mega_stage<kShared>(g, ms, r, r1);
+      else
+        stage(a, h, r, r1, js_s, ops_s);
       __syncwarp();
     }
     if constexpr (kLock) {
@@ -498,8 +712,9 @@ __global__ void walk_warp(TableWalk g) {
     return;
   }
   if (a.dead && m == 0) a.dead[0] = dead < g.rlim ? dead : -1;
-  // the final set through the stream's chunk (32·NT <= 256 words of at
-  // least 2·kChunk), then written a row at a time
+  // the final set through the stream's staging (32·NT <= 256 words of
+  // at least 2·kChunk; K10's stage_w holds 32·NT), then written a row at
+  // a time
   uint32_t* fin = (uint32_t*)js_s;
   __syncwarp();
 #pragma unroll
@@ -592,15 +807,31 @@ __global__ void walk_block(TableWalk g) {
                     !(kMega && (kKeyed || kLock)),
                 "form");
   extern __shared__ uint32_t smem[];
-  if constexpr (kMega) mega_lane(g);
   const Walk& a = g.a;
   const int NW = KT > 0 ? 1 : g.NW;
   const int W = a.W, S = a.S, M = 1 << W, MW = M * NW;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const uint32_t* T = tables<kShared>(g, smem);
-  uint32_t* Rw = smem + (kShared ? (size_t)a.O1 * g.K * 16 * g.NT : 0);
-  int* js_s = (int*)(Rw + 2 * MW);  // [kChunk]
-  int* ops_s = js_s + kChunk;       // [kChunk][W]
+  MegaSmem ms;
+  const uint32_t* T;
+  uint32_t* Rw;
+  int* js_s;   // [chunk]
+  int* ops_s;  // [chunk][W]
+  if constexpr (kMega) {
+    ms = mega_begin<kShared, false>(g, smem, 2 * (size_t)MW);
+    if (ms.bad) {
+      if (tid == 0) *a.dead = kMegaBad;
+      return;
+    }
+    T = ms.T;
+    Rw = ms.Rw;
+    js_s = ms.js;
+    ops_s = ms.ops;
+  } else {
+    T = tables<kShared>(g, smem);
+    Rw = smem + (kShared ? (size_t)a.O1 * g.K * 16 * g.NT : 0);
+    js_s = (int*)(Rw + 2 * MW);
+    ops_s = js_s + kChunk;
+  }
   int h, r0, r1;
   bounds<kKeyed, kMega>(a, h, r0, r1);
   const size_t HS = (size_t)a.H * S;  // as in walk_warp
@@ -619,15 +850,24 @@ __global__ void walk_block(TableWalk g) {
   }
   // the seed itself may be empty: then the first return is dead
   int dead = __syncthreads_or(any) || !a.dead || r0 >= r1 ? -1 : r0;
+  if constexpr (kMega && kShared) mega_wait(smem);
   float* ck = kLock ? a.ckpt + at0 : nullptr;  // as in walk_warp
   int ck_left = 0;
 
   int cur = 0;
+  int kc = -1;  // as in walk_warp
   for (int r = r0; r < r1 && dead < 0; ++r) {
-    const int k = (r - r0) % kChunk;
-    if (k == 0) {
+    int k;
+    if constexpr (kMega)
+      k = ++kc == g.mega.chunk ? (kc = 0) : kc;
+    else
+      k = (r - r0) % kChunk;
+    if (k == 0 && (!kMega || r > r0)) {  // K10's first chunk: mega_begin
       __syncthreads();
-      stage(a, h, r, r1, js_s, ops_s);
+      if constexpr (kMega)
+        mega_stage<kShared>(g, ms, r, r1);
+      else
+        stage(a, h, r, r1, js_s, ops_s);
       __syncthreads();
     }
     if constexpr (kLock) {
@@ -751,28 +991,24 @@ TableKernel table_kernel(int S, bool warp) {
 // walks on `stream` in the given form, each block copying the tables
 // into its shared memory when they fit there. Returns the CUDA error of
 // the launches (0 when both were accepted). kNarrow as in table_kernel.
-// kMega (K10): no pack_tables launch and no T: each block walks its lane
-// of g.lanes on that lane's tables, built when its carry was seeded.
-template <bool kKeyed, bool kLock, bool kNarrow = kLock, bool kMega = false>
+// K10 launches its own instances (mega_walk.cu).
+template <bool kKeyed, bool kLock, bool kNarrow = kLock>
 int launch_tabled(TableWalk g, uint32_t* T, dim3 grid, bool warp,
                   void* stream) {
   const Walk& a = g.a;
-  if (kMega ? g.lanes == nullptr : T == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (T == nullptr) return (int)cudaErrorInvalidValue;
   g.T = T;
   g.NW = n_words(a.S);
   g.K = n_nibbles(a.S);
   g.NT = table_words(a.S);
   const size_t smem = walk_smem(a.W, a.S, a.O1, warp);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  if constexpr (!kMega) {
-    const int err_t = launch_tables(a.P, T, a.O1, a.S, stream);
-    if (err_t != 0) return err_t;
-  }
+  const int err_t = launch_tables(a.P, T, a.O1, a.S, stream);
+  if (err_t != 0) return err_t;
   const TableKernel kernel =
       t_shared(a.W, a.S, a.O1, warp)
-          ? table_kernel<true, kKeyed, kLock, kNarrow, kMega>(a.S, warp)
-          : table_kernel<false, kKeyed, kLock, kNarrow, kMega>(a.S, warp);
+          ? table_kernel<true, kKeyed, kLock, kNarrow>(a.S, warp)
+          : table_kernel<false, kKeyed, kLock, kNarrow>(a.S, warp);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -10,6 +10,9 @@ and L = 1, 2 and 37. Also the geometry key (the op bucket equals the
 reference's), the identity steps of the padding, the launch/collect
 split, and the wrapper's refusal of a device it does not take.
 """
+import contextlib
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -35,9 +38,35 @@ GEOMS = [("cas", {}, "reach-lane"),
          ("wide cas", dict(values=40), "reach-pallas")]
 
 
+@contextlib.contextmanager
+def _cold_reference_memo():
+    """The reference's memo built from a cold cache. Its ``_cached_memo``
+    first projects from the superset seeds that any earlier
+    ``check_many`` in the process left (the same table up to the
+    states' numbering), and its disk tier may hold an earlier build;
+    the port always builds afresh. So both caches are emptied under
+    their lock, persistence is off, and both dicts are restored after:
+    no other test sees a change."""
+    with reach_ref._MEMO_CACHE_LOCK:
+        saved = (dict(reach_ref._MEMO_CACHE),
+                 dict(reach_ref._SUPERSET_SEEDS))
+        reach_ref._MEMO_CACHE.clear()
+        reach_ref._SUPERSET_SEEDS.clear()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("JEPSEN_TPU_NO_PERSIST", "1")
+            yield
+    finally:
+        with reach_ref._MEMO_CACHE_LOCK:
+            for live, old in zip((reach_ref._MEMO_CACHE,
+                                  reach_ref._SUPERSET_SEEDS), saved):
+                live.clear()
+                live.update(old)
+
+
 def _stream(kw, seed, n_ops, corrupt=False, crash_p=0.0):
     """One history in both packages, its port prep and return stream,
-    and the reference's memo (the same table)."""
+    and the reference's memo (the same table, from a cold cache)."""
     hists = []
     for fx in (fx_pt, fx_ref):
         h = fx.gen_history("cas", n_ops=n_ops, processes=5, seed=seed,
@@ -46,9 +75,10 @@ def _stream(kw, seed, n_ops, corrupt=False, crash_p=0.0):
     memo_p, stream_p, _T, _S, M = reach_pt._prep(
         m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
         max_slots=20, max_dense=1 << 22)
-    memo_r, _s, _T, _S, M_r = reach_ref._prep(
-        fx_ref.model_for("cas"), h_ref.pack(hists[1]), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
+    with _cold_reference_memo():
+        memo_r, _s, _T, _S, M_r = reach_ref._prep(
+            fx_ref.model_for("cas"), h_ref.pack(hists[1]),
+            max_states=100_000, max_slots=20, max_dense=1 << 22)
     assert (memo_p.table == memo_r.table).all() and M == M_r
     return memo_p, memo_r, ev_pt.returns_view(stream_p), M
 
@@ -141,10 +171,11 @@ def test_mega_walk_plain_against_solo_and_reference(label, kw, engine, L):
 
 
 def test_padding_is_identity_and_deaths_stay_in_their_lane():
-    """Direct operands: one lane walks 3 returns padded to 40 with
-    identity steps and keeps its set; a lane dying at its last real
-    return reports that index, never one from the padding; a lane with
-    no returns reports -1 and keeps its seed; an empty seed dies at 0."""
+    """Direct operands: one lane walks 3 returns in a wave padded to 40
+    and more and keeps its set; a lane dying at its last real return
+    reports that index, never one from the padding; a lane with no
+    returns reports -1 and keeps its seed; an empty seed dies at 0. Each
+    final set lands in its lane's out buffer, the sets untouched."""
     memo_p, _r, rs, M = _stream({}, seed=7, n_ops=200, corrupt=True)
     W = M.bit_length() - 1
     carry = reach_pt.FrontierCarry(memo_p, W, _seed(memo_p, M), device="cpu")
@@ -152,23 +183,23 @@ def test_padding_is_identity_and_deaths_stay_in_their_lane():
     dead_at = probe.advance(rs.ret_slot, rs.slot_ops)
     assert dead_at > 0
     n = [3, dead_at + 1, 0, 2]
-    R_pad = 40 + dead_at
-    ret = np.full((4, R_pad), -1, np.int32)
-    ops = np.full((4, R_pad, W), -1, np.int32)
-    for i, k in enumerate(n):
-        ret[i, :k] = rs.ret_slot[:k]
-        ops[i, :k] = rs.slot_ops[:k]
     R0 = [carry._R.clone() for _ in range(4)]
     R0[3] = torch.zeros_like(R0[3])
-    final, dead = rw_pt.mega_walk(
-        [carry._P] * 4, [carry._T] * 4, R0, torch.as_tensor(ret),
-        torch.as_tensor(ops), n, narrow=True)
+    lanes = [rw_pt.MegaLane(carry._P, carry._T, r, memo_p.n_ops, True)
+             for r in R0]
+    blocks = [(rs.ret_slot[:k], rs.slot_ops[:k]) for k in n]
+    stage = rw_pt.stage_blocks([ln.packed for ln in lanes], blocks, W)
+    ret, _ops = stage.padded()
+    assert ret.shape == (4, dead_at + 1) and (ret[0, 3:] == -1).all()
+    dead = rw_pt.mega_walk(lanes, stage, narrow=True)
     assert dead.tolist() == [-1, dead_at, -1, 0]
     solo = reach_pt.FrontierCarry(memo_p, W, _seed(memo_p, M), device="cpu")
     assert solo.advance(rs.ret_slot[:3], rs.slot_ops[:3]) == -1
-    assert torch.equal(final[0], solo._R)
-    assert not final[1].any() and not final[3].any()
-    assert torch.equal(final[2], R0[2])
+    assert torch.equal(lanes[0].out, solo._R)
+    assert not lanes[1].out.any() and not lanes[3].out.any()
+    assert torch.equal(lanes[2].out, R0[2])
+    assert all(ln.R is r for ln, r in zip(lanes, R0))
+    assert torch.equal(R0[0], carry._R)
 
 
 def test_geometry_key_is_the_reference_op_bucket():
@@ -225,11 +256,169 @@ def test_launch_collect_split_and_counts():
 
 
 def test_wrapper_refuses_other_devices():
+    """``mega_walk`` on lanes whose tensors lie on neither the CPU nor the
+    card raises ValueError (the meta device)."""
     memo_p, _r, rs, M = _stream({}, seed=2, n_ops=40)
     W = M.bit_length() - 1
     carry = reach_pt.FrontierCarry(memo_p, W, _seed(memo_p, M), device="cpu")
-    ret = torch.zeros((1, 1), dtype=torch.int32, device="meta")
-    ops = torch.zeros((1, 1, W), dtype=torch.int32, device="meta")
+    meta = [t.to("meta") for t in (carry._P, carry._T, carry._R)]
+    lane = rw_pt.MegaLane(*meta, memo_p.n_ops, True)
+    stage = rw_pt.stage_blocks([lane.packed], [(rs.ret_slot[:1],
+                                              rs.slot_ops[:1])], W)
     with pytest.raises(ValueError, match="unsupported device"):
-        rw_pt.mega_walk([carry._P], [carry._T], [carry._R], ret, ops, [1],
-                        narrow=True)
+        rw_pt.mega_walk([lane], stage, narrow=True)
+
+
+def _union_seeded(n=8):
+    """Seed the reference's superset memo as its ``check_many`` does,
+    over ``n`` packed cas histories; returns a snapshot of the seeds."""
+    packed = [h_ref.pack(fx_ref.gen_history("cas", n_ops=300, processes=5,
+                                            seed=40 + s)) for s in range(n)]
+    reach_ref._seed_union_memo(fx_ref.model_for("cas"), packed, 100_000)
+    assert reach_ref._SUPERSET_SEEDS
+    return dict(reach_ref._SUPERSET_SEEDS)
+
+
+# histories whose reference table the seeded union memo numbers
+# differently from a fresh build
+@pytest.mark.parametrize("seed,n_ops", [(2, 40), (5, 30)])
+def test_stream_tables_equal_after_a_union_memo_was_seeded(seed, n_ops):
+    """The reference's union memo seeded in this process first (as any
+    earlier ``check_many`` on the worker leaves it): ``_stream`` still
+    finds both packages' tables equal element for element, and the
+    reference's seed dict after it is exactly as it was."""
+    with _cold_reference_memo():        # this test's own seeds go after
+        seeds = _union_seeded()
+        memo_p, memo_r, _rs, _M = _stream({}, seed=seed, n_ops=n_ops)
+        assert reach_ref._SUPERSET_SEEDS == seeds
+        assert all(reach_ref._SUPERSET_SEEDS[k] is v
+                   for k, v in seeds.items())
+    np.testing.assert_array_equal(memo_p.table, memo_r.table)
+
+
+# -- K10's host side: the lane handles and the staging -------------------------
+
+def _per_lane_fill(blocks, W):
+    """The padded stream built a lane at a time, as a straightforward
+    reading of the layout."""
+    L = len(blocks)
+    lens = [len(rs) for rs, _ in blocks]
+    R_pad = max(lens) if lens else 0
+    rs = np.full((L, R_pad), -1, np.int32)
+    so = np.full((L, R_pad, W), -1, np.int32)
+    for i, (b_rs, b_so) in enumerate(blocks):
+        rs[i, :lens[i]] = b_rs
+        so[i, :lens[i]] = np.asarray(b_so).reshape(lens[i], W)
+    return rs, so
+
+
+@pytest.mark.parametrize("L", [1, 2, 37])
+def test_staging_equals_the_per_lane_fill(L):
+    """The staged wave (descriptors, offsets and the ragged stream in one
+    buffer) expands to exactly the padded layout a lane-at-a-time fill
+    makes, on blocks of 0 to R_pad returns; its counts, offsets, rows and
+    the shared slices' cap follow from the lanes."""
+    rng = np.random.RandomState(L)
+    W, R_pad = 3, 23
+    lens = rng.randint(0, R_pad + 1, L)
+    lens[rng.randint(L)] = R_pad
+    if L > 1:
+        lens[rng.randint(L)] = 0
+    blocks = [(rng.randint(-1, W, n).astype(np.int32),
+               rng.randint(-1, 20, (n, W)).astype(np.int32)) for n in lens]
+    rows = [(8 * i, 8 * i + 1, 8 * i + 2, 5 + i % 7, 99) for i in range(L)]
+    st = rw_pt.stage_blocks([struct.pack("<5q", *r) for r in rows], blocks,
+                            W)
+    want_rs, want_so = _per_lane_fill(blocks, W)
+    got_rs, got_so = st.padded()
+    np.testing.assert_array_equal(got_rs, want_rs)
+    np.testing.assert_array_equal(got_so, want_so)
+    assert st.R_pad == R_pad and st.n.tolist() == lens.tolist()
+    assert st.off.tolist() == [0] + np.cumsum(lens).tolist()
+    np.testing.assert_array_equal(st.desc, np.array(rows, np.int64))
+    assert st.cap == max(min(r[3], W * n) for r, n in zip(rows, lens))
+    np.testing.assert_array_equal(
+        st.ret, np.concatenate([b[0] for b in blocks]))
+
+
+def test_lane_handle_refuses_bad_operands():
+    """A lane handle checks its operands once, when it is made or its set
+    is rebound: device, type, shape and contiguity; its row holds the
+    three addresses, and ``swap`` exchanges set and out."""
+    memo_p, _r, _rs, M = _stream({}, seed=3, n_ops=120)
+    W = M.bit_length() - 1
+    c = reach_pt.FrontierCarry(memo_p, W, _seed(memo_p, M), device="cpu")
+    P, T, R = c._P, c._T, c._R
+    mk = lambda *a: rw_pt.MegaLane(*a, memo_p.n_ops, True)  # noqa: E731
+    with pytest.raises(ValueError):
+        mk(P, T, R.to("meta"))                       # another device
+    with pytest.raises(ValueError):
+        mk(P, T.to(torch.int64), R)                  # type
+    with pytest.raises(ValueError):
+        mk(P, T, R.double())
+    with pytest.raises(ValueError):
+        mk(P, T[:-1], R)                             # shape
+    with pytest.raises(ValueError):
+        mk(P, T, R[:-1])
+    with pytest.raises(ValueError):
+        mk(P, T, torch.zeros(R.shape[1], R.shape[0]).T)   # contiguity
+    with pytest.raises(ValueError):
+        rw_pt.MegaLane(P, T, R, P.shape[0], True)    # the sentinel row
+    lane = mk(P, T, R)
+    assert lane.row[:3] == (T.data_ptr(), R.data_ptr(), lane.out.data_ptr())
+    assert lane.packed == struct.pack("<5q", *lane.row)
+    with pytest.raises(ValueError):
+        lane.rebind(torch.zeros((M // 2, R.shape[1])))
+    lane.swap()
+    assert lane.R is not R and lane.out is R
+    assert lane.row[1:3] == (lane.R.data_ptr(), R.data_ptr())
+    assert lane.packed == struct.pack("<5q", *lane.row)
+    with pytest.raises(ValueError, match="int32"):   # int64 blocks
+        rw_pt.stage_blocks([lane.packed], [(np.zeros(3, np.int64),
+                                            np.zeros((3, W), np.int32))], W)
+
+
+def test_solo_advance_between_waves_is_walked_from_its_new_set():
+    """A carry advanced alone between two group advances (its set
+    replaced, its lane rebound) is walked by the next wave from that new
+    set: every lane's dead returns, set and count equal a carry advanced
+    alone through the same blocks, and the reference's."""
+    memo_p, memo_r, rs, M = _stream({}, seed=12, n_ops=400)
+    W = M.bit_length() - 1
+    rng = np.random.RandomState(5)
+    members = []
+    for i in range(3):
+        R0 = _seed(memo_p, M)
+        if i == 2:
+            R0 |= rng.random_sample(R0.shape) < 0.05
+        members.append((reach_pt.FrontierCarry(memo_p, W, R0, device="cpu"),
+                        reach_pt.FrontierCarry(memo_p, W, R0, device="cpu"),
+                        _ref_carry(memo_r, W, M, R0),
+                        _cuts(rs.n_returns, rng, 3)))
+
+    def blk(m, w):
+        lo, hi = m[3][w]
+        return rs.ret_slot[lo:hi], rs.slot_ops[lo:hi]
+
+    def wave(ms, w):
+        d = rw_pt.advance_frontiers_mega([m[0] for m in ms],
+                                         [blk(m, w) for m in ms])
+        for m, dm in zip(ms, d):
+            assert dm == m[1].advance(*blk(m, w)) == m[2].advance(*blk(m, w))
+            ln = m[0].lane                       # the row K10 reads
+            assert ln.row[1:3] == (m[0]._R.data_ptr(), ln.out.data_ptr())
+
+    wave(members, 0)
+    moved = members[1]
+    before = moved[0].lane.row
+    assert moved[0].advance(*blk(moved, 1)) == \
+        moved[1].advance(*blk(moved, 1)) == moved[2].advance(*blk(moved, 1))
+    assert moved[0].lane.row[1] != before[1]     # the lane was rebound
+    assert moved[0].lane.row[1] == moved[0]._R.data_ptr()
+    wave([m for m in members if m is not moved], 1)
+    wave(members, 2)
+    for m in members:
+        assert m[0].advanced_returns == m[1].advanced_returns \
+            == m[2].advanced_returns
+        assert torch.equal(m[0]._R, m[1]._R)
+        np.testing.assert_array_equal(m[0].fetch(), m[2].fetch())

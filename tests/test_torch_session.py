@@ -11,6 +11,8 @@ N, k axes of 1-256 words); the word update against the reference's
 ``_inc_word_call`` at dirty widths 8-128, and with ``torch.bmm``
 raising and no float tensor made.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -57,6 +59,52 @@ def _ragged_blocks(hist, seed: int, n_cuts: int = 4):
 
 # -- the carried frontier --------------------------------------------------
 
+@contextlib.contextmanager
+def _cold_reference_memo():
+    """The reference's memo built from a cold cache. Its ``_cached_memo``
+    first projects from the superset seeds that any earlier
+    ``check_many`` in the process left (the same table up to the
+    states' numbering), and its disk tier may hold an earlier build;
+    the port always builds afresh. So both caches are emptied under
+    their lock, persistence is off, and both dicts are restored after:
+    no other test sees a change."""
+    with reach_ref._MEMO_CACHE_LOCK:
+        saved = (dict(reach_ref._MEMO_CACHE),
+                 dict(reach_ref._SUPERSET_SEEDS))
+        reach_ref._MEMO_CACHE.clear()
+        reach_ref._SUPERSET_SEEDS.clear()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("JEPSEN_TPU_NO_PERSIST", "1")
+            yield
+    finally:
+        with reach_ref._MEMO_CACHE_LOCK:
+            for live, old in zip((reach_ref._MEMO_CACHE,
+                                  reach_ref._SUPERSET_SEEDS), saved):
+                live.clear()
+                live.update(old)
+
+
+def _carry_memos(kw, seed, n_ops, corrupt):
+    """One cas history in both packages: the port's memo and return
+    stream, and the reference's memo from a cold cache (the same
+    table)."""
+    hists = []
+    for fx in (fx_pt, fx_ref):
+        h = fx.gen_history("cas", n_ops=n_ops, processes=5, seed=seed,
+                           **kw)
+        hists.append(fx.corrupt(h, seed=seed) if corrupt else h)
+    memo_p, stream_p, _T, _S, M = reach_pt._prep(
+        m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
+        max_slots=20, max_dense=1 << 22)
+    with _cold_reference_memo():
+        memo_r, _s, _T, _S, M_r = reach_ref._prep(
+            fx_ref.model_for("cas"), h_ref.pack(hists[1]),
+            max_states=100_000, max_slots=20, max_dense=1 << 22)
+    assert (memo_p.table == memo_r.table).all() and M == M_r
+    return memo_p, memo_r, ev_pt.returns_view(stream_p), M
+
+
 CARRY_CASES = [("cas", {}, "reach-lane"),
                ("wide cas", dict(values=40), "reach-pallas"),
                ("cas", {}, "reach")]
@@ -75,18 +123,7 @@ def test_frontier_carry_against_reference(label, kw, engine, corrupt,
         monkeypatch.setattr(rl_pt, "lane_fits", lambda *a: False)
         monkeypatch.setattr(rp_pt, "fits", lambda *a: False)
     n_ops = 500 if engine == "reach-pallas" else 1200
-    hists = []
-    for fx in (fx_pt, fx_ref):
-        h = fx.gen_history("cas", n_ops=n_ops, processes=5, seed=3, **kw)
-        hists.append(fx.corrupt(h, seed=3) if corrupt else h)
-    memo_p, stream_p, _T, _S, M = reach_pt._prep(
-        m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
-    memo_r, stream_r, _T, _S, M_r = reach_ref._prep(
-        fx_ref.model_for("cas"), h_ref.pack(hists[1]), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
-    assert (memo_p.table == memo_r.table).all() and M == M_r
-    rs = ev_pt.returns_view(stream_p)
+    memo_p, memo_r, rs, M = _carry_memos(kw, 3, n_ops, corrupt)
     W = M.bit_length() - 1
     S = memo_p.n_states
     R0 = np.zeros((S, M), bool)
@@ -113,6 +150,39 @@ def test_frontier_carry_against_reference(label, kw, engine, corrupt,
             break
         np.testing.assert_array_equal(carry.fetch(), ref.fetch())
     assert dead_seen == corrupt
+
+
+# histories whose reference table a seeded union memo numbers
+# differently from a fresh build
+@pytest.mark.parametrize("seed,n_ops", [(2, 40), (5, 30)])
+def test_carry_memos_equal_after_a_union_memo_was_seeded(seed, n_ops):
+    """The reference's union memo seeded in this process first (as any
+    earlier ``check_many`` on the worker leaves it): ``_carry_memos``
+    still finds both packages' tables equal element for element, the
+    reference's seed dict after it is exactly as it was, and a carry
+    of each package walks the history to the same sets."""
+    packed = [h_ref.pack(fx_ref.gen_history("cas", n_ops=300, processes=5,
+                                            seed=40 + s)) for s in range(8)]
+    with _cold_reference_memo():        # this test's own seeds go after
+        reach_ref._seed_union_memo(fx_ref.model_for("cas"), packed,
+                                   100_000)
+        seeds = dict(reach_ref._SUPERSET_SEEDS)
+        assert seeds
+        memo_p, memo_r, rs, M = _carry_memos({}, seed, n_ops, False)
+        assert reach_ref._SUPERSET_SEEDS == seeds
+        assert all(reach_ref._SUPERSET_SEEDS[k] is v
+                   for k, v in seeds.items())
+    np.testing.assert_array_equal(memo_p.table, memo_r.table)
+    W, S = M.bit_length() - 1, memo_p.n_states
+    R0 = np.zeros((S, M), bool)
+    R0[0, 0] = True
+    carry = reach_pt.FrontierCarry(memo_p, W, R0, device="cpu")
+    ref = reach_ref.FrontierCarry(
+        None, W, M, R0, table=memo_r.table,
+        p_build=lambda: reach_ref._build_P(memo_r, S))
+    assert carry.advance(rs.ret_slot, rs.slot_ops) == \
+        ref.advance(rs.ret_slot, rs.slot_ops)
+    np.testing.assert_array_equal(carry.fetch(), ref.fetch())
 
 
 @pytest.mark.parametrize("seed,crash_p,corrupt",
