@@ -3,12 +3,19 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --serve 256     # the daemon's phase alone
     python3 chip_smoke.py --sessions      # K10 and the sessions alone
+    python3 chip_smoke.py --harnesses     # loadgen, chaos, soak, disk tier
+    python3 chip_smoke.py --kernel-phases # the kernels against their plain
+                                          # versions alone
 
 With ``--serve N`` it builds the kernels and runs only ``phase_serve``,
 with N cas requests (and ``min(N, 64)`` again at ``pipeline_k`` 1 and
 4): the daemon's measurement at a traffic the full run has no time for.
 With ``--sessions`` it builds them and runs only :func:`phase_k10` and
-:func:`phase_sessions`.
+:func:`phase_sessions`. With ``--kernel-phases`` it stops after the
+kernels' checks against their plain versions (their time, with the disk
+memo tier on, or off under the persistence switch in the environment).
+Every mode points the disk memo tier at one fresh directory
+(:func:`use_fresh_memo_cache`).
 
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
@@ -163,12 +170,25 @@ user's entry points and checks the results:
   and 2 txn ones, 8 appends each, the daemon dropped and started again
   halfway (the journal's replay), every close and first violation
   against the standalone check, K10's device time a wave, appends a
-  second, and the results browser's ``/`` and ``/engine``.
+  second, and the results browser's ``/`` and ``/engine``;
+- the daemon's harnesses (:func:`phase_harnesses`): ``tools.loadgen`` at
+  its defaults (20 requests/s for 20 s, cas of 32-400 ops, 4 tenants,
+  a quarter invalid) with 4 streaming sessions, self-hosted in process
+  (the tool's exit rule; K2 and K1 launched from inside the daemon;
+  K10's launches and the mega waves), ``--mixed-consistency --quick``
+  (K8 from the daemon); ``tools.chaos --quick`` and ``--fleet --quick``
+  as processes (exit 0: every invariant across a SIGKILL and a lease
+  failover); ``tools.soak``'s register, mutex-leases and lossy-queue
+  configs (the correct one valid, each buggy one caught within 3
+  rounds); the disk memo tier (a corrupted cas-30k from a memo read
+  back from disk, its verdict, dead event and witness unchanged). The
+  disk memo tier is on in every phase, in a directory fresh to the run
+  (``JEPSEN_TPU_CACHE_DIR``).
 
 Depths cut to make room (``PERF.md`` section 4): K1's plain version on
 the first :data:`K1_PLAIN_RETURNS` returns of cas-30k (K1 also timed on
 all of them), no CPU run at the long keys, the wide CPU run at
-:data:`WIDE_CPU_OPS` ops, no CPU run of the chain's three valid checks
+:data:`WIDE_CPU_OPS` ops, no CPU run of the chain's four valid checks
 whose corrupted twins take the same walk on the CPU; the command lines
 started in batches; no CPU run of a corrupted cas-48k; the runner's runs
 at :data:`RUN_TIME_LIMIT` and the suites' at :data:`SUITE_TIME_LIMIT`
@@ -227,7 +247,7 @@ ONE_KEY_OPS = 30_000
 BATCH_N = 32
 # the corrupted wide (40-value) history the CPU run holds K4's answer
 # against; the card also checks the corrupted wide cas-100k alone
-WIDE_CPU_OPS = 30_000
+WIDE_CPU_OPS = 15_000
 SMALL_BATCH_N, SMALL_BATCH_BAD = 8, (2, 5)
 
 
@@ -507,16 +527,17 @@ def same(label: str, got, want):
 # many-op alphabet at 32 states whose tables stay in device memory (its
 # first 4,096 returns: the plain version takes about 1 ms a return)
 # the first geometry's plain version runs on its first K1_PLAIN_RETURNS
-# returns (PERF.md section 4's cuts); K1 is timed on the whole stream too
-K1_PLAIN_RETURNS = 4_096
+# returns, W = 7's on its first 1,024 (PERF.md section 4's cuts); K1 is
+# timed on the whole stream too
+K1_PLAIN_RETURNS = 2_048
 GEOMS = [
     ("sub-floor cas-30k", "cas", 30_000, 5, 0, 1024, False, {},
      K1_PLAIN_RETURNS),
-    ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False, {}, None),
+    ("W=7 multi-block", "cas", 4_000, 7, 1, 64, False, {}, 1_024),
     ("W=10 capped ladder", "cas", 1_000, 11, 0, 64, True, {}, None),
     ("corrupted cas-4k", "cas", 4_000, 5, 3, 256, True, {}, None),
     ("S=32 many ops, tables in device memory", "cas", 60_000, 5, 0, 1024,
-     False, dict(values=31), 4096),
+     False, dict(values=31), 2048),
 ]
 
 
@@ -980,7 +1001,7 @@ WIDE_MULTI = dict(values=3, keys=3)
 # K4 against its plain version on the first returns of the multi-register
 # histories (a plain walk's time grows with its returns)
 WIDE_MULTI_RETURNS, WIDE_W7_RETURNS = 5_000, 2_000
-WIDE_RETURNS = 5_000           # K4 against its plain version on this
+WIDE_RETURNS = 2_500           # K4 against its plain version on this
                                # prefix
 TORCH_RETURNS = 2_000          # and the torch returns walk on this one
 
@@ -1760,14 +1781,15 @@ def phase_chain():
                              cpu=cpu)
         if res["walk"] != "sparse-live":
             raise AssertionError(f"{label}: walk {res['walk']}")
-    # multi-register: the per-key decomposition on the keyed lanes
+    # multi-register: the per-key decomposition on the keyed lanes (the
+    # valid one held against the CPU by its corrupted twin's)
     multi8 = gen("multi", 20_000, 5, 3, keys=8, values=5)
     for label, h, valid in (("8 keys x 5 values", multi8, True),
                             ("corrupted 8 keys x 5 values",
                              fixtures.corrupt(multi8, seed=3), False)):
         res, _ = chain_check(f"multi-register-20000 {label}",
                              lin(models.multi_register(), h), valid,
-                             "decompose", batch_walk=None)
+                             "decompose", cpu=not valid, batch_walk=None)
     tx = history.index(tx_history(ops))
     res, la = chain_check("transactional x/y, 30 values, max_states 300",
                           lin(models.multi_register({"x": 0, "y": 0}), tx,
@@ -2449,7 +2471,7 @@ def phase_cli():
 # -- the test runner (python -m jepsen_tpu_torch run) -----------------------
 
 # the README's command: 5 nodes, concurrency 5, the partition nemesis
-RUN_TIME_LIMIT, RUN_SEED = 4.0, 7
+RUN_TIME_LIMIT, RUN_SEED = 2.0, 7
 RUN_SPANS = ("run.setup", "run.workers", "run.teardown", "run.check",
              "run.store")
 RUN_FILES = ("test.json", "results.json", "results.edn", "history.jsonl",
@@ -2655,7 +2677,7 @@ def phase_run():
 
 # each suite at its builder's defaults (5 nodes, concurrency 5, its own
 # nemesis, SUITE_TIME_LIMIT seconds), seed RUN_SEED
-SUITE_TIME_LIMIT = 4.0
+SUITE_TIME_LIMIT = 2.0
 # the sub-checkers that judge the system (the others draw and count)
 SUITE_VERDICTS = ("linear", "set", "counter", "queue", "total-queue", "txn")
 SUITE_TXN_KEYS = ("valid", "anomalies", "edge-counts", "txns")
@@ -3502,28 +3524,46 @@ def carry_feed(eng, hist, times):
     return v
 
 
+def host_carry(kw, n_ops, corrupt):
+    """A worker task for the wide carry cases, whose host feed is as long
+    as the card's: :func:`host_feed` of the case's history."""
+    return host_feed(gen("cas", n_ops, 5, 0, corrupt=corrupt, **kw))
+
+
+def host_feed(h):
+    """``NativeStreamEngine`` fed ``h`` in :func:`carry_feed`'s blocks:
+    ``(violation, settled returns, final set, advance seconds, feed
+    seconds)``."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checkers import online
+
+    host = online.NativeStreamEngine(models.cas_register())
+    t_host = []
+    t0 = time.perf_counter()
+    vh = carry_feed(host, h, t_host)
+    return vh, host.settled_returns, host.R, t_host, time.perf_counter() - t0
+
+
 def phase_carry():
     """The register family's streaming session on the card:
     ``DeviceFrontierEngine`` (the carried frontier on K1 at cas-100k, on
     K4 at wide cas-60k, each with its corrupted twin) against
-    ``NativeStreamEngine``'s host walk on the same blocks: violation,
+    ``NativeStreamEngine``'s host walk on the same blocks (the wide
+    cases' in worker processes while the card's feeds run): violation,
     ``settled-returns``, and the final carried set against the host's.
     Returns the readings by case."""
     from jepsen_tpu_torch import models
-    from jepsen_tpu_torch.checkers import online
     from jepsen_tpu_torch.serve import session
 
     t_phase = time.perf_counter()
     out = {}
+    wide = {(label, corrupt): pool().submit(host_carry, kw, n_ops, corrupt)
+            for label, kw, kernel, n_ops in CARRY_CASES
+            if kernel == "wide_walk" for corrupt in (False, True)}
     for label, kw, kernel, n_ops in CARRY_CASES:
         for corrupt in (False, True):
             name = f"{'corrupted ' if corrupt else ''}{label}"
             h = gen("cas", n_ops, 5, 0, corrupt=corrupt, **kw)
-            host = online.NativeStreamEngine(models.cas_register())
-            t_host = []
-            t0 = time.perf_counter()
-            vh = carry_feed(host, h, t_host)
-            host_s = time.perf_counter() - t0
             dev = session.DeviceFrontierEngine(models.cas_register())
             t_dev = []
             vd, dt, la, _spans, ledger = drive(
@@ -3533,15 +3573,18 @@ def phase_carry():
             want = "reach-lane" if kernel == "lane_walk" else "reach-pallas"
             if routes != {want}:
                 raise AssertionError(f"carry {name}: routes {routes}")
+            fut = wide.get((label, corrupt))
+            vh, settled, host_R, t_host, host_s = (
+                fut.result() if fut is not None else host_feed(h))
             expect(f"carry {name}", la, **{kernel: None},
                    **{k: 0 for k in ("lane_walk", "wide_walk", "batch_walk")
                       if k != kernel})
             if (vh is None) == corrupt or vh != vd or \
-                    host.settled_returns != dev.settled_returns:
+                    settled != dev.settled_returns:
                 raise AssertionError(f"carry {name}: host {vh} "
-                                     f"{host.settled_returns}, card {vd} "
+                                     f"{settled}, card {vd} "
                                      f"{dev.settled_returns}")
-            if not corrupt and not np.array_equal(dev.host_set(), host.R):
+            if not corrupt and not np.array_equal(dev.host_set(), host_R):
                 raise AssertionError(f"carry {name}: the final sets differ")
             n = dev.settled_returns
             reseeds = sum(1 for r in ledger if r["stage"] == "frontier-carry")
@@ -4692,11 +4735,290 @@ def phase_sessions(streams):
     log(f"sessions phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the daemon's harnesses: loadgen, chaos, soak; the disk memo tier ---------
+
+# the run's disk memo directory (JEPSEN_TPU_CACHE_DIR), made at its start
+# and removed at its end: no memo of an earlier run warms this one
+MEMO_CACHE_ROOT = None
+# --kernel-phases: main stops after the kernels' checks
+KERNEL_PHASES_ONLY = False
+
+
+def use_fresh_memo_cache():
+    """Point the disk memo tier of this process and of every process it
+    starts at a new empty directory. The tier stays as the environment
+    has it: on, as a user's, unless the persistence switch turns it
+    off."""
+    global MEMO_CACHE_ROOT
+    import tempfile
+
+    MEMO_CACHE_ROOT = tempfile.mkdtemp(prefix="chip-smoke-memo-")
+    os.environ["JEPSEN_TPU_CACHE_DIR"] = MEMO_CACHE_ROOT
+
+# the soak configs phase_suites does not run, each at SUITE_TIME_LIMIT; a
+# correct mode runs one round, a buggy one up to soak's rounds, until one
+# catches it (soak's rule: soak.unexpected, soak.never_caught)
+SOAK_CASES = (("register", "linearizable"), ("register", "sloppy"),
+              ("mutex", "leases"), ("queue", "lossy"))
+# the disk tier's check: a corrupted cas history below chunk-lockstep's
+# floor (K1), its verdict, dead event and witness from a memo read back
+DISK_OPS = 30_000
+DISK_KEYS = ("valid", "engine", "op", "dead-event", "max-linearized",
+             "final-configs", "previous-ok")
+MEMO_COUNTERS = ("memo_cache.hit", "memo_cache.miss", "memo_cache.evict",
+                 "memo_cache.disk.hit", "memo_cache.disk.miss",
+                 "memo_cache.disk.store", "memo_cache.disk.invalid",
+                 "memo_cache.disk.evict")
+
+
+def memo_counters():
+    """This process's memo tiers' counters so far."""
+    from jepsen_tpu_torch import obs
+
+    c = obs.counters()
+    return {k: c[k] for k in MEMO_COUNTERS if c.get(k)}
+
+
+def counter_delta(c0, c1, prefixes):
+    return {k: round(c1.get(k, 0) - c0.get(k, 0), 6)
+            for k in sorted(set(c1) | set(c0))
+            if k.startswith(prefixes) and c1.get(k, 0) != c0.get(k, 0)}
+
+
+def cold_memos():
+    from jepsen_tpu_torch.checkers import reach
+
+    with reach._MEMO_CACHE_LOCK:
+        reach._MEMO_CACHE.clear()
+        reach._SUPERSET_SEEDS.clear()
+        reach._SUPERSET_SEEDS_FAILED.clear()
+
+
+def loadgen_line(label, rep, dt, la, delta):
+    """One loadgen run's reading: both windows, the 429s, the queue-wait
+    and service split, the sessions, the memo tiers, routes and
+    launches."""
+    w = rep["windows"]
+    split_ = rep["stage_split"]
+    sess = rep.get("sessions") or {}
+    mux = sess.get("mux") or {}
+    xc = rep.get("latency_crosscheck") or {}
+    text = (f"loadgen {label}: {rep['completed']} of {rep['submitted']} "
+            f"completed at {rep['target_rate']} req/s offered, sustained "
+            f"{rep['sustained_req_s']} req/s; window 1 {w[0]['req_s']} req/s "
+            f"p50 {w[0]['p50_s']} p99 {w[0]['p99_s']} s; window 2 "
+            f"{w[1]['req_s']} req/s p50 {w[1]['p50_s']} p99 {w[1]['p99_s']} "
+            f"s; 429s {rep['rejected_429']}; queue wait p50 "
+            f"{split_['queue_wait']['p50_s']} p99 "
+            f"{split_['queue_wait']['p99_s']} s, service p50 "
+            f"{split_['service']['p50_s']} p99 {split_['service']['p99_s']} "
+            f"s; cross-check {xc.get('anchor')} ok={xc.get('ok')} "
+            f"{xc.get('p99_gate', '')}; warmup {rep.get('warmup')}; "
+            f"mismatches {rep['verdict_mismatches']}")
+    if sess:
+        text += (f"; sessions {sess['sessions']}: {sess['appends']} appends, "
+                 f"{sess['sustained_appends_s']} appends/s, append p50 "
+                 f"{sess['append_p50_s']} p99 {sess['append_p99_s']} s, "
+                 f"mega waves {mux.get('mega_groups')} over "
+                 f"{mux.get('mega_lanes')} lanes, mux efficiency "
+                 f"{mux.get('mux_efficiency')}, flagged before close "
+                 f"{sess['flagged_before_close']} of "
+                 f"{sess['violating_sessions']}, tenant cap "
+                 f"{sess['tenant_cap_probe']}")
+    memo = {k: v for k, v in delta.items() if k.startswith("memo_cache")}
+    routes = {k[16:]: v for k, v in delta.items()
+              if k.startswith("engine.selected.")}
+    text += (f"; memo tiers {memo}; routes {routes}"
+             f"; staged {delta.get('pipeline.staged', 0)}; launches from the "
+             f"daemon K1 {la['lane_walk']} K2 {la['batch_walk']} K4 "
+             f"{la['wide_walk']} K8 {la['txn_closure']} K10 "
+             f"{la['mega_walk']}; run {dt:.1f} s")
+    log(text)
+
+
+def phase_harnesses():
+    """The daemon's harnesses on the card, each store root fresh:
+    ``tools.loadgen`` at its defaults (no store root)
+    with ``--sessions``, self-hosted in process (the tool's exit rule; K2 and
+    K1 launched from inside the daemon; K10 and the mega waves printed),
+    then ``tools.chaos --quick`` and ``--fleet --quick`` as processes on
+    the card, started together (exit 0, every invariant; the recovery and
+    failover times) while, in process, loadgen ``--mixed-consistency
+    --quick`` runs (K8 from the daemon), then ``tools.soak``'s configs that
+    :func:`phase_suites` does not run (:data:`SOAK_CASES`) run at
+    :data:`SUITE_TIME_LIMIT`, and the disk tier: a corrupted cas-30k
+    checked with a cache directory of its own, the in-memory tiers
+    emptied, checked again from a disk hit with the same verdict, dead
+    event and witness. Everything else shares the run's memo
+    directory."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-harnesses-")
+    procs = []
+    try:
+        harness_body(tmp, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"harnesses phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def disk_tier():
+    """A corrupted cas-30k checked twice, the in-memory tiers emptied
+    before each: the first stores its memo, the second reads it back from
+    disk with the same verdict, dead event and witness."""
+    from jepsen_tpu_torch import obs
+
+    h = gen("cas", DISK_OPS, 5, 0, corrupt=True)
+    runs = []
+    for label in ("cold", "from disk"):
+        cold_memos()
+        c0 = obs.counters()
+        res, dt, la, _spans, _ledger = drive(lambda: linearizable(h))
+        runs.append((res, dt, counter_delta(c0, obs.counters(),
+                                            ("memo_cache",))))
+        log(f"disk tier, corrupted cas-{DISK_OPS // 1000}k {label}: "
+            f"{res['engine']} valid={res['valid']} dead-event="
+            f"{res.get('dead-event')} {dt:.4f} s; {runs[-1][2]}; launches "
+            f"K1 {la['lane_walk']}")
+    if runs[0][2].get("memo_cache.disk.store", 0) < 1 or \
+            runs[1][2].get("memo_cache.disk.hit", 0) < 1:
+        raise AssertionError(f"disk tier: {runs[0][2]} then {runs[1][2]}")
+    same_result("disk tier", runs[1][0], runs[0][0], DISK_KEYS)
+    if runs[0][0]["valid"] is not False:
+        raise AssertionError(f"disk tier: {runs[0][0]}")
+
+
+def harness_body(tmp, procs):
+    import random
+
+    from jepsen_tpu_torch import obs
+    from jepsen_tpu_torch.tools import loadgen, soak
+
+    dev = None if CARD == "cuda" else CARD
+    prefixes = ("memo_cache", "engine.selected.", "pipeline.staged",
+                "serve.session.mega", "serve.device_faults", "serve.errors")
+
+    def run_loadgen(label, opts, **kernels):
+        # the tool's defaults: no store root (no journal, no stored
+        # verdicts)
+        opts = dict(opts, device=dev)
+        cold_memos()
+        c0 = obs.counters()
+        rep, dt, la, _spans, _ledger = drive(
+            lambda: loadgen.run_loadgen(opts))
+        delta = counter_delta(c0, obs.counters(), prefixes)
+        loadgen_line(label, rep, dt, la, delta)
+        if not loadgen.passes(rep) or rep.get("error"):
+            brief = {k: v for k, v in rep.items() if k != "stats"}
+            raise AssertionError(f"loadgen {label}: exit rule failed: "
+                                 f"{json.dumps(brief, default=str)}")
+        if delta.get("serve.device_faults") or delta.get("serve.errors"):
+            raise AssertionError(f"loadgen {label}: {delta}")
+        expect(f"loadgen {label}", la, **kernels)
+
+    # -- loadgen at its defaults, with sessions: alone on the machine ------
+    run_loadgen("defaults with sessions", {"sessions": True},
+                batch_walk=None, lane_walk=None)
+
+    # -- chaos --quick and --fleet --quick, as processes, started together;
+    # the mixed-consistency loadgen, the soak and the disk tier run in
+    # process meanwhile ---------------------------------------------------
+    t0 = time.perf_counter()
+    started = []
+    for name, args in (("chaos", ["--quick"]),
+                       ("fleet", ["--fleet", "--quick"])):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch.tools.chaos", *args,
+             "--store-root", os.path.join(tmp, f"store-{name}")]
+            + ([] if dev is None else ["--device", dev]),
+            cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        started.append((name, proc))
+    run_loadgen("mixed consistency, quick",
+                {"mixed_consistency": True, "quick": True},
+                txn_closure=None)
+
+    # -- soak: the configs phase_suites does not run -----------------------
+    expected = {(s, m): e for s, m, e in soak.CONFIGS}
+    rng = random.Random(RUN_SEED)
+    for suite, mode in SOAK_CASES:
+        want = expected[(suite, mode)]
+        seen = []
+        for rnd in range(1 if want else soak.ROUNDS):
+            seed = rng.randrange(1 << 30)
+            test = soak.build(suite, mode, seed, SUITE_TIME_LIMIT,
+                              device=dev)
+            valid, dt, la, _spans, _ledger = drive(
+                lambda: soak.run_once(test))
+            seen.append(valid)
+            log(f"soak {suite} {mode} round {rnd + 1} (seed {seed}): "
+                f"valid={valid} wall {dt:.2f} s; "
+                f"launches { {k: v for k, v in la.items() if v} }")
+            if soak.unexpected(want, valid):
+                raise AssertionError(f"soak {suite} {mode}: expected "
+                                     f"{want}, saw {valid}")
+            if suite in ("register", "mutex"):
+                expect(f"soak {suite} {mode}", la, lane_walk=None)
+            if valid is False:
+                break
+        if soak.never_caught(want, seen):
+            raise AssertionError(f"soak {suite} {mode}: never caught in "
+                                 f"{seen}")
+
+    # -- the disk tier, in a cache directory of its own --------------------
+    run_cache = os.environ["JEPSEN_TPU_CACHE_DIR"]
+    os.environ["JEPSEN_TPU_CACHE_DIR"] = os.path.join(tmp, "cache-disk")
+    try:
+        disk_tier()
+    finally:
+        os.environ["JEPSEN_TPU_CACHE_DIR"] = run_cache
+
+    for name, proc in started:
+        out, err = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        try:
+            rep = json.loads(out)
+        except ValueError:
+            raise AssertionError(f"chaos {name}: exit {proc.returncode}, "
+                                 f"no report; {err[-4000:]}") from None
+        if proc.returncode != 0 or rep.get("ok") is not True:
+            raise AssertionError(f"chaos {name}: exit {proc.returncode} "
+                                 f"violations {rep.get('violations')}")
+        if name == "chaos":
+            log(f"chaos --quick: exit 0, every invariant held; schedule "
+                f"{rep['fault_schedule']} fired {rep['fault_counters']}; "
+                f"recovery to first verdict across the SIGKILL "
+                f"{rep['recovery_to_first_verdict_s']} s; {rep['checked_done']}"
+                f" verdicts against the facade in process, mismatches "
+                f"{rep['verdict_mismatches']}; the session replayed "
+                f"{rep['session_replayed_appends']} appends and closed "
+                f"{rep['session_close']}; process {wall:.1f} s")
+        else:
+            log(f"chaos --fleet --quick: exit 0, every gate held; 2 "
+                f"replicas, the victim held {rep['victim_pending_at_kill']} "
+                f"leases at the kill, {rep.get('leases_stolen', 0)} stolen; "
+                f"failover to first verdict {rep['failover_to_first_verdict_s']}"
+                f" s; {rep['checked_done']} verdicts, mismatches "
+                f"{rep['verdict_mismatches']}; session {rep['session_close']};"
+                f" process {wall:.1f} s (the two harnesses side by side, "
+                f"the mixed loadgen, the soak and the disk tier in process "
+                f"meanwhile)")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    use_fresh_memo_cache()
     from jepsen_tpu_torch import (Linearizable, _build, _native, fixtures,
                                   history, models)
     from jepsen_tpu_torch.checkers import reach_lane
@@ -4794,7 +5116,11 @@ def main() -> int:
         phase_ablate("cas W=6", w6_geom, w6_opnds, ABLATE_W6_RETURNS,
                      ABLATE_W6_CASES, stream, reps=2)
     log(f"ablate kernel phases (K6, K7): {time.perf_counter() - t0:.1f} s")
-    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s; "
+        f"memo tiers {memo_counters()} (the disk tier "
+        f"{'off' if os.environ.get('JEPSEN_TPU_NO_PERSIST') else 'on'})")
+    if KERNEL_PHASES_ONLY:
+        return 0
 
     # -- the main path ------------------------------------------------
     res, dt, la, spans, _ = drive(lambda: linearizable(h100k))
@@ -4996,6 +5322,9 @@ def main() -> int:
     k10 = phase_k10()
     phase_sessions(sess_future)
 
+    # -- the daemon's harnesses and the disk memo tier ------------------
+    phase_harnesses()
+
     # -- the ablation harness: the full ladder, K6 and K7 --------------
     la = ablate_ladder(ab_geom, ab_opnds, ab_returns)
     k6_launches, k7_launches = la["ablate_walk"], la["ablate_stream"]
@@ -5042,6 +5371,24 @@ def main() -> int:
     return 0
 
 
+def harnesses_main() -> int:
+    """``--harnesses``: the kernels built, then :func:`phase_harnesses`
+    alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import _build, _native
+
+    use_fresh_memo_cache()
+    log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
+    log(f"build: {_build.build_all():.3f} s")
+    for lib in _native.LIBRARIES:
+        _native.build(lib)
+    phase_harnesses()
+    log(f"main-path launches: {MAIN_PATH_LAUNCHES}")
+    return 0
+
+
 def sessions_main() -> int:
     """``--sessions``: the kernels built, then :func:`phase_k10` and
     :func:`phase_sessions` alone."""
@@ -5050,6 +5397,7 @@ def sessions_main() -> int:
         return 1
     from jepsen_tpu_torch import _build, _native
 
+    use_fresh_memo_cache()
     log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
     log(f"build: {_build.build_all():.3f} s")
     log(ptxas_summary("mega_walk", _build.build_log("mega_walk")))
@@ -5070,6 +5418,7 @@ def serve_main(n: int) -> int:
         return 1
     from jepsen_tpu_torch import _build, _native, fixtures, history
 
+    use_fresh_memo_cache()
     log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
     SERVE_N, SERVE_RERUN = n, min(n, 64)
     log(f"build: {_build.build_all():.3f} s")
@@ -5093,9 +5442,18 @@ if __name__ == "__main__":
             rc = serve_main(int(sys.argv[2]))
         elif sys.argv[1:2] == ["--sessions"]:
             rc = sessions_main()
+        elif sys.argv[1:2] == ["--harnesses"]:
+            rc = harnesses_main()
+        elif sys.argv[1:2] == ["--kernel-phases"]:
+            KERNEL_PHASES_ONLY = True
+            rc = main()
         else:
             rc = main()
     finally:
         if POOL is not None:
             POOL.shutdown(cancel_futures=True)
+        if MEMO_CACHE_ROOT is not None:
+            import shutil
+
+            shutil.rmtree(MEMO_CACHE_ROOT, ignore_errors=True)
     sys.exit(rc)

@@ -50,6 +50,7 @@ a fold on the host.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -68,6 +69,7 @@ from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
     Memo, StateExplosion, memo as build_memo, memo_ops)
 from jepsen_tpu_torch.op import Op
+from jepsen_tpu_torch.util import hashable
 
 class DenseOverflow(RuntimeError):
     """The dense config tensor would exceed the configured budget; callers
@@ -258,6 +260,8 @@ def _bucket(x: int, grain: int = 8) -> int:
 # numbering is that of a cold build whatever the history's occurrence
 # order; on every hit the table's columns are permuted back to the
 # history's local op-id order. Bounded by entry count, bytes and states.
+# Below it: projections from the superset seeds, then the disk tier, then
+# the BFS (the reference's order).
 _MEMO_CACHE: "Dict[Any, Memo]" = {}
 _MEMO_CACHE_LOCK = threading.Lock()
 _MEMO_CACHE_MAX = 512
@@ -282,8 +286,10 @@ def _cache_put(sig, m: Memo) -> None:
 
 def _cached_memo(model: Model, packed: h.PackedHistory,
                  max_states: int) -> Memo:
-    """Memo for ``packed``'s alphabet, cached across histories in this
-    process; its ``distinct_ops`` are this history's ops."""
+    """Memo for ``packed``'s alphabet, cached across histories: an exact
+    hit; else a projection from a superset seed (also put in the exact
+    cache, in canonical order); else the disk tier; else the BFS. Its
+    ``distinct_ops`` are this history's ops."""
     keys = list(h.op_keys_of(packed))
     try:
         order = sorted(range(len(keys)), key=lambda i: _op_sort_key(keys[i]))
@@ -297,8 +303,19 @@ def _cached_memo(model: Model, packed: h.PackedHistory,
             _MEMO_CACHE[sig] = m        # LRU: a hit moves to the MRU end
     if m is None:
         obs.count("memo_cache.miss")
-        m = memo_ops(model, tuple(packed.distinct_ops[i] for i in order),
-                     max_states=max_states)
+        canonical_ops = tuple(packed.distinct_ops[i] for i in order)
+        m2 = _project_from_seeds(model, keys, max_states,
+                                 packed.distinct_ops)
+        if m2 is not None:
+            _cache_put(sig, Memo(
+                table=np.ascontiguousarray(m2.table[:, order]),
+                states=m2.states, distinct_ops=canonical_ops,
+                initial=m2.initial))
+            return m2
+        m = _disk_memo_get(sig, canonical_ops)
+        if m is None:
+            m = memo_ops(model, canonical_ops, max_states=max_states)
+            _disk_memo_put(sig, m)
         _cache_put(sig, m)
     else:
         obs.count("memo_cache.hit")
@@ -309,6 +326,238 @@ def _cached_memo(model: Model, packed: h.PackedHistory,
     return Memo(table=np.ascontiguousarray(m.table[:, lut]),
                 states=m.states, distinct_ops=packed.distinct_ops,
                 initial=m.initial)
+
+
+# -- the disk tier below _MEMO_CACHE ------------------------------------------
+#
+# The canonical-order memo persisted under ``store.persist_root()``,
+# keyed by a digest of the model's module, qualified name and repr, the
+# cap and the sorted alphabet: a changed model signature never serves a
+# stale table, and a port model's entry is never a reference model's
+# file. Best-effort cache I/O: an unreadable entry is a rebuild.
+
+_DISK_MEMO_VERSION = 1
+# entry-count cap for the memo dir: past it the oldest entries go, down
+# to this share of the cap, so a directory is dated once every tenth of
+# the cap's stores and not at every store
+_DISK_MEMO_MAX_ENTRIES = 512
+_DISK_MEMO_KEEP = 0.9
+# memo dir -> its entries as this process counts them: the directory's
+# length at its first store here, plus the stores since
+_DISK_MEMO_COUNTS: Dict[str, int] = {}
+_DISK_MEMO_LOCK = threading.Lock()
+
+
+def _disk_memo_path(sig) -> Optional[Tuple[str, str]]:
+    """(path, signature repr) of ``sig``'s disk entry, or None when
+    persistence is off or the model's repr is the default
+    address-stamped one (no stable signature across processes)."""
+    import hashlib
+
+    from jepsen_tpu_torch import store
+    root = store.persist_root()
+    if root is None:
+        return None
+    model, max_states, keys = sig
+    model_rep = repr(model)
+    if model_rep.endswith(f"at {hex(id(model))}>"):
+        return None
+    rep = repr((_DISK_MEMO_VERSION, type(model).__module__,
+                type(model).__qualname__, model_rep, max_states, keys))
+    name = hashlib.sha256(rep.encode()).hexdigest()[:40] + ".memo.pkl"
+    return os.path.join(root, "memo", name), rep
+
+
+def _disk_memo_get(sig, canonical_ops: Tuple[Op, ...]) -> Optional[Memo]:
+    """``sig``'s memo from the disk tier, in canonical order, with this
+    history's ops as its ``distinct_ops``; None on a miss. The stored
+    signature repr and the stored model (by type and equality) must both
+    match, so a repr collision cannot serve a stale table; a corrupt or
+    mismatched entry is deleted (``memo_cache.disk.invalid``)."""
+    import pickle
+    pr = _disk_memo_path(sig)
+    if pr is None:
+        return None
+    path, rep = pr
+    try:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        if (payload.get("sig") != rep
+                or type(payload.get("model")) is not type(sig[0])
+                or payload.get("model") != sig[0]):
+            raise ValueError("memo signature mismatch")
+        m = payload["memo"]
+        m = Memo(table=m.table, states=m.states,
+                 distinct_ops=canonical_ops, initial=m.initial)
+    except FileNotFoundError:
+        obs.count("memo_cache.disk.miss")
+        return None
+    except Exception:                                   # noqa: BLE001
+        obs.count("memo_cache.disk.invalid")
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return None
+    obs.count("memo_cache.disk.hit")
+    return m
+
+
+def _disk_memo_put(sig, m: Memo) -> None:
+    """Best-effort insert into the disk tier (a temporary of this
+    thread's, then ``os.replace``), with the exact cache's size gates; past
+    :data:`_DISK_MEMO_MAX_ENTRIES` the oldest entries are evicted
+    (:func:`_disk_memo_evict`)."""
+    import pickle
+    if (m.table.nbytes > _MEMO_CACHE_MAX_ENTRY_BYTES
+            or m.n_states > _MEMO_CACHE_MAX_ENTRY_STATES):
+        return
+    pr = _disk_memo_path(sig)
+    if pr is None:
+        return
+    path, rep = pr
+    try:
+        d = os.path.dirname(path)
+        os.makedirs(d, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+        with open(tmp, "wb") as f:
+            pickle.dump({"sig": rep, "model": sig[0], "memo": m}, f)
+        os.replace(tmp, path)
+        obs.count("memo_cache.disk.store")
+        _disk_memo_evict(d)
+    except Exception:                                   # noqa: BLE001
+        pass                            # a full or read-only disk
+
+
+def _disk_memo_entries(d: str) -> List[str]:
+    return [n for n in os.listdir(d) if n.endswith(".memo.pkl")]
+
+
+def _disk_memo_evict(d: str) -> None:
+    """Count a store into ``d``; once this process's count passes
+    :data:`_DISK_MEMO_MAX_ENTRIES`, list the directory and, if it is
+    past the cap, delete its oldest entries (by mtime, as the reference)
+    down to :data:`_DISK_MEMO_KEEP` of the cap. A store overwriting an
+    entry counts too: that only brings the next listing forward."""
+    with _DISK_MEMO_LOCK:
+        n = _DISK_MEMO_COUNTS.get(d)
+        n = len(_disk_memo_entries(d)) if n is None else n + 1
+        _DISK_MEMO_COUNTS[d] = n
+        if n <= _DISK_MEMO_MAX_ENTRIES:
+            return
+        names = _disk_memo_entries(d)
+        n = len(names)
+        if n > _DISK_MEMO_MAX_ENTRIES:
+            keep = int(_DISK_MEMO_MAX_ENTRIES * _DISK_MEMO_KEEP)
+            by_age = sorted(
+                names, key=lambda e: os.path.getmtime(os.path.join(d, e)))
+            for name in by_age[:n - keep]:
+                try:
+                    os.unlink(os.path.join(d, name))
+                    obs.count("memo_cache.disk.evict")
+                    n -= 1
+                except OSError:
+                    pass
+        _DISK_MEMO_COUNTS[d] = n
+
+
+# -- superset seeds ------------------------------------------------------
+#
+# A few union-alphabet memos with their key -> column maps, consulted on
+# exact-cache misses: a key's alphabet is usually a subset of its batch's
+# union. Bounded in count and state size; failed unions are remembered.
+_SUPERSET_SEEDS: Dict[Any, Any] = {}
+_SUPERSET_SEEDS_FAILED: set = set()
+_SUPERSET_SEEDS_MAX = 8
+_SUPERSET_MAX_STATES = 1024
+
+
+def _project_from_seeds(model: Model, keys: Sequence[Any],
+                        max_states: int,
+                        distinct_ops: Tuple[Op, ...]) -> Optional[Memo]:
+    """A memo for ``keys`` (local op order) from a seeded superset memo:
+    its columns for these ops, restricted to the states reachable under
+    them and renumbered in the seed's order. The same table as a fresh
+    BFS up to the states' numbering, so ``S_pad`` and the kernels'
+    envelopes are unchanged."""
+    with _MEMO_CACHE_LOCK:
+        seeds = list(_SUPERSET_SEEDS.values())
+    for m2, model2, max2, col_of in seeds:
+        if (model2 == model and max2 == max_states
+                and all(k in col_of for k in keys)):
+            lut = np.fromiter((col_of[k] for k in keys), np.int32,
+                              len(keys))
+            T = m2.table[:, lut]
+            reach_mask = np.zeros(m2.n_states, bool)
+            reach_mask[m2.initial] = True
+            frontier = np.array([m2.initial])
+            while frontier.size:
+                nxt = np.unique(T[frontier])
+                nxt = nxt[nxt >= 0]
+                fresh = nxt[~reach_mask[nxt]]
+                reach_mask[fresh] = True
+                frontier = fresh
+            keep = np.nonzero(reach_mask)[0]
+            new_id = np.full(m2.n_states + 1, -1, np.int32)
+            new_id[keep] = np.arange(len(keep), dtype=np.int32)
+            Tk = T[keep]
+            Tk = np.where(Tk >= 0, new_id[Tk], -1)
+            return Memo(table=np.ascontiguousarray(Tk),
+                        states=tuple(m2.states[i] for i in keep),
+                        distinct_ops=distinct_ops,
+                        initial=int(new_id[m2.initial]))
+    return None
+
+
+def _memo_for_ops(model: Model, ops: Tuple[Op, ...],
+                  max_states: int) -> Memo:
+    """Memo over an explicit op tuple, projected from a superset seed
+    when one covers it, else built."""
+    try:
+        keys = [(op.f, hashable(op.value)) for op in ops]
+        m = _project_from_seeds(model, keys, max_states, ops)
+        if m is not None:
+            return m
+    except TypeError:                   # unhashable values: build it
+        pass
+    return memo_ops(model, ops, max_states=max_states)
+
+
+def _seed_union_memo(model: Model,
+                     packed_list: Sequence[h.PackedHistory],
+                     max_states: int) -> None:
+    """Seed ONE memo over the union of the histories' alphabets, so each
+    history's :func:`_cached_memo` projects from it instead of running a
+    BFS of its own. The BFS is capped at :data:`_SUPERSET_MAX_STATES`;
+    a union past it (or unhashable) seeds nothing and the per-history
+    path decides."""
+    union: Dict[Any, Op] = {}
+    try:
+        for packed in packed_list:
+            for key, op in zip(h.op_keys_of(packed), packed.distinct_ops):
+                union.setdefault(key, op)
+        keys = list(union)
+        order = sorted(range(len(keys)), key=lambda i: _op_sort_key(keys[i]))
+        sig = (model, max_states, tuple(keys[i] for i in order))
+        hash(sig)
+        with _MEMO_CACHE_LOCK:
+            if sig in _SUPERSET_SEEDS or sig in _SUPERSET_SEEDS_FAILED:
+                return
+        ops = tuple(union[keys[i]] for i in order)
+        m = memo_ops(model, ops,
+                     max_states=min(max_states, _SUPERSET_MAX_STATES))
+    except StateExplosion:
+        with _MEMO_CACHE_LOCK:
+            if len(_SUPERSET_SEEDS_FAILED) < 64:
+                _SUPERSET_SEEDS_FAILED.add(sig)
+        return
+    except TypeError:
+        return
+    col_of = {k: i for i, k in enumerate(keys[i] for i in order)}
+    with _MEMO_CACHE_LOCK:
+        if len(_SUPERSET_SEEDS) >= _SUPERSET_SEEDS_MAX:
+            _SUPERSET_SEEDS.pop(next(iter(_SUPERSET_SEEDS)), None)
+        _SUPERSET_SEEDS[sig] = (m, model, max_states, col_of)
 
 
 def _pad_table(memo: Memo, S_pad: int, O_pad: int) -> np.ndarray:
@@ -804,7 +1053,7 @@ def _union_alphabet(model: Model, packed_list, live, max_states: int):
             if key not in union:
                 union[key] = len(union_ops)
                 union_ops.append(op)
-    memo_u = memo_ops(model, tuple(union_ops), max_states=max_states)
+    memo_u = _memo_for_ops(model, tuple(union_ops), max_states=max_states)
     luts = {}
     for i in live:
         keys_i = h.op_keys_of(packed_list[i])
@@ -1410,6 +1659,8 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
             out, cause = native
             obs.decision("reach-many", "route", cause=cause, histories=n)
             return out
+    # one union BFS for every key's memo (each projects from the seed)
+    _seed_union_memo(model, [packed_list[i] for i in live], max_states)
     with obs.span("reach.prep", histories=n):
         preps = [None if p.n == 0 or p.n_ok == 0 else
                  _prep(model, p, max_states=max_states,

@@ -30,8 +30,41 @@ _LIVE_KEYS = ("client", "db", "os", "net", "nemesis", "generator", "checker",
               "results")
 
 
+# -- the persistent memo tier's root -----------------------------------------
+#
+# A fresh process re-ran the memo BFS for every alphabet it had already
+# enumerated: the disk tier (:mod:`jepsen_tpu_torch.checkers.reach`)
+# lives under the store dir, ``<store-root>/.cache/memo``, so a recheck
+# of a stored run starts warm. ``JEPSEN_TPU_NO_PERSIST=1`` turns it off;
+# ``JEPSEN_TPU_CACHE_DIR`` moves it. The names are the reference's, so
+# one switch covers both packages. There is no compilation cache: the
+# port's warm start for its kernels is ``_build/``.
+
+_PERSIST_STATE: Dict[str, Any] = {}
+
+
+def persist_root(store_root: Optional[str] = None) -> Optional[str]:
+    """Root directory of the persistent caches, or None when persistence
+    is off (``JEPSEN_TPU_NO_PERSIST``). ``JEPSEN_TPU_CACHE_DIR`` when
+    set, else ``<store-root>/.cache``: ``store_root``, or the last root
+    a run recorded (:func:`create_run_dir`), or ``store``. The
+    environment is read at every call."""
+    if os.environ.get("JEPSEN_TPU_NO_PERSIST"):
+        return None
+    d = os.environ.get("JEPSEN_TPU_CACHE_DIR")
+    if d:
+        return d
+    root = store_root or _PERSIST_STATE.get("root") or "store"
+    return os.path.join(root, ".cache")
+
+
 def create_run_dir(test: Mapping) -> str:
     root = test.get("store-root", "store")
+    # key the caches under THIS run's store root for the rest of the
+    # process, as the reference's enable_compilation_cache records it:
+    # only while persistence is on
+    if persist_root(root) is not None:
+        _PERSIST_STATE["root"] = root
     name = str(test.get("name", "test")).replace("/", "_")
     ts = test.get("start-time") or "run"
     d = os.path.join(root, name, ts)

@@ -49,7 +49,9 @@ PER_KEY = ("valid", "op", "dead-event", "max-linearized", "previous-ok")
 
 @pytest.fixture(autouse=True)
 def _cold_memos(monkeypatch):
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     reach_ref._MEMO_CACHE.clear()
     reach_pt._MEMO_CACHE.clear()
 

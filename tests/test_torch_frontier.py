@@ -52,7 +52,9 @@ SENT = 0xFFFFFFFF
 def _cold_memos(monkeypatch):
     """Both packages build every memo cold, so both number the states
     the same way."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     reach_ref._MEMO_CACHE.clear()
     reach_pt._MEMO_CACHE.clear()
 

@@ -45,6 +45,16 @@ GEN_CASES = [
 ]
 
 
+def _cold_memos():
+    """Empty both packages' exact memo caches and superset seeds (a
+    seed left by an earlier ``check_many`` on the worker would number a
+    projected memo's states otherwise than a cold build)."""
+    for r in (reach_ref, reach_pt):
+        with r._MEMO_CACHE_LOCK:
+            r._MEMO_CACHE.clear()
+            r._SUPERSET_SEEDS.clear()
+
+
 def _dicts(history):
     return [op.to_dict() for op in history]
 
@@ -77,7 +87,7 @@ def test_prep_arrays_equal(kind, kw):
     h = fx_ref.gen_history(kind, **kw)
     p1, p2 = h_ref.pack(h), h_pt.pack(fx_pt.gen_history(kind, **kw))
     _packed_equal(p1, p2)
-    reach_ref._MEMO_CACHE.clear()
+    _cold_memos()
     m1, s1, T1, S1, M1 = reach_ref._prep(
         fx_ref.model_for(kind), p1, max_states=100_000, max_slots=20,
         max_dense=1 << 22)
@@ -106,10 +116,10 @@ def test_memo_cache_hit_keeps_cold_numbering():
     kw = dict(n_ops=60, processes=3)
     a, b = (h_pt.pack(fx_pt.gen_history("cas", seed=s, **kw))
             for s in (0, 1))
-    reach_pt._MEMO_CACHE.clear()
+    _cold_memos()
     reach_pt._cached_memo(fx_pt.model_for("cas"), a, 100_000)
     warm = reach_pt._cached_memo(fx_pt.model_for("cas"), b, 100_000)
-    reach_pt._MEMO_CACHE.clear()
+    _cold_memos()
     cold = reach_pt._cached_memo(fx_pt.model_for("cas"), b, 100_000)
     np.testing.assert_array_equal(warm.table, cold.table)
 
@@ -204,6 +214,9 @@ def test_port_imports_neither_jax_nor_reference():
             "jepsen_tpu_torch.web",
             "jepsen_tpu_torch.checkers.transfer",
             "jepsen_tpu_torch.obs",
+            "jepsen_tpu_torch.tools.loadgen",
+            "jepsen_tpu_torch.tools.chaos",
+            "jepsen_tpu_torch.tools.soak",
             "jepsen_tpu_torch.__main__"} <= imported
 
 

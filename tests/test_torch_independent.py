@@ -183,7 +183,9 @@ def test_independent_matches_reference(monkeypatch, kind, n_keys, processes,
     key's memo from it; the port builds each key's memo cold. The seed
     is kept out so both number the states the same way, which the
     witnesses' order of ``final-configs`` depends on."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     r_pt, cap = _check_both(kind, n_keys, 40, processes, bad, crash_p,
                             union="reach-lockstep")
     assert r_pt["valid"] is (not bad)
@@ -200,7 +202,9 @@ def test_reach_algorithm_and_per_history_route(monkeypatch):
     when the union alphabet fits neither the lockstep kernel nor a keyed
     one, every key goes through the single-history check, with the same
     results."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     monkeypatch.setattr(rb_pt, "fits", lambda *a: False)
     monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
     monkeypatch.setattr(pallas_pt, "fits", lambda *a: False)
@@ -221,7 +225,9 @@ def test_wide_keyed_route(monkeypatch):
     """When neither K2 nor K3 takes the union alphabet, K5 does, through
     the native keyed lane (route cause ``keyed-wide``), with the
     reference's results for every key."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     monkeypatch.setattr(rb_pt, "fits", lambda *a: False)
     monkeypatch.setattr(lane_pt, "keyed_fits", lambda *a: False)
     r_pt, cap = _check_both("cas", 6, 40, 3, {1, 4}, union="reach-keyed")

@@ -39,29 +39,31 @@ GEOMS = [("cas", {}, "reach-lane"),
 
 
 @contextlib.contextmanager
-def _cold_reference_memo():
-    """The reference's memo built from a cold cache. Its ``_cached_memo``
+def _cold_memos():
+    """Both packages' memos built from cold caches. Each ``_cached_memo``
     first projects from the superset seeds that any earlier
     ``check_many`` in the process left (the same table up to the
-    states' numbering), and its disk tier may hold an earlier build;
-    the port always builds afresh. So both caches are emptied under
-    their lock, persistence is off, and both dicts are restored after:
-    no other test sees a change."""
-    with reach_ref._MEMO_CACHE_LOCK:
-        saved = (dict(reach_ref._MEMO_CACHE),
-                 dict(reach_ref._SUPERSET_SEEDS))
-        reach_ref._MEMO_CACHE.clear()
-        reach_ref._SUPERSET_SEEDS.clear()
+    states' numbering), and a disk tier may hold an earlier build. So
+    both packages' exact caches and seeds are emptied under their locks,
+    persistence is off, and every dict is restored after: no other test
+    sees a change."""
+    mods = (reach_ref, reach_pt)
+    saved = []
+    for r in mods:
+        with r._MEMO_CACHE_LOCK:
+            saved.append((dict(r._MEMO_CACHE), dict(r._SUPERSET_SEEDS)))
+            r._MEMO_CACHE.clear()
+            r._SUPERSET_SEEDS.clear()
     try:
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("JEPSEN_TPU_NO_PERSIST", "1")
             yield
     finally:
-        with reach_ref._MEMO_CACHE_LOCK:
-            for live, old in zip((reach_ref._MEMO_CACHE,
-                                  reach_ref._SUPERSET_SEEDS), saved):
-                live.clear()
-                live.update(old)
+        for r, old in zip(mods, saved):
+            with r._MEMO_CACHE_LOCK:
+                for live, o in zip((r._MEMO_CACHE, r._SUPERSET_SEEDS), old):
+                    live.clear()
+                    live.update(o)
 
 
 def _stream(kw, seed, n_ops, corrupt=False, crash_p=0.0):
@@ -72,10 +74,10 @@ def _stream(kw, seed, n_ops, corrupt=False, crash_p=0.0):
         h = fx.gen_history("cas", n_ops=n_ops, processes=5, seed=seed,
                            crash_p=crash_p, **kw)
         hists.append(fx.corrupt(h, seed=seed) if corrupt else h)
-    memo_p, stream_p, _T, _S, M = reach_pt._prep(
-        m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
-    with _cold_reference_memo():
+    with _cold_memos():
+        memo_p, stream_p, _T, _S, M = reach_pt._prep(
+            m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
+            max_slots=20, max_dense=1 << 22)
         memo_r, _s, _T, _S, M_r = reach_ref._prep(
             fx_ref.model_for("cas"), h_ref.pack(hists[1]),
             max_states=100_000, max_slots=20, max_dense=1 << 22)
@@ -287,7 +289,7 @@ def test_stream_tables_equal_after_a_union_memo_was_seeded(seed, n_ops):
     earlier ``check_many`` on the worker leaves it): ``_stream`` still
     finds both packages' tables equal element for element, and the
     reference's seed dict after it is exactly as it was."""
-    with _cold_reference_memo():        # this test's own seeds go after
+    with _cold_memos():                 # this test's own seeds go after
         seeds = _union_seeded()
         memo_p, memo_r, _rs, _M = _stream({}, seed=seed, n_ops=n_ops)
         assert reach_ref._SUPERSET_SEEDS == seeds
@@ -295,6 +297,24 @@ def test_stream_tables_equal_after_a_union_memo_was_seeded(seed, n_ops):
                    for k, v in seeds.items())
     np.testing.assert_array_equal(memo_p.table, memo_r.table)
 
+
+
+@pytest.mark.parametrize("seed,n_ops", [(2, 40), (5, 30)])
+def test_stream_tables_equal_after_a_port_union_memo_was_seeded(seed,
+                                                                 n_ops):
+    """The port's union memo seeded first, as its ``check_many`` leaves
+    it on a worker: ``_stream`` still finds both packages' tables equal
+    element for element, and the port's seeds after it are as they
+    were."""
+    packed = [h_pt.pack(fx_pt.gen_history("cas", n_ops=300, processes=5,
+                                          seed=40 + s)) for s in range(8)]
+    with _cold_memos():                 # this test's own seeds go after
+        reach_pt._seed_union_memo(m_pt.cas_register(), packed, 100_000)
+        seeds = dict(reach_pt._SUPERSET_SEEDS)
+        assert seeds
+        memo_p, memo_r, _rs, _M = _stream({}, seed=seed, n_ops=n_ops)
+        assert reach_pt._SUPERSET_SEEDS == seeds
+    np.testing.assert_array_equal(memo_p.table, memo_r.table)
 
 # -- K10's host side: the lane handles and the staging -------------------------
 

@@ -339,7 +339,9 @@ def test_independent_wide_matches_reference(monkeypatch, kw, n_keys, bad):
     """A union alphabet above 32 states is outside K2's envelope and
     takes K5 through the native keyed lane (route cause ``keyed-wide``);
     every key's result equals the reference's."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     r_pt, cap = _check_independent(kw, n_keys, bad)
     assert r_pt["valid"] is False and set(r_pt["failures"]) == bad
     assert [r.get("cause") for r in cap.ledger if r["event"] == "route"

@@ -100,7 +100,9 @@ def expected():
     """Each request's result from the JAX facade on the CPU, and from
     the port's standalone facade."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        mp.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     reach_ref._MEMO_CACHE.clear()
     reach_pt._MEMO_CACHE.clear()
     try:

@@ -496,7 +496,9 @@ def test_staged_batch_equals_check_many(monkeypatch):
     """``stage_check_many`` then ``collect()`` gives ``check_many``'s
     results on the lockstep lane, and the reference's verdicts; its
     readiness reads the groups' events (none on the CPU: ready)."""
-    monkeypatch.setattr(reach_ref, "_seed_union_memo", lambda *a: None)
+    for r in (reach_ref, reach_pt):      # no seeds, none left over
+        monkeypatch.setattr(r, "_seed_union_memo", lambda *a: None)
+        r._SUPERSET_SEEDS.clear()
     reach_ref._MEMO_CACHE.clear()
     reach_pt._MEMO_CACHE.clear()
     ref_ps, pt_ps = _packed_both(6, 150, bad={1, 4})

@@ -60,29 +60,31 @@ def _ragged_blocks(hist, seed: int, n_cuts: int = 4):
 # -- the carried frontier --------------------------------------------------
 
 @contextlib.contextmanager
-def _cold_reference_memo():
-    """The reference's memo built from a cold cache. Its ``_cached_memo``
+def _cold_memos():
+    """Both packages' memos built from cold caches. Each ``_cached_memo``
     first projects from the superset seeds that any earlier
     ``check_many`` in the process left (the same table up to the
-    states' numbering), and its disk tier may hold an earlier build;
-    the port always builds afresh. So both caches are emptied under
-    their lock, persistence is off, and both dicts are restored after:
-    no other test sees a change."""
-    with reach_ref._MEMO_CACHE_LOCK:
-        saved = (dict(reach_ref._MEMO_CACHE),
-                 dict(reach_ref._SUPERSET_SEEDS))
-        reach_ref._MEMO_CACHE.clear()
-        reach_ref._SUPERSET_SEEDS.clear()
+    states' numbering), and a disk tier may hold an earlier build. So
+    both packages' exact caches and seeds are emptied under their locks,
+    persistence is off, and every dict is restored after: no other test
+    sees a change."""
+    mods = (reach_ref, reach_pt)
+    saved = []
+    for r in mods:
+        with r._MEMO_CACHE_LOCK:
+            saved.append((dict(r._MEMO_CACHE), dict(r._SUPERSET_SEEDS)))
+            r._MEMO_CACHE.clear()
+            r._SUPERSET_SEEDS.clear()
     try:
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("JEPSEN_TPU_NO_PERSIST", "1")
             yield
     finally:
-        with reach_ref._MEMO_CACHE_LOCK:
-            for live, old in zip((reach_ref._MEMO_CACHE,
-                                  reach_ref._SUPERSET_SEEDS), saved):
-                live.clear()
-                live.update(old)
+        for r, old in zip(mods, saved):
+            with r._MEMO_CACHE_LOCK:
+                for live, o in zip((r._MEMO_CACHE, r._SUPERSET_SEEDS), old):
+                    live.clear()
+                    live.update(o)
 
 
 def _carry_memos(kw, seed, n_ops, corrupt):
@@ -94,10 +96,10 @@ def _carry_memos(kw, seed, n_ops, corrupt):
         h = fx.gen_history("cas", n_ops=n_ops, processes=5, seed=seed,
                            **kw)
         hists.append(fx.corrupt(h, seed=seed) if corrupt else h)
-    memo_p, stream_p, _T, _S, M = reach_pt._prep(
-        m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
-        max_slots=20, max_dense=1 << 22)
-    with _cold_reference_memo():
+    with _cold_memos():
+        memo_p, stream_p, _T, _S, M = reach_pt._prep(
+            m_pt.cas_register(), h_pt.pack(hists[0]), max_states=100_000,
+            max_slots=20, max_dense=1 << 22)
         memo_r, _s, _T, _S, M_r = reach_ref._prep(
             fx_ref.model_for("cas"), h_ref.pack(hists[1]),
             max_states=100_000, max_slots=20, max_dense=1 << 22)
@@ -163,7 +165,7 @@ def test_carry_memos_equal_after_a_union_memo_was_seeded(seed, n_ops):
     of each package walks the history to the same sets."""
     packed = [h_ref.pack(fx_ref.gen_history("cas", n_ops=300, processes=5,
                                             seed=40 + s)) for s in range(8)]
-    with _cold_reference_memo():        # this test's own seeds go after
+    with _cold_memos():                 # this test's own seeds go after
         reach_ref._seed_union_memo(fx_ref.model_for("cas"), packed,
                                    100_000)
         seeds = dict(reach_ref._SUPERSET_SEEDS)
@@ -172,6 +174,33 @@ def test_carry_memos_equal_after_a_union_memo_was_seeded(seed, n_ops):
         assert reach_ref._SUPERSET_SEEDS == seeds
         assert all(reach_ref._SUPERSET_SEEDS[k] is v
                    for k, v in seeds.items())
+    np.testing.assert_array_equal(memo_p.table, memo_r.table)
+    W, S = M.bit_length() - 1, memo_p.n_states
+    R0 = np.zeros((S, M), bool)
+    R0[0, 0] = True
+    carry = reach_pt.FrontierCarry(memo_p, W, R0, device="cpu")
+    ref = reach_ref.FrontierCarry(
+        None, W, M, R0, table=memo_r.table,
+        p_build=lambda: reach_ref._build_P(memo_r, S))
+    assert carry.advance(rs.ret_slot, rs.slot_ops) == \
+        ref.advance(rs.ret_slot, rs.slot_ops)
+    np.testing.assert_array_equal(carry.fetch(), ref.fetch())
+
+
+@pytest.mark.parametrize("seed,n_ops", [(2, 40), (5, 30)])
+def test_carry_memos_equal_after_a_port_union_memo_was_seeded(seed, n_ops):
+    """The port's union memo seeded first, as its ``check_many`` leaves
+    it on a worker: ``_carry_memos`` still finds both packages' tables
+    equal element for element, the port's seeds after it are as they
+    were, and both carries walk the history to the same sets."""
+    packed = [h_pt.pack(fx_pt.gen_history("cas", n_ops=300, processes=5,
+                                          seed=40 + s)) for s in range(8)]
+    with _cold_memos():                 # this test's own seeds go after
+        reach_pt._seed_union_memo(m_pt.cas_register(), packed, 100_000)
+        seeds = dict(reach_pt._SUPERSET_SEEDS)
+        assert seeds
+        memo_p, memo_r, rs, M = _carry_memos({}, seed, n_ops, False)
+        assert reach_pt._SUPERSET_SEEDS == seeds
     np.testing.assert_array_equal(memo_p.table, memo_r.table)
     W, S = M.bit_length() - 1, memo_p.n_states
     R0 = np.zeros((S, M), bool)
