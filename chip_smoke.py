@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --serve 256     # the daemon's phase alone
     python3 chip_smoke.py --sessions      # K10 and the sessions alone
+    python3 chip_smoke.py --words         # K11 and the word route alone
     python3 chip_smoke.py --harnesses     # loadgen, chaos, soak, disk tier
     python3 chip_smoke.py --kernel-phases # the kernels against their plain
                                           # versions alone
@@ -11,7 +12,7 @@ With ``--serve N`` it builds the kernels and runs only ``phase_serve``,
 with N cas requests (and ``min(N, 64)`` again at ``pipeline_k`` 1 and
 4): the daemon's measurement at a traffic the full run has no time for.
 With ``--sessions`` it builds them and runs only :func:`phase_k10` and
-:func:`phase_sessions`. With ``--kernel-phases`` it stops after the
+:func:`phase_sessions`; with ``--words`` only :func:`phase_words`. With ``--kernel-phases`` it stops after the
 kernels' checks against their plain versions (their time, with the disk
 memo tier on, or off under the persistence switch in the environment).
 Every mode points the disk memo tier at one fresh directory
@@ -20,7 +21,8 @@ Every mode points the disk memo tier at one fresh directory
 Builds the port's CUDA kernels from ``jepsen_tpu_torch/csrc`` (K1
 ``lane_walk``, K2 ``batch_walk``, K3 ``keyed_walk``, K4 ``wide_walk``,
 K5 ``wide_keyed``, K6 ``ablate_walk``, K7 ``ablate_stream``, K8
-``txn_closure``, K9 ``txn_inc_join``, K10 ``mega_walk``), holds each
+``txn_closure``, K9 ``txn_inc_join``, K10 ``mega_walk``, K11
+``word_walk``), holds each
 kernel bit for bit against its plain PyTorch version on the card at the
 shapes the main path gives it, then drives the main path through the
 user's entry points and checks the results:
@@ -1422,6 +1424,7 @@ def launches():
 
     return {"lane_walk": reach_lane.KERNEL_LAUNCHES,
             "mega_walk": reach_word.KERNEL_LAUNCHES,
+            "word_walk": reach_word.WORD_LAUNCHES,
             "batch_walk": reach_batch.KERNEL_LAUNCHES,
             "keyed_walk": reach_lane.KEYED_LAUNCHES,
             "wide_walk": reach_pallas.KERNEL_LAUNCHES,
@@ -1440,7 +1443,7 @@ def zero_launches():
     from jepsen_tpu_torch.txn import cycles
 
     reach_lane.KERNEL_LAUNCHES = reach_lane.KEYED_LAUNCHES = 0
-    reach_word.KERNEL_LAUNCHES = 0
+    reach_word.KERNEL_LAUNCHES = reach_word.WORD_LAUNCHES = 0
     reach_batch.KERNEL_LAUNCHES = 0
     reach_pallas.KERNEL_LAUNCHES = reach_pallas.KEYED_LAUNCHES = 0
     ablate_lane.ABLATE_LAUNCHES = ablate_lane.STREAM_LAUNCHES = 0
@@ -3967,6 +3970,11 @@ K10_REPS = 5                   # timed waves a reading (the median)
 # the blocks an SM holds (its ms is the kernel alone)
 K10_LINE_KEYS = ("wrapper_ms", "launch_ms", "chain_bound_ms",
                  "blocks_per_sm")
+# K11's: its row's ms, plain_ms and bound_ms are on the cas-100k prefix
+# (chip_smoke.WORD_PREFIX returns); these are the whole stream's kernel
+# time, time a return, chain bound and the profiler's record
+K11_LINE_KEYS = ("full_ms", "full_us_per_return", "full_chain_bound_ms",
+                 "full_device_ms")
 # the daemon's sessions: cas sessions across tenants, each of
 # SESS_APPENDS blocks of SESS_OPS history entries, SESS_BAD of them with
 # a violation; a group of wide (multi-register, K4's route) and txn ones
@@ -4739,6 +4747,405 @@ def phase_sessions(streams):
 
 # the run's disk memo directory (JEPSEN_TPU_CACHE_DIR), made at its start
 # and removed at its end: no memo of an earlier run warms this one
+# -- K11: the word-packed post-hoc walk ------------------------------------
+
+# K11 is held bit for bit against its plain version on this many returns
+# of each stream and of each lane of the lockstep group (the plain
+# version walks a return in tens of torch ops, all lanes at once)
+WORD_PREFIX = 1_024
+WORD_REPS = 3                 # timed walks a reading (the median or mean)
+# the histories: cas-100k (and its corrupted twin, and wide cas-100k
+# over 40 values, when main does not pass its own), the W = 8 history of
+# PERF.md section 4 (S = 6, M = 256, NW = 8) and the small batch's lanes
+WORD_OPS = 100_000
+WORD_W8 = ("cas", 30_000, 8, 3)
+WORD_GROUP_OPS = 30_000
+# the --bodies child's arguments past the flag (its defaults: cas-100k)
+WORD_BODIES_ARGS = ()
+# the lockstep group: 8 cas-30k lanes (the small batch's seeds), one
+# corrupted at its first read
+WORD_GROUP_BAD = 5
+WORD_KEYS = ("valid", "op", "dead-event", "max-linearized", "final-configs",
+             "previous-ok")
+# one shared-memory load's round trip (reach_word.smem_round_trip): ns,
+# cycles; the unit of K11's chain bound
+WORD_SMEM_NS = [0.0, 0.0]
+
+
+def corrupt_first_read(h):
+    """A history made non-linearizable at its first successful read (its
+    value rewritten to one no write produced), so that the violation
+    falls inside a prefix of the stream."""
+    i = next(k for k, op in enumerate(h) if op.type == "ok" and op.f == "read")
+    return h[:i] + [h[i].with_(value=999_999)] + h[i + 1:]
+
+
+def word_stream(h):
+    """A cas history's word-walk operands: ``(memo, returns view, M)``."""
+    from jepsen_tpu_torch import history, models
+    from jepsen_tpu_torch.checkers import events as ev
+    from jepsen_tpu_torch.checkers import reach
+
+    memo, stream, _T, _S, M = reach._prep(
+        models.cas_register(), history.pack(h), max_states=100_000,
+        max_slots=20, max_dense=1 << 22)
+    return memo, ev.returns_view(stream), M
+
+
+def word_lane(memo, rs, M, n=None):
+    """One lane's operands on the card: ``(Tpad, R0 words, ret, ops)`` of
+    the first ``n`` returns (default all), seeded at state 0, mask 0."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    n = rs.n_returns if n is None else min(n, rs.n_returns)
+    R0 = np.zeros((1, memo.n_states, reach_word.n_words(M)), np.int32)
+    R0[0, 0, 0] = 1
+    return [torch.as_tensor(np.ascontiguousarray(x), device=CARD) for x in (
+        reach_word.pad_table(memo.table), R0, rs.ret_slot[None, :n],
+        rs.slot_ops[None, :n])]
+
+
+def word_bound(args, n, passes, steps):
+    """K11's bounds on one walk: the bytes (the table, the stream, the
+    seeds and finals read or written once, the dead returns), the 32-bit
+    operations (a shifted word and its OR for each (state, slot, word) a
+    pass, a word for each (state, word) a projecting step) and the chain
+    (each pass one shared-memory round trip, summed over the stream).
+    Returns ``(bound_ms, bound_by, detail, chain_ms)``."""
+    Tpad, R0 = args[0], args[1]
+    H, S, NW = R0.shape
+    W = args[3].shape[2]
+    moved = (nbytes(Tpad) + 2 * nbytes(R0) + int(n.sum()) * (1 + W) * 4
+             + 4 * H)
+    work = 2 * S * W * NW * passes + S * NW * steps
+    bound, by, detail = bound_ms(moved, work)
+    return bound, by, detail, passes * WORD_SMEM_NS[0] * 1e-6
+
+
+def word_check(label, args, n=None, want_dead=None):
+    """K11 against its plain version on the same tensors on the card, bit
+    for bit (final words and dead returns); with ``want_dead`` a lane
+    that must die (``True``) or survive. Returns its numbers: the plain
+    version's time, the kernel alone (CUDA events in the C entry), the
+    passes it ran and the bound."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    H = args[1].shape[0]
+    n_t = None if n is None else torch.as_tensor(n, dtype=torch.int32,
+                                                 device=CARD)
+    ref, p_ms = plain_ms(lambda: reach_word.walk_words_plain(*args, n_t))
+    stats = torch.zeros((H, 2), dtype=torch.int32, device=CARD)
+    got = reach_word.walk_words(*args, n_t, stats=stats)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"word_walk [{label}]: differs from its plain "
+                             f"version: dead {got[1].tolist()} plain "
+                             f"{ref[1].tolist()}")
+    dead = got[1].cpu().tolist()
+    if want_dead is not None and [d >= 0 for d in dead] != want_dead:
+        raise AssertionError(f"word_walk [{label}]: dead {dead}")
+    ms = word_kernel_ms(args, n_t)
+    lens = np.full(H, args[2].shape[1]) if n is None else np.asarray(n)
+    passes, steps = (int(x) for x in stats.sum(0).tolist())
+    bound, by, detail, chain = word_bound(args, lens, passes, steps)
+    S, NW = args[1].shape[1:]
+    W = args[3].shape[2]
+    log(f"kernel word_walk [{label}] H={H} S={S} W={W} NW={NW} returns="
+        f"{int(lens.sum())} dead={dead}: bit-identical max_abs_err=0.0 "
+        f"kernel_ms={ms:.6f} plain_ms={p_ms:.3f} passes={passes} "
+        f"steps={steps} bound_ms={bound:.6f} ({by}; {detail}) "
+        f"chain_bound_ms={chain:.6f}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "chain_bound_ms": chain,
+            "library_ms": None}
+
+
+def word_kernel_ms(args, n_t=None) -> float:
+    """K11 alone: the median of :data:`WORD_REPS` launches, CUDA events
+    recorded in the C entry right around each (on the CPU the plain
+    version's host time)."""
+    from jepsen_tpu_torch.checkers import reach_word
+
+    if CARD != "cuda":
+        t0 = time.perf_counter()
+        reach_word.walk_words(*args, n_t)
+        return 1e3 * (time.perf_counter() - t0)
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(WORD_REPS)]
+    for pair in evs:
+        reach_word.walk_words(*args, n_t, events=pair)
+    torch.cuda.synchronize()
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
+
+
+def word_times(label, memo, rs, M, walker):
+    """One full stream: K11 alone (events in its C entry, and the
+    profiler's record), its entry ``walk_returns_words`` with its copies
+    and fetch (:func:`event_ms`), its passes and chain bound, and the
+    default route's kernel on the same stream, ``walker`` (K1's
+    ``reach_lane`` or K4's ``reach_pallas``): its ``walk_returns`` entry
+    by events and its kernels by the profiler."""
+    from jepsen_tpu_torch.checkers import reach, reach_word
+
+    n = rs.n_returns
+    args = word_lane(memo, rs, M)
+    stats = torch.zeros((1, 2), dtype=torch.int32, device=CARD)
+    fin, dead = reach_word.walk_words(*args, stats=stats)
+    passes, steps = (int(x) for x in stats[0].tolist())
+    ms = word_kernel_ms(args)
+    dev = device_ms(lambda: reach_word.walk_words(*args), WORD_REPS) \
+        if CARD == "cuda" else None
+    entry = event_ms(lambda: reach_word.walk_returns_words(
+        memo.table, rs.ret_slot[:n], rs.slot_ops[:n], M, device=CARD),
+        WORD_REPS)
+    bound, by, detail, chain = word_bound(args, np.array([n]), passes,
+                                          steps)
+    S_pad = max(2, 1 << (memo.n_states - 1).bit_length())
+    P = reach._build_P(memo, S_pad)
+    R0 = np.zeros((S_pad, M), bool)
+    R0[0, 0] = True
+
+    def dense():
+        return walker.walk_returns(P, rs.ret_slot, rs.slot_ops, R0,
+                                   device=CARD, fetch_R=False)
+
+    d_dead, _ = dense()
+    if d_dead != int(dead[0]) and not (d_dead < 0 and int(dead[0]) < 0):
+        raise AssertionError(f"word_walk [{label}]: dead {int(dead[0])}, "
+                             f"{walker.__name__} {d_dead}")
+    d_entry = event_ms(dense, WORD_REPS)
+    d_dev = device_ms(dense, WORD_REPS) if CARD == "cuda" else None
+    name = "K1" if walker.__name__.endswith("reach_lane") else "K4"
+    W = args[3].shape[2]
+    design = reach_word.word_design(memo.n_states, W, n) \
+        if CARD == "cuda" else None
+    log(f"word_walk times [{label}] S={memo.n_states} W={W} M={M} "
+        f"returns={n} dead={int(dead[0])} design {design}: kernel_ms={ms:.6f} "
+        f"(events in the C entry) device_ms="
+        f"{None if dev is None else round(dev['total'], 6)} "
+        f"us_per_return={1e3 * ms / n:.6f} entry event_ms={entry:.6f} "
+        f"(walk_returns_words: copies, launch, fetch) passes={passes} "
+        f"steps={steps} chain_bound_ms={chain:.6f} (kernel "
+        f"{ms / max(chain, 1e-12):.2f}x) bound_ms={bound:.6f} ({by}; "
+        f"{detail}); {name} on the same stream: walk_returns event_ms="
+        f"{d_entry:.6f} device_ms="
+        f"{None if d_dev is None else round(d_dev['total'], 6)} "
+        f"({None if d_dev is None else d_dev['kernels']}); K11 kernel "
+        f"{ms / max(d_dev['total'] if d_dev else d_entry, 1e-12):.2f}x "
+        f"{name}'s")
+    return {"full_ms": ms, "full_us_per_return": 1e3 * ms / n,
+            "full_chain_bound_ms": chain, "full_device_ms":
+            None if dev is None else dev["total"]}
+
+
+def word_route(label, h, want_engine, **launches):
+    """The main path through the word route: ``Linearizable(body="word")``
+    on the card, its verdict, op, dead event and witness equal to the
+    default route's (``want_engine``), one K11 launch and ``launches``."""
+    from jepsen_tpu_torch import Linearizable, models
+
+    want, dt_d, _la, _sp, _ = drive(
+        lambda: Linearizable(models.cas_register()).check(None, h))
+    if want["engine"] != want_engine:
+        raise AssertionError(f"word route [{label}]: the default route "
+                             f"took {want['engine']}")
+    res, dt, la, spans, ledger = drive(lambda: Linearizable(
+        models.cas_register(), body="word").check(None, h))
+    if res["engine"] != "reach-word":
+        raise AssertionError(f"word route [{label}]: {res['engine']}")
+    expect(f"word route [{label}]", la, word_walk=1, batch_walk=0,
+           **launches)
+    same_result(f"word route [{label}] against {want_engine}", res, want,
+                WORD_KEYS)
+    routes = [r["engine"] for r in ledger if r["event"] == "route"]
+    log(f"word route [{label}]: {res['engine']} valid={res['valid']} "
+        f"dead-event={res.get('dead-event')} {dt:.4f} s = "
+        f"{len(h) // 2 / dt:.1f} ops/s ({split(dt, spans)}; launches "
+        f"{la}; routes {routes}); {want_engine} {dt_d:.4f} s; verdict, op, "
+        f"dead event and witness agree")
+
+
+def word_group(model, packed):
+    """The lockstep lane's first group of ``packed`` (its union prep and
+    plan, as ``check_many`` makes them), marshalled with the word body."""
+    from jepsen_tpu_torch.checkers import reach, reach_batch
+
+    live = list(range(len(packed)))
+    sa, u, groups = reach._lockstep_plan(
+        model, packed, live, max_states=100_000, max_slots=20,
+        max_dense=1 << 22, u_box=None)
+    P, _W, M, ret_flat, ops_flat, _kW, _kR, offsets = u
+    g = groups[0]
+    if len(groups) != 1 or len(g) != len(packed):
+        raise AssertionError(f"word group: planned {groups}")
+    return reach_batch.prepare_returns_batch(
+        P, reach._flat_lanes(ret_flat, offsets, g),
+        reach._flat_lanes(ops_flat, offsets, g), M, body="word"), g
+
+
+def word_bodies():
+    """``python -m jepsen_tpu_torch.tools.ablate_lane --bodies`` as a user
+    runs it, in a child process under a cache directory of its own (no
+    later route here reads the winner it records): its row, the table it
+    wrote and its wall time."""
+    import tempfile
+
+    from jepsen_tpu_torch.checkers import autotune
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-") as d:
+        env = dict(os.environ, JEPSEN_TPU_CACHE_DIR=d)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch.tools.ablate_lane",
+             "--bodies", *WORD_BODIES_ARGS], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"--bodies: exit {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        row = json.loads(out.stdout.strip().splitlines()[-1])
+        path = os.path.join(d, "autotune.json")
+        with open(path) as f:
+            table = json.load(f)
+    g = row["geometry"]
+    key = (f"walk|{'cuda' if CARD == 'cuda' else 'cpu'}|"
+           f"{autotune.walk_key(g['S'], g['W'], g['M'], g['returns'])}")
+    entry = table["entries"].get(key, {})
+    if row.get("recorded") != path or entry.get("body") != row["winner"] \
+            or row["word_engine"] != "reach-word":
+        raise AssertionError(f"--bodies: row {row}, table {table}")
+    log(f"--bodies at cas-100k: {json.dumps(row)} ({dt:.2f} s in a child "
+        f"process; the table's entry {key}: {json.dumps(entry)})")
+
+
+def word_winner_routes(h):
+    """A recorded ``walk`` winner of ``word`` (in a table of its own)
+    routes the default ``Linearizable`` check of ``h`` to K11: one
+    launch, no K2."""
+    import tempfile
+
+    from jepsen_tpu_torch import Linearizable, models
+    from jepsen_tpu_torch.checkers import autotune
+
+    memo, rs, M = word_stream(h)
+    key = autotune.walk_key(memo.n_states, rs.slot_ops.shape[1], M,
+                            rs.n_returns)
+    old = os.environ.get("JEPSEN_TPU_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-") as d:
+        os.environ["JEPSEN_TPU_CACHE_DIR"] = d
+        try:
+            autotune.record("walk", key, "word",
+                            backend_name=torch.device(CARD).type)
+            res, dt, la, _spans, ledger = drive(lambda: Linearizable(
+                models.cas_register()).check(None, h))
+        finally:
+            if old is None:
+                os.environ.pop("JEPSEN_TPU_CACHE_DIR", None)
+            else:
+                os.environ["JEPSEN_TPU_CACHE_DIR"] = old
+    causes = [r.get("cause") for r in ledger if r["event"] == "route"
+              and r.get("engine") == "reach-word"]
+    if res["engine"] != "reach-word" or causes != ["winner"]:
+        raise AssertionError(f"walk winner {key}: {res['engine']} {ledger}")
+    expect("walk winner", la, word_walk=1, batch_walk=0, lane_walk=0)
+    log(f"a recorded walk winner ({key}: word) routes cas-100k's default "
+        f"check to K11: {res['engine']} valid={res['valid']} {dt:.4f} s; "
+        f"launches {la}")
+
+
+def phase_words(h100k=None, wide=None, batch=None):
+    """K11 (``csrc/word_walk.cu``) against its plain version bit for bit on
+    :data:`WORD_PREFIX`-return prefixes of cas-100k, the W = 8 cas-30k
+    and wide cas-100k, on an injected violation and on a lockstep group
+    of 8 cas-30k lanes with one corrupted; its times on the full streams
+    beside K1's and K4's, with its chain bound; the word route of the
+    main path (``Linearizable(body="word")`` on the four histories,
+    ``check_many(body="word")`` on the 8 x cas-30k batch) against the
+    default route; a recorded winner routing a default check; and the
+    ``--bodies`` sweep in a child process. ``h100k``, ``wide`` and
+    ``batch`` (the 8 x cas-30k, :data:`SMALL_BATCH_BAD` corrupted) are
+    main's, made here when not given. Returns the kernels line's
+    numbers (the cas-100k prefix, with the full stream's times)."""
+    from jepsen_tpu_torch import fixtures, history, models
+    from jepsen_tpu_torch.checkers import (reach, reach_batch, reach_lane,
+                                           reach_pallas, reach_word)
+
+    t0 = time.perf_counter()
+    if CARD == "cuda":
+        cyc, ns = reach_word.smem_round_trip()
+        WORD_SMEM_NS[:] = [ns, cyc]
+    else:
+        WORD_SMEM_NS[:] = [1.0, 1.0]
+    log(f"K11: one shared-memory load's round trip {WORD_SMEM_NS[1]:.2f} "
+        f"cycles = {WORD_SMEM_NS[0]:.3f} ns")
+    h100k = gen("cas", WORD_OPS, 5, 0) if h100k is None else h100k
+    wide = gen("cas", WORD_OPS, 5, 0, **WIDE_CAS) if wide is None else wide
+    w8 = gen(*WORD_W8)
+    bad = gen("cas", WORD_OPS, 5, 0, corrupt=True)
+    streams = {"cas-100k": word_stream(h100k), "W=8 cas-30k": word_stream(w8),
+               "wide cas-100k": word_stream(wide)}
+    out = {}
+    for label, (memo, rs, M) in streams.items():
+        r = word_check(f"{label}, first {WORD_PREFIX} returns",
+                       word_lane(memo, rs, M, WORD_PREFIX), want_dead=[False])
+        if label == "cas-100k":
+            out = r
+    memo, rs, M = word_stream(corrupt_first_read(h100k))
+    word_check(f"cas-100k corrupted at its first read, first {WORD_PREFIX} "
+               f"returns", word_lane(memo, rs, M, WORD_PREFIX),
+               want_dead=[True])
+    model = models.cas_register()
+    if batch is None:
+        batch = [history.pack(gen("cas", WORD_GROUP_OPS, 5, 2000 + i,
+                                  corrupt=True))
+                 if i in SMALL_BATCH_BAD else
+                 fixtures.gen_packed("cas", n_ops=WORD_GROUP_OPS,
+                                     processes=5, seed=2000 + i)
+                 for i in range(SMALL_BATCH_N)]
+    # the batch with one lane corrupted at its first read, the others not
+    group = [history.pack(corrupt_first_read(
+        gen("cas", WORD_GROUP_OPS, 5, 2000 + i))) if i == WORD_GROUP_BAD else
+        fixtures.gen_packed("cas", n_ops=WORD_GROUP_OPS, processes=5,
+                            seed=2000 + i) if i in SMALL_BATCH_BAD else
+        batch[i] for i in range(SMALL_BATCH_N)]
+    prep, g = word_group(model, group)
+    ops = reach_batch.word_operands(prep)
+    lens = np.minimum(ops[4], WORD_PREFIX)
+    word_check(f"lockstep group {SMALL_BATCH_N} x cas-30k, lane "
+               f"{WORD_GROUP_BAD} corrupted, first {WORD_PREFIX} returns",
+               [torch.as_tensor(x, device=CARD) for x in ops[:4]], lens,
+               want_dead=[i == WORD_GROUP_BAD for i in g])
+    for label, walker in (("cas-100k", reach_lane),
+                          ("W=8 cas-30k", reach_lane),
+                          ("wide cas-100k", reach_pallas)):
+        t = word_times(label, *streams[label], walker)
+        if label == "cas-100k":
+            out.update(t)
+    word_route("cas-100k", h100k, "reach-chunklock", lane_walk=0)
+    word_route("corrupted cas-100k", bad, "reach-chunklock", lane_walk=1)
+    word_route("W=8 cas-30k", w8, "reach-lane", lane_walk=0)
+    word_route("wide cas-100k", wide, "reach-pallas", lane_walk=0,
+               wide_walk=0)
+    # the lockstep lane's word body on the small batch (two corrupted)
+    want, dt_d, la_d, _s, _l = drive(lambda: reach.check_many(model, batch))
+    expect("lockstep dense", la_d, batch_walk=1, word_walk=0)
+    got, dt, la, spans, ledger = drive(
+        lambda: reach.check_many(model, batch, body="word"))
+    expect("lockstep word", la, word_walk=1, batch_walk=0,
+           lane_walk=len(SMALL_BATCH_BAD))
+    for i, (g, w) in enumerate(zip(got, want)):
+        same_result(f"lockstep word lane {i} against K2", g, w, WORD_KEYS)
+    log(f"lockstep word body [{SMALL_BATCH_N} x cas-30k, "
+        f"{len(SMALL_BATCH_BAD)} corrupted]: {dt:.4f} s "
+        f"({split(dt, spans)}; launches {la}); K2's group {dt_d:.4f} s "
+        f"(launches {la_d}); dead vector "
+        f"{[r.get('dead-event') for r in got]} equals K2's, with the ops "
+        f"and witnesses")
+    word_winner_routes(h100k)
+    word_bodies()
+    log(f"K11 phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 MEMO_CACHE_ROOT = None
 # --kernel-phases: main stops after the kernels' checks
 KERNEL_PHASES_ONLY = False
@@ -5322,6 +5729,9 @@ def main() -> int:
     k10 = phase_k10()
     phase_sessions(sess_future)
 
+    # -- the word-packed post-hoc walk: K11 and its routes --------------
+    k11 = phase_words(h100k, wide, small_batch)
+
     # -- the daemon's harnesses and the disk memo tier ------------------
     phase_harnesses()
 
@@ -5355,6 +5765,8 @@ def main() -> int:
          total["txn_inc_join"], k9),
         ("mega_walk", "mega_walk.cu",
          "jepsen_tpu/checkers/reach_word.py:249", total["mega_walk"], k10),
+        ("word_walk", "word_walk.cu",
+         "jepsen_tpu/checkers/reach_word.py:162", total["word_walk"], k11),
     ]
     log(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
@@ -5362,7 +5774,7 @@ def main() -> int:
         "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
-        **{x: k[x] for x in K10_LINE_KEYS if x in k}}
+        **{x: k[x] for x in K10_LINE_KEYS + K11_LINE_KEYS if x in k}}
         for kname, src, replaces, n, k in entries]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -5385,6 +5797,24 @@ def harnesses_main() -> int:
     for lib in _native.LIBRARIES:
         _native.build(lib)
     phase_harnesses()
+    log(f"main-path launches: {MAIN_PATH_LAUNCHES}")
+    return 0
+
+
+def words_main() -> int:
+    """``--words``: the kernels built, then :func:`phase_words` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from jepsen_tpu_torch import _build, _native
+
+    use_fresh_memo_cache()
+    log(f"device: {torch.cuda.get_device_name(0)}; {smi()}")
+    log(f"build: {_build.build_all():.3f} s")
+    log(ptxas_summary("word_walk", _build.build_log("word_walk")))
+    for lib in _native.LIBRARIES:
+        _native.build(lib)
+    phase_words()
     log(f"main-path launches: {MAIN_PATH_LAUNCHES}")
     return 0
 
@@ -5442,6 +5872,8 @@ if __name__ == "__main__":
             rc = serve_main(int(sys.argv[2]))
         elif sys.argv[1:2] == ["--sessions"]:
             rc = sessions_main()
+        elif sys.argv[1:2] == ["--words"]:
+            rc = words_main()
         elif sys.argv[1:2] == ["--harnesses"]:
             rc = harnesses_main()
         elif sys.argv[1:2] == ["--kernel-phases"]:

@@ -127,11 +127,15 @@ class Linearizable(Checker):
 
     ``device`` (or ``opts["device"]``) names where the device engines
     run: the card by default; ``"cpu"`` runs the plain PyTorch versions.
+    ``body`` (or ``opts["body"]``), ``"word"`` or ``"dense"``, picks the
+    dense engine's walk body where the word walk admits the geometry
+    (``reach.check_packed``); None consults the autotune table.
     """
     model: Optional[Model] = None
     algorithm: str = "auto"
     opts: Dict[str, Any] = field(default_factory=dict)
     device: Optional[str] = None
+    body: Optional[str] = None
     name = "linearizable"
 
     def check(self, test, history, opts=None):
@@ -159,11 +163,14 @@ class Linearizable(Checker):
         kw = dict(self.opts)
         if self.device is not None:
             kw.setdefault("device", self.device)
+        if self.body is not None:
+            kw.setdefault("body", self.body)
         if opts:
             kw.update({k: v for k, v in opts.items() if k != "model"})
         algorithm = kw.pop("algorithm", self.algorithm)
         if algorithm == "reach":
-            return reach.check(model, history, **_engine_kw(kw, _REACH_KW))
+            return reach.check(model, history,
+                               **_engine_kw(kw, _POSTHOC_KW))
         if algorithm == "reach-chunked":
             with obs.span("facade.pack", ops=len(history)):
                 packed = h.pack(history)
@@ -294,7 +301,7 @@ def auto_check_packed(model: Model, packed, kw: Mapping) -> Dict[str, Any]:
 
     exploded = False                # product-space memo blow-ups seen
     try:
-        ekw = _with_deadline_abort(_engine_kw(kw, _REACH_KW))
+        ekw = _with_deadline_abort(_engine_kw(kw, _POSTHOC_KW))
         with obs.span("facade.reach", **geom):
             res = reach.check_packed(model, packed, **ekw)
         if res.get("valid") in (True, False):
@@ -407,13 +414,16 @@ def auto_check_many_packed(model: Model, packed_list,
     :class:`~jepsen_tpu_torch.models.memo.StateExplosion`); any other
     error propagates. In the per-history chain one failing history
     yields an ``"unknown"`` (check-safe semantics), recorded in the
-    ledger. Results align with ``packed_list``."""
+    ledger. Results align with ``packed_list``. Without a ``group`` in
+    ``kw`` the lockstep group width is the recorded ``group`` winner
+    (:func:`_group_width`)."""
     from jepsen_tpu_torch.checkers import reach
     from jepsen_tpu_torch.checkers.events import ConcurrencyOverflow
     from jepsen_tpu_torch.models.memo import StateExplosion
 
     ekw = _engine_kw(kw, _REACH_MANY_KW)
     ekw["device"] = _device.resolve(kw.get("device"))
+    _group_width(ekw)
     try:
         with obs.span("facade.check-many", histories=len(packed_list)):
             out = reach.check_many(model, packed_list, **ekw)
@@ -450,6 +460,7 @@ def stage_check_many_packed(model: Model, packed_list, kw: Mapping):
 
     ekw = _engine_kw(kw, _REACH_MANY_KW)
     ekw["device"] = _device.resolve(kw.get("device"))
+    _group_width(ekw)
     with obs.span("facade.stage-many", histories=len(packed_list)):
         staged = reach.stage_check_many(model, packed_list, **ekw)
     if staged is not None:
@@ -458,11 +469,25 @@ def stage_check_many_packed(model: Model, packed_list, kw: Mapping):
     return staged
 
 
+def _group_width(ekw: Dict[str, Any]) -> None:
+    """Without a ``group`` in ``ekw``, the recorded ``group`` winner
+    (:mod:`.autotune`, geometry ``default``, on the device's backend)
+    becomes the lockstep group width; else ``reach``'s default stays."""
+    from jepsen_tpu_torch.checkers import autotune
+
+    if "group" not in ekw:
+        g = autotune.winner("group", "default",
+                            backend_name=ekw["device"].type)
+        if g and str(g).isdigit():
+            ekw["group"] = int(g)
+
+
 # keyword subsets understood by each engine; user opts are filtered so one
 # checker config can carry opts for every algorithm it may route to.
 _REACH_KW = ("max_states", "max_slots", "max_dense", "should_abort",
              "device")
-_REACH_MANY_KW = _REACH_KW          # check_many takes the same options
+_POSTHOC_KW = _REACH_KW + ("body",)     # reach.check and check_packed
+_REACH_MANY_KW = _POSTHOC_KW + ("group",)
 _CHUNKED_KW = _REACH_KW + ("n_chunks", "max_matrix")
 _CHUNKLOCK_KW = ("max_states", "max_slots", "max_dense", "n_chunks",
                  "e_pad", "suffix", "device")

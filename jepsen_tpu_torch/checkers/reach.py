@@ -23,7 +23,10 @@ walks return events alone with each return's pending ops known up front
 not probabilistic: the dense set cannot produce false verdicts.
 
 Routing in :func:`check_packed`, chosen from the geometry before anything
-launches: chunk-lockstep (:mod:`.reach_chunklock`, the lockstep kernel
+launches: the word-packed walk K11 (:func:`reach_word.walk_returns_words`)
+when :func:`_posthoc_body` picks it (the ``body`` keyword, else a
+recorded ``walk`` winner of :mod:`.autotune`; never under an abort
+hook); chunk-lockstep (:mod:`.reach_chunklock`, the lockstep kernel
 over the stream's chunks) when the fast path applies, the history has
 at least :data:`reach_chunklock.MIN_RETURNS` returns and the walk
 kernels take it; else the lane kernel when R and P fit one block's
@@ -36,7 +39,9 @@ Many histories share one union prep (one memo over the union of their
 op alphabets, and one native call that builds every history's return
 stream): :func:`check_many` (the ``independent`` checker's keys) takes
 the lockstep lane on K2 (length-bucketed groups of up to 32 histories,
-each one K2 launch staged while the one before it walks), else the
+each one K2 launch staged while the one before it walks; a group whose
+body is ``word``, by keyword or recorded ``lockstep`` winner, is one K11
+launch instead: :func:`reach_batch._lockstep_body`), else the
 native keyed lane (one launch of K3, or K5 above 32 states), else the
 keyed kernels over each key's own prep, else each history through
 :func:`check_packed`. :func:`check_batch` runs several whole histories
@@ -63,8 +68,8 @@ from jepsen_tpu_torch import history as h
 from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checkers import events as ev
 from jepsen_tpu_torch.checkers import (
-    dispatch_core, preproc_native, reach_batch, reach_chunklock, reach_lane,
-    reach_pallas, reach_word)
+    autotune, dispatch_core, preproc_native, reach_batch, reach_chunklock,
+    reach_lane, reach_pallas, reach_word)
 from jepsen_tpu_torch.models import Model
 from jepsen_tpu_torch.models.memo import (
     Memo, StateExplosion, memo as build_memo, memo_ops)
@@ -721,7 +726,7 @@ def _attach_witness_slow(out: Dict[str, Any], memo: Memo,
 def check(model: Model, history: Sequence[Op], *,
           max_states: int = 100_000, max_slots: int = 20,
           max_dense: int = 1 << 22, should_abort=None,
-          device=None) -> Dict[str, Any]:
+          device=None, body: Optional[str] = None) -> Dict[str, Any]:
     """Check one history on ``device`` (default: the card). Raises
     :class:`DenseOverflow`,
     :class:`~jepsen_tpu_torch.checkers.events.ConcurrencyOverflow`, or
@@ -731,7 +736,7 @@ def check(model: Model, history: Sequence[Op], *,
     fires."""
     return check_packed(model, h.pack(history), max_states=max_states,
                         max_slots=max_slots, max_dense=max_dense,
-                        should_abort=should_abort, device=device)
+                        should_abort=should_abort, device=device, body=body)
 
 
 # torch-walk segment size under an abort hook (the lane walk has its
@@ -758,6 +763,35 @@ def _chunklock_skip(S_pad: int, M: int, W: int, n_returns: int,
     return None
 
 
+BODIES = ("word", "dense")
+
+
+def _check_body(body: Optional[str]) -> None:
+    if body is not None and body not in BODIES:
+        raise ValueError(f"body={body!r}: want one of {BODIES} or None")
+
+
+def _posthoc_body(S: int, W: int, M: int, n_returns: int,
+                  body: Optional[str], should_abort, dev) -> Tuple[str, str]:
+    """The single history's walk body, ``("word" | "dense", cause)``: the
+    word walk K11 only where :func:`reach_word.admits` the geometry and no
+    abort hook is given (the daemon's checks never take it); then the
+    ``body`` keyword; then the recorded ``walk`` winner for this
+    geometry on ``dev``'s backend (:func:`autotune.walk_key`); else the
+    dense chain, cause ``no-winner``."""
+    if not reach_word.admits(S, W, M):
+        return "dense", "past-envelope"
+    if should_abort is not None:
+        return "dense", "abort-hook"
+    if body is not None:
+        return body, "keyword"
+    w = autotune.winner("walk", autotune.walk_key(S, W, M, n_returns),
+                        backend_name=dev.type)
+    if w in BODIES:
+        return w, "winner"
+    return "dense", "no-winner"
+
+
 def _lane_verdict(engine: str, dead: int, elapsed: float,
                   stream: ev.EventStream, memo: Memo,
                   packed: h.PackedHistory, rs: "ev.ReturnStream",
@@ -780,7 +814,12 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
                  max_dense: int = 1 << 22,
                  should_abort=None,
                  memo: Optional[Memo] = None,
-                 device=None) -> Dict[str, Any]:
+                 device=None, body: Optional[str] = None) -> Dict[str, Any]:
+    """Check one packed history on ``device`` (default: the card); see
+    :func:`check`. ``body`` (``"word"`` or ``"dense"``) picks the walk
+    body where the word walk admits the geometry (:func:`_posthoc_body`);
+    None consults the autotune table, else the dense chain."""
+    _check_body(body)
     dev = _device.resolve(device)
     t0 = _time.monotonic()
     if packed.n == 0 or packed.n_ok == 0:
@@ -811,9 +850,24 @@ def check_packed(model: Model, packed: h.PackedHistory, *,
 
     with obs.span("reach.returns-view", events=int(stream.n_events)):
         rs = ev.returns_view(stream)
-    # the reference's word-packed body comes first on its accelerator;
-    # it is not ported
-    obs.decision("reach-word", "skipped", cause="not-ported", **geom)
+    choice, why = _posthoc_body(memo.n_states, W, M, rs.n_returns, body,
+                                should_abort, dev)
+    if choice == "word":
+        # the word-packed walk K11: one launch, the exact dead return. A
+        # fault in it propagates: no other walk hides it
+        obs.decision("reach", "route", engine="reach-word", cause=why,
+                     **geom)
+        with obs.span("reach.walk", engine="reach-word",
+                      returns=int(rs.n_returns)):
+            dead, _ = reach_word.walk_returns_words(
+                memo.table, rs.ret_slot[:rs.n_returns],
+                rs.slot_ops[:rs.n_returns], M, device=dev)
+        elapsed = _time.monotonic() - t0
+        return _lane_verdict("reach-word", dead, elapsed, stream, memo,
+                             packed, rs,
+                             _build_P(memo, S_pad) if dead >= 0 else None,
+                             S_pad, M, W, dev)
+    obs.decision("reach-word", "skipped", cause=why, **geom)
     P_np = _build_P(memo, S_pad)
     lane_ok = reach_lane.lane_fits(S_pad, M, memo.n_ops)
     skip = _chunklock_skip(S_pad, M, W, rs.n_returns, lane_ok)
@@ -1344,13 +1398,15 @@ def _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets, groups,
                               M: int, n_live: int,
                               diag: Optional[dict] = None,
                               prep_base_s: float = 0.0,
-                              device=None) -> np.ndarray:
+                              device=None,
+                              body: Optional[str] = None) -> np.ndarray:
     """The lockstep scheduler: each group of ``groups`` (positions on the
     live axis, :func:`reach_batch.plan_buckets`) is marshalled, staged on
     the card and collected in order, with group g+1 staged before group
     g is collected, so the host marshals a group while the card walks
-    the one before. Returns each live history's dead return index (-1:
-    linearizable)."""
+    the one before. ``body`` pins every group's walk body (None: each
+    group's :func:`reach_batch._lockstep_body`). Returns each live
+    history's dead return index (-1: linearizable)."""
     dead = np.full(n_live, -1, np.int64)
     st = dispatch_core.DispatchState(dead, device, P)
     prep_s, dispatch_s = prep_base_s, 0.0
@@ -1360,7 +1416,7 @@ def _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets, groups,
         with obs.span("lockstep.prep", lanes=len(g)):
             prep = reach_batch.prepare_returns_batch(
                 P, _flat_lanes(ret_flat, offsets, g),
-                _flat_lanes(ops_flat, offsets, g), M)
+                _flat_lanes(ops_flat, offsets, g), M, body=body)
         t1 = _time.monotonic()
         prep_s += t1 - t0
         gdiags.append(st.stage(g, prep))
@@ -1377,10 +1433,11 @@ _BATCH_GROUP = 32
 
 def _lockstep_plan(model: Model, packed_list: Sequence[h.PackedHistory],
                    live: Sequence[int], *, max_states: int, max_slots: int,
-                   max_dense: int, u_box: Optional[dict]):
+                   max_dense: int, u_box: Optional[dict],
+                   group: Optional[int] = None):
     """The lockstep lane's prep: one union prep and its length buckets
-    (:func:`reach_batch.plan_buckets`) of at most :data:`_BATCH_GROUP`
-    lanes. Returns ``(sa, u, groups)``, or a string, the cause of the
+    (:func:`reach_batch.plan_buckets`) of at most ``group`` lanes
+    (default :data:`_BATCH_GROUP`). Returns ``(sa, u, groups)``, or a string, the cause of the
     lane's decline: fewer than two live histories, a union alphabet
     that explodes or is unhashable, a history over ``max_slots`` under
     the union's no-op classification, or a union geometry outside K2's
@@ -1396,7 +1453,8 @@ def _lockstep_plan(model: Model, packed_list: Sequence[h.PackedHistory],
     cause = _union_skip(sa, u[1], max_dense, reach_batch.fits)
     if cause is not None:
         return cause
-    return sa, u, reach_batch.plan_buckets(u[6], group=_BATCH_GROUP)
+    return sa, u, reach_batch.plan_buckets(
+        u[6], group=_BATCH_GROUP if group is None else max(1, int(group)))
 
 
 def _check_many_lockstep(model: Model,
@@ -1404,15 +1462,17 @@ def _check_many_lockstep(model: Model,
                          live: Sequence[int], *, max_states: int,
                          max_slots: int, max_dense: int, t0: float,
                          diag: Optional[dict], u_box: Optional[dict],
-                         device) -> Optional[List[Dict[str, Any]]]:
+                         device, group: Optional[int] = None,
+                         body: Optional[str] = None
+                         ) -> Optional[List[Dict[str, Any]]]:
     """The lockstep lane on K2: :func:`_lockstep_plan`, then each group
-    one K2 launch staged while the one before it walks
-    (:func:`_dispatch_lockstep_groups`). Returns the results, or None
-    when the lane declines, with the cause recorded. A fault in the lane
-    propagates."""
+    one K2 launch (K11 for a group whose body is ``word``) staged while
+    the one before it walks (:func:`_dispatch_lockstep_groups`). Returns
+    the results, or None when the lane declines, with the cause
+    recorded. A fault in the lane propagates."""
     plan = _lockstep_plan(model, packed_list, live, max_states=max_states,
                           max_slots=max_slots, max_dense=max_dense,
-                          u_box=u_box)
+                          u_box=u_box, group=group)
     if isinstance(plan, str):
         obs.decision("reach-lockstep", "skipped", cause=plan,
                      histories=len(packed_list))
@@ -1422,7 +1482,7 @@ def _check_many_lockstep(model: Model,
                   histories=len(live)):
         dead = _dispatch_lockstep_groups(P, ret_flat, ops_flat, offsets,
                                          groups, M, len(live), diag,
-                                         sa.pack_s, device)
+                                         sa.pack_s, device, body)
     return _union_results("reach-lockstep", model, packed_list, live, dead,
                           sa, key_W, key_R, t0, max_states, max_slots,
                           max_dense, device)
@@ -1492,14 +1552,17 @@ class StagedMany:
 def stage_check_many(model: Model, packed_list: Sequence[h.PackedHistory],
                      *, max_states: int = 100_000, max_slots: int = 20,
                      max_dense: int = 1 << 22, should_abort=None,
-                     device=None) -> Optional[StagedMany]:
+                     device=None, group: Optional[int] = None,
+                     body: Optional[str] = None) -> Optional[StagedMany]:
     """The staging half of :func:`check_many`'s lockstep lane on
     ``device`` (default: the card): :func:`_lockstep_plan`, then every
-    group marshalled and its K2 walk queued, nothing fetched. Returns a
+    group marshalled and its K2 walk (K11 for a ``word`` group) queued,
+    nothing fetched. ``group`` and ``body`` as in :func:`check_many`. Returns a
     :class:`StagedMany`, or None where :func:`check_many` would not take
     the lane (``should_abort`` already fired, or the lane declines);
     the caller then runs :func:`check_many`. There is no vmapped stage
     (``reach-vmapped`` is not ported). A fault propagates."""
+    _check_body(body)
     dev = _device.resolve(device)
     if should_abort is not None and should_abort():
         return None
@@ -1507,7 +1570,7 @@ def stage_check_many(model: Model, packed_list: Sequence[h.PackedHistory],
     live = [i for i, p in enumerate(packed_list) if p.n and p.n_ok]
     plan = _lockstep_plan(model, packed_list, live, max_states=max_states,
                           max_slots=max_slots, max_dense=max_dense,
-                          u_box=None)
+                          u_box=None, group=group)
     # the stage's two parts, read by the serve metrics: the union prep
     # (here) and the groups' marshalling and launches (below)
     obs.count("lockstep.union_prep_s", _time.monotonic() - t0)
@@ -1523,7 +1586,7 @@ def stage_check_many(model: Model, packed_list: Sequence[h.PackedHistory],
         with obs.span("lockstep.prep", lanes=len(g)):
             prep = reach_batch.prepare_returns_batch(
                 P, _flat_lanes(ret_flat, offsets, g),
-                _flat_lanes(ops_flat, offsets, g), M)
+                _flat_lanes(ops_flat, offsets, g), M, body=body)
         tb = _time.monotonic()
         prep_s += tb - ta
         gdiags.append(st.stage(g, prep))
@@ -1576,7 +1639,8 @@ def _check_many_native(model: Model, packed_list: Sequence[h.PackedHistory],
 def check_batch(model: Model, packed_list: Sequence[h.PackedHistory], *,
                 max_states: int = 100_000, max_slots: int = 20,
                 max_dense: int = 1 << 22, diag: Optional[dict] = None,
-                device=None) -> List[Dict[str, Any]]:
+                device=None, group: Optional[int] = None,
+                body: Optional[str] = None) -> List[Dict[str, Any]]:
     """Check several whole histories at once on ``device`` (default: the
     card) through the lockstep lane on K2 (:func:`_check_many_lockstep`):
     up to 32 histories advance together, one return index a step.
@@ -1586,7 +1650,9 @@ def check_batch(model: Model, packed_list: Sequence[h.PackedHistory], *,
     ``reach-lockstep``/``no-union-prep`` fallback. Verdicts and witnesses
     are those of :func:`check_packed`; a valid history reports the union
     geometry's ``states``. ``diag`` (a dict) receives the groups, their
-    packing and the scheduler's wall times."""
+    packing and the scheduler's wall times. ``group`` and ``body`` as in
+    :func:`check_many`."""
+    _check_body(body)
     dev = _device.resolve(device)
     t0 = _time.monotonic()
     results: List[Optional[Dict[str, Any]]] = [
@@ -1599,7 +1665,7 @@ def check_batch(model: Model, packed_list: Sequence[h.PackedHistory], *,
     out = _check_many_lockstep(
         model, packed_list, live, max_states=max_states,
         max_slots=max_slots, max_dense=max_dense, t0=t0, diag=diag,
-        u_box=None, device=dev)
+        u_box=None, device=dev, group=group, body=body)
     if out is not None:
         return out
     obs.engine_fallback("reach-lockstep", "no-union-prep",
@@ -1608,7 +1674,7 @@ def check_batch(model: Model, packed_list: Sequence[h.PackedHistory], *,
         results[i] = check_packed(model, packed_list[i],
                                   max_states=max_states,
                                   max_slots=max_slots, max_dense=max_dense,
-                                  device=dev)
+                                  device=dev, body=body)
     return results  # type: ignore[return-value]
 
 
@@ -1616,14 +1682,17 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
                max_states: int = 100_000, max_slots: int = 20,
                max_dense: int = 1 << 22, should_abort=None,
                diag: Optional[dict] = None,
-               device=None) -> List[Dict[str, Any]]:
+               device=None, group: Optional[int] = None,
+               body: Optional[str] = None) -> List[Dict[str, Any]]:
     """Batched per-key checking on ``device`` (default: the card), the
     ``independent`` checker's hot path; results align with
     ``packed_list``. Route order, each lane chosen from the geometry
     before it launches, and each recording why it declines: the lockstep
     lane on K2 (:func:`_check_many_lockstep`, route cause ``lockstep``:
-    groups of at most 32 keys; ``diag``, a dict, receives the groups,
-    their packing and the scheduler's wall times); the native
+    groups of at most ``group`` keys, default 32; ``diag``, a dict,
+    receives the groups, their packing and the scheduler's wall times;
+    ``body``, ``"word"`` or ``"dense"``, pins every group's walk body,
+    which is otherwise :func:`reach_batch._lockstep_body`'s); the native
     keyed lane (:func:`_check_many_native`, one
     union prep and one launch of K3, cause ``keyed``, or K5,
     ``keyed-wide``); the keyed kernels over each key's own prep
@@ -1636,6 +1705,7 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
     :class:`~jepsen_tpu_torch.checkers.events.ConcurrencyOverflow` or
     :class:`~jepsen_tpu_torch.models.memo.StateExplosion` when a
     history does not fit the dense engine."""
+    _check_body(body)
     dev = _device.resolve(device)
     t0 = _time.monotonic()
     n = len(packed_list)
@@ -1648,7 +1718,8 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
     u_box: dict = {}            # one union prep shared by both lanes
     if live:
         out = _check_many_lockstep(model, packed_list, live, diag=diag,
-                                   u_box=u_box, **lane_kw)
+                                   u_box=u_box, group=group, body=body,
+                                   **lane_kw)
         if out is not None:
             obs.decision("reach-many", "route", cause="lockstep",
                          histories=n)
@@ -1703,7 +1774,7 @@ def check_many(model: Model, packed_list: Sequence[h.PackedHistory], *,
         results[i] = check_packed(model, packed_list[i],
                                   max_states=max_states,
                                   max_slots=max_slots, max_dense=max_dense,
-                                  memo=preps[i][0], device=dev)
+                                  memo=preps[i][0], device=dev, body=body)
     return results  # type: ignore[return-value]
 
 

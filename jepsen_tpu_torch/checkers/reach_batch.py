@@ -23,6 +23,15 @@ capped ladder, the exact ``W``-pass rescue when a lane dies, and each
 dead lane located at its first empty block checkpoint and refined by
 :func:`reach_lane._refine_dead`, one K1 launch over the dying block.
 Verdicts and dead indices are those of H single-history walks.
+
+A group's walk body is ``dense`` (K2, above) or ``word``: the word-packed
+walk K11 over its H lanes, one launch with the table derived from P
+(:func:`_dispatch_words`), whose dead returns are exact, so its collect
+reads them and refines nothing. :func:`_lockstep_body` picks it: the
+group's pinned ``body``, else a recorded ``lockstep`` winner of
+:mod:`.autotune` for the group's geometry, else ``dense``; ``word`` only
+where :func:`reach_word.admits` the geometry. A fault in K11 propagates:
+no group is walked again on K2.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import torch
 
 from jepsen_tpu_torch import device as _device
 from jepsen_tpu_torch import obs
-from jepsen_tpu_torch.checkers import reach_lane
+from jepsen_tpu_torch.checkers import autotune, reach_lane, reach_word
 from jepsen_tpu_torch.checkers.reach_lane import _FAST_PASSES
 
 #: launches of the CUDA kernel (not of the plain version) in this process
@@ -215,23 +224,27 @@ def group_diag(geom, R_lens) -> dict:
 class BatchPrepared:
     """A group's operands marshalled on the host: ``geom`` is ``(B, W, M,
     S, H, O1, R_pad)``, ``host`` the arrays ``(P, slot_ops, ret_slot_rh,
-    R0)`` of :func:`batch_walk`, ``R_lens`` each lane's real returns."""
-    __slots__ = ("geom", "host", "R_lens")
+    R0)`` of :func:`batch_walk`, ``R_lens`` each lane's real returns,
+    ``body`` the walk body the caller pinned (``"word"``, ``"dense"``, or
+    None: :func:`_lockstep_body` picks it at dispatch)."""
+    __slots__ = ("geom", "host", "R_lens", "body")
 
-    def __init__(self, geom, host, R_lens):
+    def __init__(self, geom, host, R_lens, body=None):
         self.geom = geom
         self.host = host
         self.R_lens = R_lens
+        self.body = body
 
 
 def prepare_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
                           slot_ops: List[np.ndarray], M: int, *,
-                          B: Optional[int] = None) -> BatchPrepared:
+                          B: Optional[int] = None,
+                          body: Optional[str] = None) -> BatchPrepared:
     """Marshal H return streams into the lockstep layout on the host: all
     padded with identity steps (slot -1) to one bucketed ``R_pad`` and
     interleaved return-major, ``slot_ops[(r·H + h)·W + j]`` and
     ``ret_slot_rh[r, h]``; each lane seeded one-hot at mask 0, state 0.
-    ``B`` defaults to :func:`lock_block`."""
+    ``B`` defaults to :func:`lock_block`; ``body`` pins the walk body."""
     O1, S, _ = P.shape
     H = len(ret_slots)
     W = max(int(so.shape[1]) for so in slot_ops)
@@ -250,24 +263,27 @@ def prepare_returns_batch(P: np.ndarray, ret_slots: List[np.ndarray],
     host = (np.ascontiguousarray(P, np.float32), ops_rhw.reshape(-1), rs_rh,
             R0)
     return BatchPrepared((B, W, M, S, H, O1, R_pad), host,
-                         [int(r.shape[0]) for r in ret_slots])
+                         [int(r.shape[0]) for r in ret_slots], body)
 
 
 class BatchInflight:
     """A group whose walk is queued and not fetched: the operands on the
     card, the capped walk's outputs, each lane's alive bit reduced on the
     card, and an event recorded after them (None on the CPU, where
-    everything has run). Produced by :func:`dispatch_prepared`, consumed
-    by :func:`collect_returns_batch`."""
-    __slots__ = ("prep", "args", "ckpt", "final", "alive", "event")
+    everything has run). ``body`` is the walk body the group took; a
+    ``word`` group's ``final`` and ``alive`` are K11's final words and
+    dead returns (``args`` and ``ckpt`` None). Produced by
+    :func:`dispatch_prepared`, consumed by :func:`collect_returns_batch`."""
+    __slots__ = ("prep", "args", "ckpt", "final", "alive", "event", "body")
 
-    def __init__(self, prep, args, ckpt, final, alive, event):
+    def __init__(self, prep, args, ckpt, final, alive, event, body="dense"):
         self.prep = prep
         self.args = args
         self.ckpt = ckpt
         self.final = final
         self.alive = alive
         self.event = event
+        self.body = body
 
 
 def _alive_lanes(final: torch.Tensor, H: int, S: int) -> torch.Tensor:
@@ -275,14 +291,68 @@ def _alive_lanes(final: torch.Tensor, H: int, S: int) -> torch.Tensor:
     return (final.view(-1, H, S) > 0.5).any(2).any(0)
 
 
+def _record_event(dev):
+    if dev.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+def _lockstep_body(prep: BatchPrepared, dev) -> str:
+    """A group's walk body: ``word`` (K11) or ``dense`` (K2). The pinned
+    ``prep.body`` first, then the recorded ``lockstep`` winner for the
+    group's padded geometry on ``dev``'s backend
+    (:func:`autotune.lockstep_key`), else ``dense``; ``word`` only where
+    :func:`reach_word.admits` the geometry."""
+    _B, W, M, S, H, _O1, _R_pad = prep.geom
+    if not reach_word.admits(S, W, M):
+        return "dense"
+    if prep.body is not None:
+        return prep.body
+    w = autotune.winner("lockstep", autotune.lockstep_key(S, W, M, H),
+                        backend_name=dev.type)
+    return w if w in ("word", "dense") else "dense"
+
+
+def word_operands(prep: BatchPrepared):
+    """A group's operands for :func:`reach_word.walk_words`, on the host:
+    the table derived from P (:func:`reach_word.table_from_P`,
+    :func:`reach_word.pad_table`), each lane's seed words (state 0, mask
+    0), its stream lane-major (``ret`` i32 ``[H, R_pad]``, ``ops`` i32
+    ``[H, R_pad, W]``) and its count of returns."""
+    _B, W, M, S, H, _O1, R_pad = prep.geom
+    P, ops_flat, rs_rh, _R0 = prep.host
+    Tpad = reach_word.pad_table(reach_word.table_from_P(P))
+    R0w = np.zeros((H, S, reach_word.n_words(M)), np.int32)
+    R0w[:, 0, 0] = 1                         # mask 0, state 0 per lane
+    rs_hr = np.ascontiguousarray(rs_rh.T)
+    so_hrw = np.ascontiguousarray(
+        np.swapaxes(ops_flat.reshape(R_pad, H, W), 0, 1))
+    return Tpad, R0w, rs_hr, so_hrw, np.asarray(prep.R_lens, np.int32)
+
+
+def _dispatch_words(prep: BatchPrepared, dev) -> BatchInflight:
+    """Queue a group's word walk (:func:`word_operands`): all H lanes in
+    one K11 launch, each walked to its own length; nothing is fetched."""
+    final, dead = reach_word.walk_words(
+        *(torch.as_tensor(a, device=dev) for a in word_operands(prep)))
+    obs.count("lockstep.word_groups")
+    return BatchInflight(prep, None, None, final, dead, _record_event(dev),
+                         body="word")
+
+
 def dispatch_prepared(prep: BatchPrepared, *, device=None,
                       P_dev: Optional[torch.Tensor] = None) -> BatchInflight:
     """Copy a prepared group to ``device`` (default: the card) and queue
-    its capped walk, one K2 launch, on the current stream; nothing is
+    its walk, one K2 launch, or one K11 launch where the group's body is
+    ``word`` (:func:`_lockstep_body`), on the current stream; nothing is
     fetched and nothing waits. ``P_dev`` is the group's P already on
     ``device`` (the groups of one batch share it), else P is copied
     too. Pair with :func:`collect_returns_batch`."""
     dev = _device.resolve(device)
+    if _lockstep_body(prep, dev) == "word":
+        return _dispatch_words(prep, dev)
     B, W, M, S, H, O1, R_pad = prep.geom
     if P_dev is None:
         P_dev = torch.as_tensor(prep.host[0], device=dev)
@@ -290,11 +360,7 @@ def dispatch_prepared(prep: BatchPrepared, *, device=None,
                             for a in prep.host[1:])
     ckpt, final = batch_walk(*args, B, min(W, _FAST_PASSES))
     alive = _alive_lanes(final, H, S)
-    event = None
-    if dev.type == "cuda":
-        event = torch.cuda.Event()
-        event.record()
-    return BatchInflight(prep, args, ckpt, final, alive, event)
+    return BatchInflight(prep, args, ckpt, final, alive, _record_event(dev))
 
 
 def collect_returns_batch(fl: BatchInflight) -> np.ndarray:
@@ -304,10 +370,16 @@ def collect_returns_batch(fl: BatchInflight) -> np.ndarray:
     lane is valid); when a lane dies and ``W`` is past the cap, the exact
     ``W``-pass walk decides; each dead lane is located at its first empty
     block checkpoint, and one K1 launch over the block before it gives
-    the exact return."""
+    the exact return. A ``word`` group's dead returns are K11's, exact,
+    each clamped to its lane's returns."""
     B, W, M, S, H, O1, R_pad = fl.prep.geom
     if fl.event is not None:
         fl.event.synchronize()
+    if fl.body == "word":
+        dead = fl.alive.cpu().numpy().astype(np.int64)
+        reach_word._raise_bad(dead)
+        lens = np.maximum(np.asarray(fl.prep.R_lens, np.int64) - 1, 0)
+        return np.where(dead < 0, -1, np.minimum(dead, lens))
     alive = fl.alive.cpu().numpy()               # the one round trip
     ckpt = fl.ckpt
     if not alive.all() and min(W, _FAST_PASSES) < W:

@@ -1,12 +1,36 @@
-"""The mega-group advance of streaming sessions: many sessions' carried
+"""The word-packed walks: the post-hoc returns walk on the hand-written
+CUDA kernel K11 (``csrc/word_walk.cu``), and the mega-group advance of
+streaming sessions on K10 (``csrc/mega_walk.cu``). The counterparts of
+the reference package's ``checkers/reach_word.py``, whose walks are XLA
+programs (``_walk_words``, a ``lax.scan``, and its ``vmap`` over lanes).
+
+**The post-hoc word walk (K11).** A set of configurations is ``R[S,
+NW]`` 32-bit words, ``NW = max(1, M >> 5)``: bit ``m & 31`` of word
+``m >> 5`` of row ``s`` is the configuration (state s, mask m). Firing
+pending slot ``j < 5`` moves the bit-j-clear half of every word up by
+``2**j`` bits (``(R & ~cmask[j]) << 2**j``); slot ``j >= 5`` moves whole
+words (word w with bit ``j - 5`` set receives word ``w ^ 1 << (j -
+5)``). Each shifted word is OR-ed into row ``T[s, op_j]`` of the set
+(target -1: discarded). A return's passes run to their fixpoint, then
+the projection on the returning slot keeps the bit-set half (the inverse
+shift, or the word permutation down; slot -1 is the identity). The
+first return after which the set is empty is exact, so no refinement
+follows. :func:`walk_words` walks H lanes that share one table, each
+from its own set through its own stream, ragged lanes ending at their
+own count; on CPU tensors it runs the plain version
+(:func:`walk_words_plain`), on CUDA tensors it launches K11 or raises.
+:func:`walk_returns_words` is the single history's entry. The host
+helpers (:func:`pack_words`, :func:`pack_rows`, :func:`table_from_P`,
+:func:`pad_table`, :func:`admits`) are the reference's, byte for byte.
+
+**The mega-group advance (K10).** Many sessions' carried
 frontiers (:class:`.reach.FrontierCarry`), each walked through one
 append block of its own, in one launch of the hand-written CUDA kernel
 K10 (``csrc/mega_walk.cu``). The counterparts of the reference
 package's ``mega_geometry``, ``launch_frontiers_mega``,
 ``MegaInflight``, ``collect_frontiers_mega`` and
-``advance_frontiers_mega`` (``jepsen_tpu/checkers/reach_word.py``),
-whose batched walk is an XLA program (a ``vmap`` of the word walk over
-the session axis).
+``advance_frontiers_mega``, whose batched walk is an XLA program (a
+``vmap`` of the word walk over the session axis).
 
 A group is the carries of one geometry, :func:`mega_geometry`
 ``(engine, S_pad, W, O1)``: K1's route or K4's, the padded state count,
@@ -45,6 +69,10 @@ from jepsen_tpu_torch.checkers import reach_lane
 
 #: launches of K10 (not of its plain version) in this process
 KERNEL_LAUNCHES = 0
+
+#: launches of K11, the post-hoc word walk (not of its plain version), in
+#: this process
+WORD_LAUNCHES = 0
 
 #: int64 words of a lane's descriptor row: its tables', set's and out's
 #: addresses, the op rows its returns can name, and its geometry key
@@ -446,3 +474,359 @@ def advance_frontiers_mega(carries, blocks) -> List[int]:
     """:func:`launch_frontiers_mega` then :func:`collect_frontiers_mega`:
     one blocking group advance."""
     return collect_frontiers_mega(launch_frontiers_mega(carries, blocks))
+
+
+# -- the post-hoc word walk: host helpers (the reference's, byte for byte) --
+
+# geometry admission: a fire pass touches [S, S, W, NW] words in the
+# reference's body; the same envelope keeps K11's set and its step in
+# one block's shared memory (at most 2 x 3,648 words, W = 10, S = 114)
+_MAX_GATHER_ELEMS = 1 << 22
+_MAX_WORDS = 32                          # NW <= 32  ==>  W <= 10
+
+
+def n_words(M: int) -> int:
+    """uint32 words a state for a mask axis of ``M = 2**W``."""
+    return max(1, int(M) >> 5)
+
+
+def admits(S: int, W: int, M: int) -> bool:
+    """The word walk's envelope: at most 32 words a state and
+    ``S * S * W * NW <= 2**22``."""
+    nw = n_words(M)
+    return (nw <= _MAX_WORDS
+            and S * S * max(W, 1) * nw <= _MAX_GATHER_ELEMS)
+
+
+def pack_words(R: np.ndarray) -> np.ndarray:
+    """bool [S, M] -> uint32 [S, NW]; bit ``m & 31`` of word ``m >> 5``
+    = R[s, m]. For M < 32 the high bits are never set."""
+    S, M = R.shape
+    if M < 32:
+        R = np.concatenate(
+            [R, np.zeros((S, 32 - M), bool)], axis=1)
+    packed = np.packbits(np.ascontiguousarray(R, np.uint8),
+                         axis=1, bitorder="little")
+    return packed.view(np.uint32).reshape(S, -1)
+
+
+def unpack_words(words: np.ndarray, M: int) -> np.ndarray:
+    """uint32 [S, NW] -> bool [S, M] (inverse of :func:`pack_words`)."""
+    S = words.shape[0]
+    b = np.unpackbits(words.view(np.uint8).reshape(S, -1),
+                      axis=1, bitorder="little")
+    return b[:, :M].astype(bool)
+
+
+def pack_rows(R: np.ndarray) -> np.ndarray:
+    """bool [rows, N] -> uint32 [rows, ceil(N/32)], any N: the row
+    packing of :func:`pack_words` past power-of-two widths."""
+    rows, N = R.shape
+    pad = (-N) % 32
+    if pad:
+        R = np.concatenate([R, np.zeros((rows, pad), bool)], axis=1)
+    packed = np.packbits(np.ascontiguousarray(R, np.uint8),
+                         axis=1, bitorder="little")
+    return packed.view(np.uint32).reshape(rows, (N + pad) // 32)
+
+
+def unpack_rows(words: np.ndarray, N: int) -> np.ndarray:
+    """uint32 [rows, NW] -> bool [rows, N] (inverse of
+    :func:`pack_rows`)."""
+    rows, NW = words.shape
+    b = np.unpackbits(
+        np.ascontiguousarray(words).view(np.uint8)
+        .reshape(rows, NW * 4),
+        axis=1, bitorder="little")
+    return b[:, :N].astype(bool)
+
+
+def table_from_P(P: np.ndarray) -> np.ndarray:
+    """The flat transition table of a per-op transition tensor ``P[o,
+    s, t]`` (one-hot rows, all-zero = no transition): ``T[s, o]`` =
+    target state or -1. The lockstep groups carry only P."""
+    O1, S, _ = P.shape
+    tgt = P.argmax(axis=2).astype(np.int32)          # [O1, S]
+    has = P.max(axis=2) > 0.5
+    T = np.where(has, tgt, -1).astype(np.int32)      # [O1, S]
+    return np.ascontiguousarray(T.T)                 # [S, O1]
+
+
+def pad_table(table: np.ndarray) -> np.ndarray:
+    """Append the -1 sentinel column (slot op -1 reads it and
+    discards)."""
+    S = table.shape[0]
+    return np.concatenate(
+        [table, -np.ones((S, 1), table.dtype)], axis=1) \
+        .astype(np.int32)
+
+
+def _cmask32(W: int) -> np.ndarray:
+    """32-bit within-word masks: bit m of ``cmask32[j]`` set iff mask
+    position ``m`` has bit j set (j < 5; the pattern repeats every 32
+    mask positions, so one word serves every word of the vector)."""
+    m = np.arange(32)
+    return np.array(
+        [sum(1 << int(x) for x in m[(m >> j) & 1 == 1])
+         for j in range(min(W, 5))] or [0], np.uint32)
+
+
+# -- the post-hoc word walk: the plain version --------------------------------
+
+_LOW32 = 0xFFFFFFFF
+
+
+def _as_words(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 words in [0, 2**32) (the shifts are
+    not implemented for torch.uint32 on the CPU)."""
+    return x.long() & _LOW32
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> their int32 bit patterns."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _word_lanes_bad(ret_slot: torch.Tensor, slot_ops: torch.Tensor,
+                    live: torch.Tensor, O1p: int) -> torch.Tensor:
+    """Lanes whose walked steps name a slot past W or an op past the
+    table: K11 walks none of them (dead -2, the set left as it was)."""
+    W = slot_ops.shape[2]
+    return (((slot_ops >= O1p) & live[..., None]).flatten(1).any(1)
+            | ((ret_slot >= W) & live).any(1))
+
+
+def walk_words_plain(Tpad: torch.Tensor, R0: torch.Tensor,
+                     ret_slot: torch.Tensor, slot_ops: torch.Tensor,
+                     n: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The walk of :func:`walk_words` in PyTorch ops, on any device: the
+    reference's ``_walk_words`` over a lane axis, the table shared.
+
+    ``Tpad`` i32 ``[S, O1p]`` (its last column the -1 sentinel), ``R0``
+    i32 ``[H, S, NW]`` (the uint32 words' bit patterns), ``ret_slot``
+    i32 ``[H, R]``, ``slot_ops`` i32 ``[H, R, W]``, ``n`` each lane's
+    count of real steps (default R; the steps past it are the identity).
+    Each step fires its slots (target ``S`` discards) in Jacobi passes,
+    each ``R | fired(R)``, as many as its lanes' largest pending count
+    (they reach the fixpoint, so the rest of the reference's W passes
+    are the identity), then projects on its slot. Returns ``(final i32 [H, S, NW], dead i32
+    [H])``: each lane's set after its steps and the first step after
+    which it is empty, or -1; -2 for a lane whose steps name a slot
+    past W or an op past the table (it walks nothing, as K11)."""
+    H, S, NW = R0.shape
+    R_len, W = slot_ops.shape[1], slot_ops.shape[2]
+    dev = R0.device
+    O1 = Tpad.shape[1] - 1
+    R = _as_words(R0)
+    T = Tpad.long()
+    js = ret_slot.long()
+    ops = slot_ops.long()
+    steps = torch.arange(R_len, device=dev)
+    live = steps[None, :] < (torch.full((H,), R_len, device=dev)
+                             if n is None else n.to(dev).long())[:, None]
+    bad = _word_lanes_bad(js, ops, live, Tpad.shape[1])
+    live &= ~bad[:, None]
+    js = torch.where(live, js, -1)
+    ops = torch.where(live[..., None], ops, -1)
+    Wc = min(W, 5)
+    cm = torch.as_tensor(_cmask32(W).astype(np.int64), device=dev)
+    within = torch.arange(Wc, device=dev)
+    w_idx = torch.arange(NW, device=dev)
+    bits = torch.arange(32, device=dev)
+    # slot jj >= 5: word w with bit jj - 5 set takes word w ^ (1 << jj - 5)
+    cross_src = torch.stack([w_idx ^ (1 << jb) for jb in range(W - 5)])         if W > 5 else w_idx[None, :0]
+    cross_on = torch.stack([(w_idx >> jb) & 1 for jb in range(W - 5)])         if W > 5 else w_idx[None, :0]
+    dead = torch.full((H,), -1, dtype=torch.long, device=dev)
+    dead[bad] = -2
+    # past every lane's count the steps are the identity
+    R_len = int(live.sum(1).max()) if H else 0
+    passes = (ops[:, :R_len] >= 0).sum(2).amax(0).tolist()
+
+    # slot j < 5: keep the bit-j-clear half, shift it up by 2**j
+    up_keep = (~cm[:Wc] & _LOW32)[None, None, :, None]
+    up_by = (1 << within)[None, None, :, None]
+
+    def fired(R, tgt):
+        """OR of every slot's shifted rows into their targets."""
+        up = (R[:, :, None, :] & up_keep) << up_by           # [H, S, Wc, NW]
+        if W > 5:
+            moved = R[:, :, cross_src] * cross_on[None, None]  # [H, S, W-5, NW]
+            up = torch.cat([up, moved], 2)
+        sh = ((up[..., None] >> bits) & 1).to(torch.uint8)  # [H, S, W, NW, 32]
+        idx = tgt.reshape(H, S * W, 1).expand(H, S * W, NW * 32)
+        acc = torch.zeros((H, S + 1, NW * 32), dtype=torch.uint8,
+                          device=dev)
+        acc.scatter_reduce_(1, idx, sh.reshape(H, S * W, NW * 32), "amax")
+        return (acc[:, :S].view(H, S, NW, 32).long() << bits).sum(3)
+
+    for r in range(R_len):
+        o = torch.where(ops[:, r] < 0, O1, ops[:, r])          # [H, W]
+        tgt = T[:, o].permute(1, 0, 2)                         # [H, S, W]
+        tgt = torch.where(tgt < 0, S, tgt)
+        for _ in range(passes[r]):
+            R = R | fired(R, tgt)
+        j = js[:, r]
+        jw = j.clamp(0, max(Wc - 1, 0))
+        proj_in = (R & cm[jw][:, None, None]) >> (1 << jw)[:, None, None]
+        jb = (j - 5).clamp(min=0)
+        src = (w_idx[None, :] | (1 << jb)[:, None]).clamp(max=NW - 1)
+        keep = ((w_idx[None, :] >> jb[:, None]) & 1) == 0       # [H, NW]
+        proj_x = R.gather(2, src[:, None, :].expand(H, S, NW)) * \
+            keep[:, None, :]
+        proj = torch.where((j < 5)[:, None, None], proj_in, proj_x)
+        R = torch.where((j >= 0)[:, None, None], proj, R)
+        died = (dead == -1) & ~(R != 0).flatten(1).any(1) & live[:, r]
+        dead = torch.where(died, r, dead)
+    R = torch.where(bad[:, None, None], _as_words(R0), R)
+    return _as_int32(R).contiguous(), dead.to(torch.int32)
+
+
+# -- the post-hoc word walk: the kernel ---------------------------------------
+
+_WORD_LIB = None
+
+
+def _word_lib():
+    global _WORD_LIB
+    if _WORD_LIB is None:
+        from jepsen_tpu_torch import _build
+        lib = _build.load("word_walk")
+        lib.jt_word_walk.argtypes = [ctypes.c_void_p] * 8 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+        lib.jt_word_walk.restype = ctypes.c_int
+        lib.jt_word_design.argtypes = [ctypes.c_int] * 4 + \
+            [ctypes.POINTER(ctypes.c_int)]
+        lib.jt_word_design.restype = ctypes.c_int
+        _WORD_LIB = lib
+    return _WORD_LIB
+
+
+def _word_shapes(Tpad, R0, ret_slot, slot_ops, n):
+    """``(H, R, S, NW, W, O1p)`` of consistent operands, else
+    ValueError."""
+    H, S, NW = R0.shape if R0.dim() == 3 else (0, 0, 0)
+    R = ret_slot.shape[1] if ret_slot.dim() == 2 else -1
+    W = slot_ops.shape[2] if slot_ops.dim() == 3 else 0
+    if (H < 1 or Tpad.dim() != 2 or Tpad.shape[0] != S
+            or Tpad.shape[1] < 1 or tuple(ret_slot.shape) != (H, R)
+            or tuple(slot_ops.shape) != (H, R, W) or not 1 <= W <= 10
+            or NW != n_words(1 << W)
+            or (n is not None and tuple(n.shape) != (H,))):
+        raise ValueError(
+            f"walk_words: inconsistent shapes Tpad{tuple(Tpad.shape)} "
+            f"R0{tuple(R0.shape)} ret_slot{tuple(ret_slot.shape)} "
+            f"slot_ops{tuple(slot_ops.shape)}"
+            f"{'' if n is None else f' n{tuple(n.shape)}'}")
+    if not admits(S, W, 1 << W):
+        raise ValueError(f"walk_words: S={S} W={W} is past the word "
+                         f"walk's envelope (admits)")
+    return H, R, S, NW, W, Tpad.shape[1]
+
+
+def _walk_words_cuda(Tpad, R0, ret_slot, slot_ops, n, events, stats):
+    global WORD_LAUNCHES
+    dev = R0.device
+    H, R, S, NW, W, O1p = _word_shapes(Tpad, R0, ret_slot, slot_ops, n)
+    if n is None:
+        n = torch.full((H,), R, dtype=torch.int32, device=dev)
+    reach_lane._check_operands(
+        "walk_words", dev,
+        (("Tpad", Tpad, torch.int32), ("R0", R0, torch.int32),
+         ("ret_slot", ret_slot, torch.int32),
+         ("slot_ops", slot_ops, torch.int32), ("n", n, torch.int32))
+        + (() if stats is None else (("stats", stats, torch.int32),)))
+    if stats is not None and tuple(stats.shape) != (H, 2):
+        raise ValueError(f"walk_words: stats{tuple(stats.shape)}, want "
+                         f"({H}, 2)")
+    final = torch.empty_like(R0)
+    dead = torch.empty(H, dtype=torch.int32, device=dev)
+    lib = _word_lib()
+    with torch.cuda.device(dev):
+        evs = [None, None]
+        if events is not None:
+            for k, e in enumerate(events):
+                if not e.cuda_event:
+                    e.record()                 # made at its first record
+                evs[k] = e.cuda_event
+        err = lib.jt_word_walk(
+            Tpad.data_ptr(), R0.data_ptr(), ret_slot.data_ptr(),
+            slot_ops.data_ptr(), n.data_ptr(), final.data_ptr(),
+            dead.data_ptr(), None if stats is None else stats.data_ptr(),
+            H, R, S, O1p, W, NW,
+            torch.cuda.current_stream().cuda_stream, *evs)
+    if err != 0:
+        raise RuntimeError(f"word_walk kernel launch failed: CUDA error "
+                           f"{err}")
+    WORD_LAUNCHES += 1
+    return final, dead
+
+
+def walk_words(Tpad: torch.Tensor, R0: torch.Tensor, ret_slot: torch.Tensor,
+               slot_ops: torch.Tensor, n: Optional[torch.Tensor] = None,
+               events=None, stats: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H lanes' word walks with :func:`walk_words_plain`'s contract: K11
+    for operands on the card (asynchronous, on the current stream, a
+    block a lane; ``events``, two ``torch.cuda.Event(enable_timing=True)``,
+    are recorded by the C entry point right around the launch; ``stats``,
+    i32 ``[H, 2]`` on the card, receives each lane's fire passes and
+    steps walked), the plain version for operands on the CPU. Any other
+    device raises ValueError, a failed launch RuntimeError; there is no
+    fallback."""
+    dev = R0.device
+    if dev.type == "cuda":
+        return _walk_words_cuda(Tpad, R0, ret_slot, slot_ops, n, events,
+                                stats)
+    if dev.type != "cpu":
+        raise ValueError(f"walk_words: unsupported device {dev}")
+    _word_shapes(Tpad, R0, ret_slot, slot_ops, n)
+    return walk_words_plain(Tpad, R0, ret_slot, slot_ops, n)
+
+
+def word_design(S: int, W: int, R: int) -> dict:
+    """The launch K11 makes for one lane of this geometry: threads a
+    block, dynamic shared memory (bytes) and the returns staged at a
+    time."""
+    out = (ctypes.c_int * 3)()
+    err = _word_lib().jt_word_design(S, W, n_words(1 << W), R, out)
+    if err != 0:
+        raise RuntimeError(f"word_design: CUDA error {err}")
+    return {"threads": out[0], "smem": out[1], "chunk": out[2]}
+
+
+def _raise_bad(dead: np.ndarray) -> None:
+    if (dead < -1).any():
+        raise RuntimeError(f"walk_words: lanes {np.flatnonzero(dead < -1)} "
+                           f"name a slot past W or an op past the table")
+
+
+def walk_returns_words(table: np.ndarray, ret_slot: np.ndarray,
+                       slot_ops: np.ndarray, M: int, *,
+                       device=None) -> Tuple[int, np.ndarray]:
+    """The single history's post-hoc word walk on ``device`` (default:
+    the card) from state 0, mask 0: ``table`` i32 ``[S, O]`` (the
+    memo's, no sentinel column: it is appended here). Returns ``(dead,
+    final_words)``: the exact first dead return (-1: linearizable),
+    clamped to the stream, and the final set uint32 ``[S, NW]``. One K11
+    launch on the card, no padding of the stream."""
+    from jepsen_tpu_torch import device as _device
+
+    dev = _device.resolve(device)
+    n = int(ret_slot.shape[0])
+    R0w = np.zeros((1, int(table.shape[0]), n_words(M)), np.int32)
+    R0w[0, 0, 0] = 1
+    final, dead = walk_words(
+        torch.as_tensor(pad_table(table), device=dev),
+        torch.as_tensor(R0w, device=dev),
+        torch.as_tensor(np.ascontiguousarray(ret_slot, np.int32)[None],
+                        device=dev),
+        torch.as_tensor(np.ascontiguousarray(slot_ops, np.int32)[None],
+                        device=dev))
+    obs.count("reach.word_walk")
+    d = dead.cpu().numpy()
+    _raise_bad(d)
+    words = final[0].cpu().numpy().view(np.uint32)
+    if d[0] < 0:
+        return -1, words
+    return min(int(d[0]), max(n - 1, 0)), words

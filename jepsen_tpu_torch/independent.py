@@ -90,6 +90,8 @@ class IndependentChecker(Checker):
         kw = dict(self.inner.opts)
         if self.inner.device is not None:
             kw.setdefault("device", self.inner.device)
+        if self.inner.body is not None:
+            kw.setdefault("body", self.inner.body)
         if opts:
             kw.update(opts)
         packs, fits, results = {}, [], {}

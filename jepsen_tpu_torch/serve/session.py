@@ -834,13 +834,19 @@ class Session:
 # -- the mega-group advance -----------------------------------------------
 
 # the group width below which sessions advance alone: one staged member
-# gains nothing from a group launch (the reference's default; the port
-# has no autotune table)
+# gains nothing from a group launch (the reference's default)
 _MEGA_CROSSOVER_DEFAULT = 2
 
 
 def mega_crossover() -> int:
-    """The width from which a group advances in one launch of K10."""
+    """The width from which a group advances in one launch of K10: the
+    recorded ``session-mega`` ``crossover`` winner of the autotune table,
+    else the reference's default, 2."""
+    from jepsen_tpu_torch.checkers import autotune
+
+    w = autotune.winner("session-mega", "crossover")
+    if w is not None and str(w).isdigit():
+        return max(1, int(w))
     return _MEGA_CROSSOVER_DEFAULT
 
 

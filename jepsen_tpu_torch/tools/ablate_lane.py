@@ -27,14 +27,23 @@ Usage::
 
     python -m jepsen_tpu_torch.tools.ablate_lane [--ops N] \\
         [--variants a,b,...] [--repeat N] [--device cuda|cpu]
+    python -m jepsen_tpu_torch.tools.ablate_lane --bodies [--ops N] \\
+        [--repeat N] [--device cuda|cpu] [--no-record]
 
-It runs on the card unless ``--device cpu`` asks for the plain
-versions, and raises when there is no card.
+``--bodies`` (:func:`body_sweep`) times the single history's two walk
+bodies instead, ``check_packed(body="word")`` (K11) against
+``body="dense"`` (the default route), on one generated cas history,
+checks that they agree, prints one JSON row and records the faster as
+the ``walk`` winner of the autotune table (``checkers/autotune.py``),
+which ``check_packed`` then follows for that geometry. It runs on the
+card unless ``--device cpu`` asks for the plain versions, and raises
+when there is no card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import math
 import sys
 import time
@@ -818,15 +827,64 @@ def ladder(names: Sequence[str], geom, args, repeat: int = 2,
 
 
 _NOT_PORTED = {
-    "bodies": "--bodies sweeps the word-packed post-hoc walk against the "
-              "dense one and records the winner in the autotune table; "
-              "both are not ported yet (ROADMAP queue 1, item 7: "
-              "reach_word._walk_words, walk_returns_words and "
-              "checkers/autotune.py)",
     "pipeline": "--pipeline sweeps the serve lane's in-flight depth over "
                 "reach.stage_check_many; the sweep itself is not ported yet "
                 "(ROADMAP queue 1, item 6)",
 }
+
+
+def body_sweep(ops: int, repeat: int, record: bool, device=None) -> dict:
+    """The post-hoc body sweep: on one generated cas history (``ops``
+    operations, 5 processes, seed 42) ``reach.check_packed`` with
+    ``body="word"`` and with ``body="dense"`` on ``device`` (default: the
+    card), each the best of ``repeat`` timed calls after one warm call;
+    verdict, failing op and dead event must agree. Prints the reference's
+    JSON row and, with ``record``, records the faster body as the
+    ``walk`` winner for the geometry on the device's backend. Returns
+    the row."""
+    from jepsen_tpu_torch import fixtures, history, models
+    from jepsen_tpu_torch.checkers import autotune, events as ev, reach
+
+    dev = _device.resolve(device)
+    model = models.cas_register()
+    packed = history.pack(fixtures.gen_history("cas", n_ops=ops,
+                                               processes=5, seed=42))
+    memo, stream, _T, _S, M = reach._prep(
+        model, packed, max_states=100_000, max_slots=20, max_dense=1 << 22)
+    W = max(stream.W, 1)
+    n = ev.returns_view(stream).n_returns
+
+    def one(body: str):
+        res = reach.check_packed(model, packed, device=dev, body=body)
+        best = math.inf
+        for _ in range(max(1, repeat)):
+            t0 = time.monotonic()
+            res = reach.check_packed(model, packed, device=dev, body=body)
+            best = min(best, time.monotonic() - t0)
+        return res, best
+
+    res_w, t_word = one("word")
+    res_d, t_dense = one("dense")
+    for key in ("valid", "op", "dead-event"):
+        if res_w.get(key) != res_d.get(key):
+            raise AssertionError(f"--bodies: {key} differs: word "
+                                 f"{res_w.get(key)} dense {res_d.get(key)}")
+    winner = "word" if t_word <= t_dense else "dense"
+    row = {"geometry": {"S": memo.n_states, "W": W, "M": M,
+                        "returns": int(n)},
+           "word_s": round(t_word, 4), "dense_s": round(t_dense, 4),
+           "winner": winner,
+           "speedup": round(t_dense / max(t_word, 1e-9), 2),
+           "word_engine": res_w.get("engine"),
+           "dense_engine": res_d.get("engine")}
+    if record:
+        row["recorded"] = autotune.record(
+            "walk", autotune.walk_key(memo.n_states, W, M, n), winner,
+            metric=n / max(min(t_word, t_dense), 1e-9),
+            detail={"word_s": row["word_s"], "dense_s": row["dense_s"]},
+            backend_name=dev.type)
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def main(argv=None) -> int:
@@ -841,20 +899,26 @@ def main(argv=None) -> int:
                     help="default: the card; 'cpu' runs the plain "
                          "PyTorch versions")
     ap.add_argument("--bodies", action="store_true",
-                    help="not ported: the word-packed vs dense body sweep")
+                    help="time the word walk (K11) against the dense route "
+                         "on one cas history and record the winner in the "
+                         "autotune table")
+    ap.add_argument("--no-record", action="store_true",
+                    help="with --bodies: measure only, write no winner")
     ap.add_argument("--pipeline", action="store_true",
                     help="not ported: the serve-lane depth sweep")
     args = ap.parse_args(argv)
-    for mode in ("pipeline", "bodies"):
-        if getattr(args, mode):
-            print(f"ablate_lane: {_NOT_PORTED[mode]}", file=sys.stderr)
-            return 2
+    if args.pipeline:
+        print(f"ablate_lane: {_NOT_PORTED['pipeline']}", file=sys.stderr)
+        return 2
+    if args.repeat < 1:
+        ap.error("--repeat must be at least 1")
+    if args.bodies:
+        body_sweep(args.ops, args.repeat, not args.no_record, args.device)
+        return 0
     names = args.variants.split(",")
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         ap.error(f"unknown variants {unknown}")
-    if args.repeat < 1:
-        ap.error("--repeat must be at least 1")
     dev = _device.resolve(args.device)
     from jepsen_tpu_torch.checkers import reach_lane
 

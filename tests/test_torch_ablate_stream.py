@@ -6,6 +6,8 @@ kernels (``tools/ablate_lane.py`` ``make_call_stream`` and
 ``make_call``) run in TPU interpret mode, the port's wrappers run their
 plain PyTorch versions on CPU tensors, and every comparison is exact.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -96,8 +98,16 @@ def test_main_on_cpu_prints_the_ladder(capsys):
 
 @pytest.mark.parametrize("mode", ["--bodies", "--pipeline"])
 def test_main_unported_modes_exit_nonzero(mode, capsys):
-    """The word-packed body sweep and the pipeline sweep need modules not
-    ported yet: they exit non-zero and name the ROADMAP items."""
+    """The pipeline sweep needs a module not ported yet: it exits non-zero
+    and names the ROADMAP item. The body sweep is ported: on the CPU,
+    without recording, it exits 0 and prints its JSON row."""
+    if mode == "--bodies":
+        assert ab_pt.main([mode, "--ops", "200", "--repeat", "1",
+                           "--device", "cpu", "--no-record"]) == 0
+        row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert row["word_engine"] == "reach-word"
+        assert row["winner"] in ("word", "dense") and "recorded" not in row
+        return
     assert ab_pt.main([mode]) != 0
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP queue 1" in err

@@ -169,7 +169,7 @@ def test_ledger_records_route_and_unported_stages():
     assert [r["stage"] for r in cap.selections()] == ["reach-lane"]
     assert cap.fallbacks() == []
     skipped = {r["stage"]: r["cause"] for r in cap.skipped()}
-    assert skipped == {"reach-word": "not-ported",
+    assert skipped == {"reach-word": "no-winner",
                        "reach-chunklock": "below-min-returns"}
     assert [r["engine"] for r in cap.ledger
             if r["event"] == "route"] == ["reach-lane"]
